@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -31,14 +30,8 @@ from .. import datasets as ds
 from ..graph import GraphLoader
 from ..models import EGNNFusedModel
 from ..ops.edge import egnn_message
+from .bench import card_line
 from .infer import Predictor
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def main() -> dict:
@@ -108,7 +101,7 @@ def main() -> dict:
     print(f"egnn_message at the serving bucket: host enqueue {enqueue_us:.1f} "
           f"us per call, {call_us:.1f} us per call back to back")
     res = {
-        "card": _card(), "predict_ms": predict_ms,
+        "card": card_line(), "predict_ms": predict_ms,
         "host_batch_ms": host_batch_ms, "traced_wall_ms": traced_wall_ms,
         "device_ms": device_ms, "idle_share": 1 - device_ms / traced_wall_ms,
         "egnn_enqueue_us": enqueue_us, "egnn_call_us": call_us,

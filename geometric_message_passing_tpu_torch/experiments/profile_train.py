@@ -1,0 +1,103 @@
+"""Where the time of one training epoch goes, on one CUDA card.
+
+    python -m geometric_message_passing_tpu_torch.experiments.profile_train
+
+Trains the bench configuration (EGNN 4 layers x 128, pool "first", 1400
+star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``)
+through ``fit_regression`` for a few warm epochs, then traces one more epoch
+(7 train steps, the validation pass and, since its best-val rule fires on a
+first epoch, the test pass) with ``torch.profiler`` and prints:
+  * the mean epoch wall time of an untraced 10-epoch run, and the traced
+    epoch's wall time (host clock, profiler overhead included), device busy
+    time and the device's idle share of each;
+  * device time and launch counts by group: K1 (the message kernel), K2 (its
+    backward), the CSR build (sort, searchsorted), matrix products outside
+    the kernels (update MLP, readout), the Adam update and the rest;
+  * the top kernels by device time, with launch counts.
+The last line is one JSON object of these numbers with the card's name and
+power limit.  It needs a card and raises without one.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .bench import LR, bench_data, bench_model, card_line
+from .train import fit_regression, seed_everything
+
+# kernel-name fragments of each group, checked in this order
+GROUPS = (
+    ("K1 egnn_message", ("egnn_edge_kernel", "egnn_reduce_kernel")),
+    ("K2 egnn_message_bwd", ("egnn_bwd_",)),
+    ("CSR build", ("radixSort", "RadixSort", "searchsorted", "sort")),
+    ("matmul outside kernels", ("gemm", "Gemm", "cutlass", "sm90_xmma")),
+    ("Adam", ("multi_tensor_apply", "adam", "Adam")),
+)
+
+
+def _group(name: str) -> str:
+    for group, parts in GROUPS:
+        if any(p in name for p in parts):
+            return group
+    return "other"
+
+
+def main(warm_epochs: int = 3) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, loaders = bench_data()
+    model = bench_model(seed_everything(0))
+    fit = dict(lr=LR, seed=1, device="cuda")
+    warm = fit_regression(model, None, *loaders, n_epochs=warm_epochs, **fit)
+    model.load_state_dict(warm.variables)
+
+    epoch_ms = fit_regression(model, None, *loaders, n_epochs=10,
+                              **fit).train_time / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fit_regression(model, None, *loaders, n_epochs=1, **fit)
+        traced_wall_ms = (time.perf_counter() - t) * 1e3
+    rows = []
+    for ev in prof.key_averages():   # device-side events: kernels, copies
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)):
+            rows.append((ev.self_device_time_total, ev.count, ev.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3
+    groups = defaultdict(lambda: [0.0, 0])
+    for dev_us, count, key in rows:
+        g = groups[_group(key)]
+        g[0] += dev_us / 1e3
+        g[1] += count
+    print(f"untraced: {epoch_ms:.3f} ms per epoch (mean of 10), idle share "
+          f"{1 - device_ms / epoch_ms:.3f} at the traced epoch's device time")
+    print(f"traced epoch: wall {traced_wall_ms:.3f} ms, device time "
+          f"{device_ms:.3f} ms, idle share {1 - device_ms / traced_wall_ms:.3f}")
+    for name, (ms, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        print(f"  {ms:9.3f} ms  {count:5d}x  {name}")
+    print("top kernels:")
+    for dev_us, count, key in rows[:20]:
+        print(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    res = {
+        "card": card_line(), "epoch_ms_untraced": epoch_ms,
+        "idle_share_untraced": 1 - device_ms / epoch_ms,
+        "traced_wall_ms": traced_wall_ms, "device_ms": device_ms,
+        "idle_share": 1 - device_ms / traced_wall_ms,
+        "groups": {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()},
+        "top_kernels": [{"name": k, "count": c, "ms": u / 1e3}
+                        for u, c, k in rows[:20]],
+    }
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

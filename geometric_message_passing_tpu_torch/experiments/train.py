@@ -1,0 +1,289 @@
+"""Regression training over a device-resident dataset (port of the JAX
+package's ``experiments/train.py``: ``fit_regression`` -> ``fit_resident``,
+the single-device path).
+
+The JAX engine runs a whole experiment as one jit-compiled scan.  The port
+runs the same protocol eagerly, epoch by epoch, with the data on the device
+in slot layout (``graph.SlotData``):
+
+  * each epoch shuffles the training graphs on the device
+    (``torch.randperm`` from a device generator seeded by ``seed``), pads
+    the last batch with the sentinel index M and assembles every batch on
+    the device (``graph.assemble_batch``);
+  * a train step is the L1-sum loss, ``backward`` (through the EGNN kernels'
+    autograd function) and an Adam step;
+  * the learning rate is set from the plateau scheduler before the epoch's
+    steps; after them the validation MAE is read to the host (one read per
+    epoch) and the test set is evaluated only when validation is at least as
+    good as the best so far: the JAX package's best-val rule.
+
+Protocol quirks kept from the JAX package (and its reference): losses are
+sums over the batch, metrics sum / num_examples, the plateau scheduler runs
+in ``mode='max'`` on the validation MAE, and regression re-instantiates the
+model every repeat.  The JAX engine's checkpointing, NaN recovery, ``mesh=``,
+cosine schedule and ``loss_mask`` are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import copy
+import random
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..graph import (GraphBatch, GraphLoader, SlotData, assemble_batch,
+                     build_slot_data, eval_slot_indices)
+
+
+def seed_everything(seed: int = 0) -> torch.Generator:
+    """Seed Python's, numpy's and torch's global generators; returns a CPU
+    ``torch.Generator`` seeded with ``seed`` (the JAX package returns a
+    PRNGKey), e.g. for a model's initial weights."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def l1_sum_loss(pred: torch.Tensor, batch: GraphBatch,
+                mask_cols: Optional[int] = None) -> torch.Tensor:
+    """sum |pred - y| over real graphs; ``mask_cols`` keeps the first k
+    target columns."""
+    y = batch.y
+    if mask_cols is not None:
+        pred, y = pred[:, :mask_cols], y[:, :mask_cols]
+    return ((pred - y).abs() * batch.graph_mask[:, None]).sum()
+
+
+# ---------------------------------------------------------------------------
+# ReduceLROnPlateau (torch semantics), in the JAX package's float32 arithmetic
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PlateauConfig:
+    mode: str = "max"            # torch's mode param
+    factor: float = 0.9
+    patience: int = 25
+    threshold: float = 1e-4      # rel threshold (torch default)
+    min_lr: float = 1e-5
+
+
+def plateau_init(lr: float) -> Dict[str, np.generic]:
+    return {"lr": np.float32(lr), "best": np.float32(-np.inf),
+            "bad": np.int32(0)}
+
+
+def plateau_update(state: Dict[str, np.generic], metric: float,
+                   cfg: PlateauConfig) -> Dict[str, np.generic]:
+    """One scheduler step on ``metric``.  Every operation is float32, as in
+    the JAX package, so the two decay the rate on the same epochs."""
+    f32 = np.float32
+    metric = f32(metric)
+    signed = metric if cfg.mode == "max" else -metric
+    best = state["best"]
+    dynamic = (best * f32(1 + cfg.threshold) if best >= 0
+               else best * f32(1 - cfg.threshold))
+    improved = bool(signed > dynamic)
+    bad = np.int32(0) if improved else np.int32(state["bad"] + 1)
+    decay = bool(bad > cfg.patience)
+    lr = (max(state["lr"] * f32(cfg.factor), f32(cfg.min_lr)) if decay
+          else state["lr"])
+    return {"lr": f32(lr), "best": signed if improved else best,
+            "bad": np.int32(0) if decay else bad}
+
+
+def make_tx(params, lr: float = 1e-4) -> torch.optim.Optimizer:
+    """The experiment optimizer: Adam with ``optax.adam``'s constants."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+@dataclass
+class FitResult:
+    best_val: float
+    test: float
+    train_time: float
+    perf_per_epoch: np.ndarray      # [epochs, 2] = (test, val)
+    variables: Dict[str, torch.Tensor]   # trained state dict
+    train_losses: np.ndarray = field(  # [epochs, steps]: each step's loss
+        default_factory=lambda: np.zeros((0, 0), np.float32))
+
+
+def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+               slot: SlotData, idx_row: torch.Tensor) -> torch.Tensor:
+    """One optimizer step on the batch of graphs ``idx_row``; returns the
+    loss as a device scalar (no host read)."""
+    batch = assemble_batch(slot, idx_row)
+    loss = l1_sum_loss(model(batch), batch)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def eval_metric(model: torch.nn.Module, slot: SlotData, plan: torch.Tensor,
+                num_examples: int) -> torch.Tensor:
+    """Summed L1 over the rows of ``plan`` divided by ``num_examples``, as a
+    device scalar (forward only)."""
+    total = torch.zeros((), dtype=torch.float32, device=plan.device)
+    for idx_row in plan:
+        batch = assemble_batch(slot, idx_row)
+        total = total + l1_sum_loss(model(batch), batch)
+    return total / num_examples
+
+
+def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
+                 val_loader: GraphLoader, test_loader: GraphLoader,
+                 n_epochs: int, lr: float = 1e-4, task: str = "regression",
+                 cosine: bool = False,
+                 plateau: Optional[PlateauConfig] = None, seed: int = 0,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, nan_recovery: bool = False,
+                 device=None,
+                 epoch_order: Optional[Callable[[int], torch.Tensor]] = None,
+                 ) -> FitResult:
+    """Train ``model`` in place for ``n_epochs`` over device-resident slot
+    copies of the three loaders' graphs.  The model's parameters must be on
+    ``device`` (default ``"cuda"``; raises without CUDA).
+
+    ``epoch_order(epoch) -> LongTensor[m]`` replaces the epoch's shuffle of
+    the m training graphs.  It is a test seam, not a feature: the tests feed
+    the JAX package's permutations through it, which torch cannot draw.
+
+    Matrix products outside the kernels (the update MLP, the readout) run
+    in full float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay
+    False, its default; this raises otherwise."""
+    if task != "regression":
+        raise NotImplementedError("classification is not ported yet")
+    if cosine:
+        raise NotImplementedError("the cosine schedule is not ported yet")
+    if checkpoint_dir or checkpoint_every or nan_recovery:
+        raise NotImplementedError(
+            "checkpointing and NaN recovery are not ported yet")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("fit_resident runs in float32: set "
+                         "torch.backends.cuda.matmul.allow_tf32 = False")
+    plateau = plateau or PlateauConfig()
+    slot_train, slot_val, slot_test = (
+        build_slot_data(ld.graphs, y_dtype=ld.y_dtype, device=dev)
+        for ld in (train_loader, val_loader, test_loader))
+    b = train_loader.batch_size
+    steps = len(train_loader)
+    m = slot_train.num_graphs
+    val_plan = torch.from_numpy(eval_slot_indices(slot_val.num_graphs, b)).to(dev)
+    test_plan = torch.from_numpy(eval_slot_indices(slot_test.num_graphs, b)).to(dev)
+    pad_row = torch.full((steps * b - m,), m, dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    opt = make_tx(model.parameters(), lr)
+    sched = plateau_init(lr)
+    best_val = np.float32(np.inf)
+    test_metric = torch.zeros((), dtype=torch.float32, device=dev)
+    tests: List[torch.Tensor] = []
+    vals: List[np.float32] = []
+    losses: List[List[float]] = []
+    t0 = time.time()
+    for epoch in range(n_epochs):
+        for group in opt.param_groups:
+            group["lr"] = float(sched["lr"])
+        perm = (epoch_order(epoch) if epoch_order is not None
+                else torch.randperm(m, generator=gen, device=dev))
+        slots = torch.cat([perm.to(device=dev, dtype=torch.long),
+                           pad_row]).reshape(steps, b)
+        model.train()
+        step_losses = [train_step(model, opt, slot_train, row)
+                       for row in slots]
+        model.eval()
+        val = eval_metric(model, slot_val, val_plan, val_loader.num_examples)
+        read = torch.cat([val[None], torch.stack(step_losses)]).tolist()
+        val_f = np.float32(read[0])     # the epoch's one host read
+        losses.append(read[1:])
+        if val_f <= best_val:
+            test_metric = eval_metric(model, slot_test, test_plan,
+                                      test_loader.num_examples)
+            best_val = val_f
+        sched = plateau_update(sched, val_f, plateau)
+        tests.append(test_metric)
+        vals.append(val_f)
+    test_read = torch.stack(tests).tolist() if tests else []
+    train_time = time.time() - t0
+    return FitResult(
+        best_val=float(best_val),
+        test=float(np.float32(test_read[-1])) if test_read else 0.0,
+        train_time=train_time,
+        perf_per_epoch=np.asarray(list(zip(test_read, vals)),
+                                  np.float32).reshape(-1, 2),
+        variables={k: v.detach().clone() for k, v in model.state_dict().items()},
+        train_losses=np.asarray(losses, np.float32).reshape(n_epochs, steps),
+    )
+
+
+def fit_regression(model: torch.nn.Module, variables, train_loader,
+                   val_loader, test_loader, n_epochs: int = 100,
+                   lr: float = 1e-4, cosine: bool = False,
+                   loss_mask: bool = False, seed: int = 0,
+                   checkpoint_dir=None, checkpoint_every: int = 0,
+                   nan_recovery: bool = False, device=None,
+                   epoch_order=None) -> FitResult:
+    """Regression protocol: Adam at ``lr``, plateau scheduler in mode 'max'
+    (factor 0.9, patience 15, min_lr 1e-4), best-val test rule.
+
+    Trains a copy of ``model`` loaded with ``variables`` (a state dict; None
+    takes the model's own) and leaves ``model`` untouched, so repeated calls
+    from the same inputs start from the same weights, as the JAX package's
+    pure functions do.  ``device=None`` means ``"cuda"``."""
+    if loss_mask:
+        raise NotImplementedError("loss_mask is not ported yet")
+    dev = resolve_device(device)
+    work = copy.deepcopy(model).to(dev)
+    if variables is not None:
+        work.load_state_dict(variables, strict=True)
+    plateau = PlateauConfig(mode="max", factor=0.9, patience=15, min_lr=1e-4)
+    return fit_resident(work, train_loader, val_loader, test_loader,
+                        n_epochs=n_epochs, lr=lr, cosine=cosine,
+                        plateau=plateau, seed=seed,
+                        checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every,
+                        nan_recovery=nan_recovery, device=dev,
+                        epoch_order=epoch_order)
+
+
+def run_experiment_reg(model_func, model_args, train_loader, val_loader,
+                       test_loader, n_epochs: int = 100, n_times: int = 100,
+                       verbose: bool = False, cosine: bool = False,
+                       lr: float = 1e-4, loss_mask: bool = False,
+                       checkpoint_dir=None, checkpoint_every: int = 0,
+                       nan_recovery: bool = False, mesh=None, device=None):
+    """Regression repeat protocol: repeat ``idx`` builds a new model,
+    ``model_func(**model_args, generator=seed_everything(idx), device=...)``,
+    and trains it with ``seed=idx``.  Returns (best_vals, test_maes, times,
+    mean test MAE, std test MAE)."""
+    if mesh is not None:
+        raise NotImplementedError("run_experiment_reg(mesh=) is not ported yet")
+    dev = resolve_device(device)
+    best_val, test_mae, times = [], [], []
+    for idx in range(n_times):
+        model = model_func(**model_args, generator=seed_everything(idx),
+                           device=dev)
+        res = fit_regression(
+            model, None, train_loader, val_loader, test_loader,
+            n_epochs=n_epochs, lr=lr, cosine=cosine, loss_mask=loss_mask,
+            seed=idx, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, nan_recovery=nan_recovery,
+            device=dev)
+        best_val.append(res.best_val)
+        test_mae.append(res.test)
+        times.append(res.train_time)
+        if verbose:
+            print(f"run {idx}: best val MAE {res.best_val:.5f} "
+                  f"test MAE {res.test:.5f} ({res.train_time:.2f}s)")
+    return (best_val, test_mae, times,
+            float(np.mean(test_mae)), float(np.std(test_mae)))

@@ -9,7 +9,9 @@ bucket sizes.  Padding discipline, as in the JAX package:
   * per-graph targets carry a ``graph_mask``.
 
 Host-side construction is numpy; the batch holds CPU tensors until
-``GraphBatch.to(device)``.
+``GraphBatch.to(device)``.  For training, ``SlotData`` keeps a whole dataset
+on the device in per-graph slots and ``assemble_batch`` builds each batch
+there from a row of graph indices.
 """
 
 from __future__ import annotations
@@ -168,6 +170,112 @@ def batch_graphs(
     )
 
 
+@dataclasses.dataclass
+class SlotData:
+    """Device-resident dataset in per-graph slot-padded layout.
+
+    Every graph is padded to ``Sn`` nodes / ``Se`` edges (edge indices local
+    to the graph).  Row M (the last) is a blank sentinel graph that pads
+    partial batches.  Batches are assembled on the device (``assemble_batch``)
+    from a vector of graph indices, so the dataset is copied to the device
+    once and each epoch's shuffle is a device-side permutation."""
+
+    atoms: torch.Tensor        # [M+1, Sn] int32
+    pos: torch.Tensor          # [M+1, Sn, 3] f32
+    senders: torch.Tensor      # [M+1, Se] int32, local indices
+    receivers: torch.Tensor    # [M+1, Se] int32
+    node_mask: torch.Tensor    # [M+1, Sn] bool
+    edge_mask: torch.Tensor    # [M+1, Se] bool
+    y: torch.Tensor            # [M+1, y_dim]
+
+    @property
+    def num_graphs(self) -> int:      # real graphs (sentinel excluded)
+        return self.atoms.shape[0] - 1
+
+    @property
+    def slot_nodes(self) -> int:
+        return self.atoms.shape[1]
+
+    @property
+    def slot_edges(self) -> int:
+        return self.senders.shape[1]
+
+
+def build_slot_data(graphs: Sequence[Graph], y_dtype=np.float32,
+                    sn: Optional[int] = None, se: Optional[int] = None,
+                    with_triplets: bool = False, with_quads: bool = False,
+                    device="cpu") -> SlotData:
+    """Pack ``graphs`` into slot layout on the host, then copy it to
+    ``device`` once.  Triplet and quad fields are not ported yet."""
+    if with_triplets or with_quads:
+        raise NotImplementedError("slot triplets/quads are not ported yet")
+    m = len(graphs)
+    sn = sn or max(g.num_nodes for g in graphs)
+    se = se or max(max(g.num_edges for g in graphs), 1)
+    atoms = np.zeros((m + 1, sn), np.int32)
+    pos = np.zeros((m + 1, sn, 3), np.float32)
+    senders = np.full((m + 1, se), sn - 1, np.int32)
+    receivers = np.full((m + 1, se), sn - 1, np.int32)
+    node_mask = np.zeros((m + 1, sn), bool)
+    edge_mask = np.zeros((m + 1, se), bool)
+    ys = [np.atleast_1d(np.asarray(g.y)) for g in graphs]
+    y_dim = ys[0].shape[0] if ys else 1
+    y = np.zeros((m + 1, y_dim), y_dtype)
+    for i, g in enumerate(graphs):
+        nn, ne = g.num_nodes, g.num_edges
+        if nn > sn or ne > se:
+            raise ValueError(f"graph {i} ({nn} nodes, {ne} edges) exceeds "
+                             f"the slot ({sn}, {se})")
+        atoms[i, :nn] = g.atoms
+        pos[i, :nn] = g.pos
+        senders[i, :ne] = g.edge_index[0]
+        receivers[i, :ne] = g.edge_index[1]
+        node_mask[i, :nn] = True
+        edge_mask[i, :ne] = True
+        y[i] = ys[i].astype(y_dtype)
+    return SlotData(*(torch.from_numpy(a).to(device) for a in (
+        atoms, pos, senders, receivers, node_mask, edge_mask, y)))
+
+
+def assemble_batch(slot: SlotData, idx: torch.Tensor) -> GraphBatch:
+    """Device-side batch assembly from graph indices ``idx`` [B] (index M
+    selects the blank sentinel).  The same ``GraphBatch`` contract as
+    ``batch_graphs``, except that graph i's nodes sit at [i*Sn, i*Sn+Sn):
+    pad nodes are masked and pooled into the trailing pad graph, and pad
+    edges are masked self-loops on each slot's last node."""
+    b = idx.shape[0]
+    m = slot.num_graphs
+    sn = slot.slot_nodes
+    dev = slot.atoms.device
+    idx = torch.clamp_max(idx.to(device=dev, dtype=torch.long), m)
+    off = torch.arange(b, dtype=torch.int32, device=dev) * sn
+    node_mask = slot.node_mask[idx].reshape(-1)
+    gid = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(sn)
+    return GraphBatch(
+        atoms=slot.atoms[idx].reshape(-1),
+        pos=slot.pos[idx].reshape(-1, 3),
+        senders=(slot.senders[idx] + off[:, None]).reshape(-1),
+        receivers=(slot.receivers[idx] + off[:, None]).reshape(-1),
+        graph_id=torch.where(node_mask, gid, torch.full_like(gid, b)),
+        y=torch.cat([slot.y[idx], slot.y.new_zeros((1,) + slot.y.shape[1:])]),
+        node_mask=node_mask,
+        edge_mask=slot.edge_mask[idx].reshape(-1),
+        graph_mask=torch.cat([idx < m, torch.zeros(1, dtype=torch.bool,
+                                                    device=dev)]),
+        first_node=torch.cat([off, torch.full((1,), b * sn - 1,
+                                              dtype=torch.int32, device=dev)]),
+    )
+
+
+def eval_slot_indices(num_graphs: int, batch_size: int) -> np.ndarray:
+    """Static [steps, B] index plan for an unshuffled (eval) pass; sentinel
+    index M pads the last partial batch."""
+    steps = (num_graphs + batch_size - 1) // batch_size
+    idx = np.full(steps * batch_size, num_graphs, np.int32)
+    idx[:num_graphs] = np.arange(num_graphs)
+    return idx.reshape(steps, batch_size)
+
+
 class GraphLoader:
     """Host-side batching iterator with static padded shapes; every batch
     shares one bucket.  The last incomplete batch is kept.  The shuffle is a
@@ -192,6 +300,10 @@ class GraphLoader:
 
     def __len__(self):
         return (len(self.graphs) + self.batch_size - 1) // self.batch_size
+
+    @property
+    def num_examples(self) -> int:
+        return len(self.graphs)
 
     def __iter__(self):
         order = np.arange(len(self.graphs))

@@ -37,6 +37,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_egnn_edges": [I, P, P, I, P, P, P, P, P, P, I, I, P],
         "gmp_egnn_reduce": [I, P, P, P, P, P, P, P, I, I, P],
     },
+    "egnn_message_bwd": {
+        "gmp_egnn_bwd": [I, P, P, I, P, P, P, P, P, P, P, P, P, P,
+                         P, P, P, P, P, P, P, P, I, I, I, I, P],
+    },
 }
 
 _lock = threading.Lock()

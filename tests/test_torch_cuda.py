@@ -11,14 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from geometric_message_passing_tpu_torch import datasets
+from geometric_message_passing_tpu_torch import datasets, graph
+from geometric_message_passing_tpu_torch.experiments import train
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.models import EGNNFusedModel
 from geometric_message_passing_tpu_torch.ops import edge
 
 # f32 sums in another order (the kernel's K-loop and CSR rows against the
-# plain version's matmuls and index_add_)
+# plain version's matmuls and index_add_); the backward's weight gradient,
+# a sum over all edges, to 1e-5 of its largest entry
 ATOL = RTOL = 1e-4
+W_REL = 1e-5
 
 
 @pytest.fixture
@@ -90,3 +93,85 @@ def test_predictor_on_card_matches_cpu(cuda_device):
     assert edge.egnn_message.launches == before + 4 * 2
     y_cpu = Predictor(cpu, batch_size=8, device="cpu").predict(graphs)
     np.testing.assert_allclose(y, y_cpu, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,d,masked,index_dtype", [
+    (40, 150, 32, 0.1, torch.int32),
+    (800, 1400, 128, 0.15, torch.int32),   # the train bucket
+    (17, 33, 16, 0.3, torch.int64),        # E not a multiple of the tile
+    (50, 301, 256, 0.1, torch.int64),      # widest D
+    (300, 1100, 64, 0.0, torch.int32),     # three weight-gradient slices
+    (6, 0, 48, 0.0, torch.int32),          # no edges
+])
+def test_bwd_kernel_matches_plain(cuda_device, n, e, d, masked, index_dtype):
+    args = _inputs(n, e, d, seed=9, masked=masked, index_dtype=index_dtype,
+                   device=cuda_device)
+    if e:
+        args[1][:4] = args[0][:4]          # zero-length live edges
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    cot = (torch.randn((n, d), generator=gen, device=cuda_device),
+           torch.randn((n, 3), generator=gen, device=cuda_device))
+    before = edge.egnn_message.bwd_launches
+    first = edge.egnn_message_bwd(*args, *cot)
+    second = edge.egnn_message_bwd(*args, *cot)
+    want = edge.egnn_message_bwd_plain(*args, *cot)
+    torch.cuda.synchronize()
+    assert edge.egnn_message.bwd_launches == before + 2
+    for a, b, w, name in zip(first, second, want, ("dh", "dpos", "dW")):
+        assert torch.equal(a, b), name     # deterministic: no atomics
+        if name == "dW":
+            torch.testing.assert_close(
+                a, w, atol=W_REL * max(w.abs().max().item(), 1.0), rtol=0)
+        else:
+            torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_launches_bwd_kernel(cuda_device):
+    args = _inputs(30, 90, 32, seed=10, masked=0.1, index_dtype=torch.int32,
+                   device=cuda_device)
+    send, recv, emask, h, pos, w = args
+    leaves = [t.clone().requires_grad_() for t in (h, pos, w)]
+    before = (edge.egnn_message.launches, edge.egnn_message.bwd_launches)
+    msg, pos_sum, cnt = edge.egnn_message(send, recv, emask, *leaves)
+    grads = torch.autograd.grad(msg.sum() + 2 * pos_sum.sum(), leaves)
+    assert (edge.egnn_message.launches,
+            edge.egnn_message.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = edge.egnn_message_bwd_plain(send, recv, emask, h, pos, w,
+                                       torch.ones_like(h),
+                                       torch.full_like(pos, 2.0))
+    for g, w_ in zip(grads, want):
+        torch.testing.assert_close(
+            g, w_, atol=max(ATOL, W_REL * w_.abs().max().item()), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_raises_on_bad_cotangent(cuda_device):
+    args = _inputs(10, 20, 16, seed=0, masked=0.0, index_dtype=torch.int32,
+                   device=cuda_device)
+    with pytest.raises(ValueError):
+        edge.egnn_message_bwd(*args, torch.zeros(10, 32, device=cuda_device),
+                              torch.zeros(10, 3, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_two_train_steps_on_card_match_cpu(cuda_device):
+    graphs = datasets.create_star_graphs(num=24, fold=(5, 6, 7), seed=4)
+    kw = dict(num_layers=2, emb_dim=32, in_dim=1, out_dim=1, pool="first")
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = EGNNFusedModel(**kw, generator=torch.Generator().manual_seed(2),
+                               device=dev)
+        slot = graph.build_slot_data(graphs, device=dev)
+        opt = train.make_tx(model.parameters(), 5e-4)
+        losses = [train.train_step(model, opt, slot,
+                                   torch.tensor(row, device=dev)).item()
+                  for row in ([3, 1, 24, 7, 0, 12], [5, 9, 2, 24, 24, 11])]
+        results[dev.type] = (losses, {k: v.cpu() for k, v in
+                                      model.state_dict().items()})
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
+                               rtol=1e-5)
+    for key, value in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][key], value,
+                                   atol=1e-5, rtol=1e-4)

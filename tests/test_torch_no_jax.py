@@ -35,7 +35,10 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.ops._build",
                    "geometric_message_passing_tpu_torch.models.egnn_fused",
                    "geometric_message_passing_tpu_torch.weights",
-                   "geometric_message_passing_tpu_torch.experiments.infer"):
+                   "geometric_message_passing_tpu_torch.experiments.infer",
+                   "geometric_message_passing_tpu_torch.experiments.train",
+                   "geometric_message_passing_tpu_torch.experiments.bench",
+                   "geometric_message_passing_tpu_torch.experiments.profile_train"):
         assert module in res["imported"]
 
 
