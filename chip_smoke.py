@@ -17,6 +17,15 @@ Phases; any failure raises and the script exits non-zero:
      (the plain f32 version differs from a float64 run just as much), at
      most 1% of node rows beyond 1e-4, no entry beyond 0.1, and dW within
      1e-3 of its largest entry;
+     K3 (``sorted_segment_sum``) at random unsorted ids (E 3000, N 700,
+     D 64, 10% masked), with every edge masked (empty segments), and on the
+     receiver-sorted 100k-atom box with its receiver plan (identity) at
+     D 128 and D 4 and its sender plan at D 128 and D 3; K4
+     (``segment_sum``) at E 3000 / N 700 / D 64 and on the box's edges in
+     shuffled order at D 128: atol = rtol = 1e-5 of the f32 sum (the JAX
+     test's), two runs bitwise equal, and beside kernel, whole call and
+     plain version the library calls (one ``index_add_`` on the masked
+     data, one ``torch.segment_reduce`` on the sorted rows);
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
@@ -41,10 +50,26 @@ Phases; any failure raises and the script exits non-zero:
      have launched 4 x (train steps) times, K1 4 x (train steps + validation
      batches + test batches of the epochs whose best-val rule fired); the
      test MAE must be finite and below 0.2;
+  6b. box training, against the CPU: one bench_scale step (L1-sum loss,
+     Adam 1e-4) of ``schnet_sorted`` and ``egnn_sorted`` (4 layers x 128)
+     on a receiver-sorted box of 2000 atoms, from the same weights, on the
+     card, on the CPU in float32 and in float64: every parameter's gradient
+     on the card within 1e-2 of that parameter's largest float64 entry.  A
+     planted fault, the receiver plan given for the sender gather's
+     backward, must fail that check;
+  6c. box training, the main path: ``schnet_sorted`` then ``egnn_sorted``
+     at full width (4 layers x 128) on the receiver-sorted 100k-atom box
+     (1,350,872 edges), a few bench_scale steps each, with the launch
+     counters set to 0 just before and read just after: K3 must have
+     launched exactly ``bench_scale.sorted_launches_per_step`` times per
+     step (8 for SchNet, 22 for EGNN), the others never; every loss finite;
+     prints ms per step, edges/s and peak device memory;
   7. summary: one JSON line of kernels, then the device line last.
 
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
-sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.
+sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
+of K3 and K4 counts the rows their segments hold (each read once), the
+permutation, row pointers or ids and mask, and the output written once.
 """
 
 from __future__ import annotations
@@ -59,6 +84,7 @@ import time
 import numpy as np
 import torch
 
+from geometric_message_passing_tpu_torch.experiments import bench_scale
 from geometric_message_passing_tpu_torch.experiments.bench import (
     LR, N_EPOCHS as EPOCHS, bench_data, card_line)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
@@ -69,6 +95,7 @@ from geometric_message_passing_tpu_torch.graph import (
 from geometric_message_passing_tpu_torch.models import EGNNFusedModel, egnn_fused
 from geometric_message_passing_tpu_torch.ops import _build
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 from geometric_message_passing_tpu_torch.ops.edge import (
     egnn_message, egnn_message_bwd, egnn_message_bwd_plain, egnn_message_plain,
     msg_rows)
@@ -329,6 +356,145 @@ def fired_epochs(per_epoch: np.ndarray) -> int:
     return fired
 
 
+SEG_TOL = 1e-5    # K3 and K4 against their plain versions, atol = rtol
+BOX_ATOMS, BOX_CHECK_ATOMS, BOX_STEPS = 100_000, 2_000, 4
+
+
+def seg_bound_ms(live: int, d: int, n: int, index_bytes: int) -> tuple:
+    """Least time for a segment sum of ``live`` rows of width ``d`` into
+    ``n`` segments: the rows read once, ``index_bytes`` of plan or ids and
+    mask, the output written once, over HBM rate, against ``live * d`` adds
+    over the f32 rate."""
+    t_bytes = (4 * live * d + index_bytes + 4 * n * d) / HBM_BYTES_PER_S * 1e3
+    t_ops = live * d / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def library_ms(data, seg, mask, n: int, order, rowptr, iters: int) -> tuple:
+    """Times of one PyTorch call computing the same sum: ``index_add_`` of
+    the masked rows into a buffer, and ``torch.segment_reduce`` of the rows
+    in segment order (both prepared outside the timed loop)."""
+    masked = torch.where(mask[:, None], data, torch.zeros_like(data))
+    buf = torch.zeros((n, data.shape[1]), dtype=data.dtype, device=data.device)
+    live = int(rowptr[-1])
+    rows = data[order[:live]]
+    lengths = rowptr.diff()
+    return (cuda_time_ms(lambda: buf.index_add_(0, seg, masked), iters),
+            cuda_time_ms(lambda: torch.segment_reduce(rows, "sum",
+                                                      lengths=lengths), iters))
+
+
+def check_segsum(label: str, data, seg, mask, n: int, plan=None,
+                 timed: bool = True, iters: int = 50) -> dict:
+    """K3 (through ``plan``) or, without a plan, K4 on these inputs against
+    the plain version: within SEG_TOL, finite, two runs bitwise equal; then,
+    when ``timed``, the times.  Returns the reading."""
+    if plan is not None:
+        def call():
+            return sss.sorted_segment_sum(data, plan, seg, mask)
+        order, rowptr = plan.perm, plan.rowptr
+        perm = None if plan.identity_perm else plan.perm
+        index_bytes = (8 * (n + 1) + (0 if perm is None
+                                      else 8 * int(rowptr[-1])))
+    else:
+        def call():
+            return sss.segment_sum(data, seg, n, mask)
+        order, rowptr = edge.receiver_csr(seg, mask, n)
+        perm = order
+        index_bytes = seg.shape[0] * (seg.element_size() + 1)
+    with torch.no_grad():
+        got, again = call(), call()
+        want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite values")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.allclose(got, want, atol=SEG_TOL, rtol=SEG_TOL):
+        raise AssertionError(f"{label}: differs from the plain version by "
+                             f"{err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    live, d = int(rowptr[-1]), data.shape[1]
+    reading = {"shape": label, "E": data.shape[0], "live": live, "N": n,
+               "D": d, "max_abs_err": err}
+    if not timed:
+        log(f"  {label}: E={data.shape[0]} live={live} N={n} D={d} "
+            f"max_abs_err={err:.3e}, bitwise repeatable")
+        return reading
+    out = torch.empty_like(got)
+    with torch.no_grad():
+        k_ms = cuda_time_ms(lambda: sss.launch_csr_segsum(data, perm, rowptr,
+                                                          out), iters)
+        call_ms = cuda_time_ms(call, iters)
+        plain_ms = cuda_time_ms(
+            lambda: sss.sorted_segment_sum_plain(data, seg, n, mask), iters)
+        lib_ms, reduce_ms = library_ms(data, seg, mask, n, order, rowptr, iters)
+    b_ms, b_by = seg_bound_ms(live, d, n, index_bytes)
+    log(f"  {label}: E={data.shape[0]} live={live} N={n} D={d} "
+        f"max_abs_err={err:.3e}; kernel {k_ms:.4f} ms, whole call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
+        f"ms, segment_reduce {reduce_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(reading, ms=k_ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, segment_reduce_ms=reduce_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def random_seg_case(e: int, n: int, d: int, seed: int, masked: float, dev):
+    rng = np.random.default_rng(seed)
+    seg = torch.from_numpy(rng.integers(0, n, e)).to(dev)
+    data = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32))
+    mask = torch.from_numpy(rng.random(e) >= masked).to(dev)
+    return data.to(dev), seg, mask
+
+
+def box_rows(box, d: int, seed: int):
+    """Random f32 rows [E, d] for the edges of ``box`` (on the card)."""
+    gen = torch.Generator(device=box.pos.device).manual_seed(seed)
+    return torch.randn((box.num_edges, d), generator=gen,
+                       device=box.pos.device)
+
+
+def box_grads(model, batch, plans, device, dtype) -> dict:
+    """One bench_scale step of a copy of ``model`` on ``batch`` with the
+    segment plans ``plans(batch on device)``: each parameter's gradient
+    (zero where it got none), float64 on the CPU."""
+    work = copy.deepcopy(model).to(device=device, dtype=dtype)
+    b = batch.to(device)
+    b.pos, b.y = b.pos.to(dtype), b.y.to(dtype)
+    bench_scale.make_step(work, b, plans(b))()
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                ).double().cpu() for n, p in work.named_parameters()}
+
+
+def grad_error(got: dict, want: dict) -> float:
+    """Largest gradient error relative to that parameter's largest entry."""
+    err = 0.0
+    for name, g in got.items():
+        top = want[name].abs().max().item()
+        diff = (g - want[name]).abs().max().item()
+        err = max(err, diff / top if top > 0 else diff)
+    return err
+
+
+def sender_backward_on_receiver_plan(b):
+    """The planted fault of phase 6b: the receiver plan given for the
+    sender gather's backward."""
+    plans = sss.batch_seg_plans(b)
+    return {"rcv": plans["rcv"], "snd": plans["rcv"]}
+
+
+def reset_counts() -> None:
+    egnn_message.launches = egnn_message.bwd_launches = 0
+    sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
+
+
+def counts() -> dict:
+    return {"egnn_message": egnn_message.launches,
+            "egnn_message_bwd": egnn_message.bwd_launches,
+            "sorted_segment_sum": sss.sorted_segment_sum.launches,
+            "segment_sum": sss.segment_sum.launches}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -416,6 +582,46 @@ def main() -> int:
         log(f"  {label}: K2 kernels {k:.4f} ms, whole call {c:.4f} ms, plain "
             f"{p:.4f} ms, bound {b:.5f} ms ({by}) [{card}]")
 
+    log("[kernels] sorted_segment_sum (K3) and segment_sum (K4) vs "
+        f"sorted_segment_sum_plain (atol=rtol={SEG_TOL}) [{card}]")
+    t = time.perf_counter()
+    box = bench_scale.box_batch(BOX_ATOMS, sort=True).to(dev)
+    box_plans = sss.batch_seg_plans(box)
+    box_edges = int(box.edge_mask.sum())
+    log(f"  receiver-sorted box of {BOX_ATOMS} atoms, {box_edges} edges (bucket "
+        f"N {box.num_nodes}, E {box.num_edges}): built, planned and copied in "
+        f"{time.perf_counter() - t:.2f} s; receiver plan identity "
+        f"{box_plans['rcv'].identity_perm}, sender plan identity "
+        f"{box_plans['snd'].identity_perm}")
+    if not box_plans["rcv"].identity_perm or box_plans["snd"].identity_perm:
+        raise AssertionError("the sorted box's receiver plan must be the "
+                             "identity and its sender plan not")
+    k3 = []
+    data, seg, mask = random_seg_case(3000, 700, 64, seed=21, masked=0.1, dev=dev)
+    k3.append(check_segsum("random ids, 10% masked", data, seg, mask, 700,
+                           sss.build_segment_plan(seg, 700, mask, device=dev)))
+    data, seg, mask = random_seg_case(1500, 40, 32, seed=22, masked=1.0, dev=dev)
+    plan = sss.build_segment_plan(seg, 300, mask, device=dev)
+    k3.append(check_segsum("all masked, N 300", data, seg, mask, 300, plan,
+                           timed=False))
+    if sss.sorted_segment_sum(data, plan, seg, mask).abs().max().item() != 0:
+        raise AssertionError("all masked: the sum is not zero")
+    for key, d, seed in (("rcv", 128, 23), ("rcv", 4, 24), ("snd", 128, 25),
+                         ("snd", 3, 26)):
+        idx = box.receivers if key == "rcv" else box.senders
+        k3.append(check_segsum(f"box {key} plan D{d}", box_rows(box, d, seed),
+                               idx, box.edge_mask, box.num_nodes,
+                               box_plans[key]))
+    data, seg, mask = random_seg_case(3000, 700, 64, seed=27, masked=0.1, dev=dev)
+    k4 = [check_segsum("K4 random ids, 10% masked", data, seg, mask, 700)]
+    shuffle = torch.from_numpy(np.random.default_rng(28).permutation(
+        box.num_edges)).to(dev)
+    k4.append(check_segsum("K4 shuffled box D128", box_rows(box, 128, 29),
+                           box.receivers[shuffle], box.edge_mask[shuffle],
+                           box.num_nodes))
+    del data, seg, mask, shuffle
+    torch.cuda.empty_cache()
+
     # 4. serve
     model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                            generator=torch.Generator().manual_seed(0),
@@ -424,11 +630,12 @@ def main() -> int:
         if not torch.equal(value.cpu(), cpu_model.state_dict()[key]):
             raise AssertionError(f"CPU and CUDA models differ at {key}")
     pred = Predictor(model, batch_size=BATCH)
-    egnn_message.launches = egnn_message.bwd_launches = 0
+    reset_counts()
     y = pred.predict(graphs)
-    launches = egnn_message.launches
-    if egnn_message.bwd_launches:
-        raise AssertionError("predict launched the backward kernel")
+    serve_counts = counts()
+    launches = serve_counts["egnn_message"]
+    if any(serve_counts[k] for k in serve_counts if k != "egnn_message"):
+        raise AssertionError(f"predict launched other kernels: {serve_counts}")
     want = -(-N_GRAPHS // BATCH) * LAYERS
     log(f"[serve] predict({N_GRAPHS} graphs): egnn_message launches "
         f"{launches} (want {want}), bucket {pred.pad}")
@@ -514,10 +721,14 @@ def main() -> int:
         raise AssertionError("the epoch on the card does not match the CPU")
 
     # 6. train, the main path
-    egnn_message.launches = egnn_message.bwd_launches = 0
+    reset_counts()
     res = fit_regression(model, None, *loaders, n_epochs=EPOCHS, lr=LR,
                          seed=1, device="cuda")
-    train_launches = (egnn_message.launches, egnn_message.bwd_launches)
+    train_counts = counts()
+    train_launches = (train_counts["egnn_message"],
+                      train_counts["egnn_message_bwd"])
+    if train_counts["sorted_segment_sum"] or train_counts["segment_sum"]:
+        raise AssertionError(f"star training launched K3/K4: {train_counts}")
     fired = fired_epochs(res.perf_per_epoch)
     want_train = (LAYERS * (EPOCHS * (steps + val_b) + fired * test_b),
                   LAYERS * EPOCHS * steps)
@@ -532,6 +743,71 @@ def main() -> int:
                              f"expected {want_train}")
     if not (np.isfinite(res.test) and res.test < 0.2):
         raise AssertionError(f"test MAE {res.test} is not finite and below 0.2")
+
+    # 6b. box training, against the CPU
+    check_box = bench_scale.box_batch(BOX_CHECK_ATOMS, sort=True)
+    f32, f64 = torch.float32, torch.float64
+    box_check = {}
+    for name in ("schnet_sorted", "egnn_sorted"):
+        box_model = bench_scale.build(name, bench_scale.MODELS[name],
+                                      torch.Generator().manual_seed(0), "cpu")
+        grads = {run: box_grads(box_model, check_box, plans, d_, dtype)
+                 for run, d_, dtype, plans in (
+                     ("card", "cuda", f32, sss.batch_seg_plans),
+                     ("card, planted fault", "cuda", f32,
+                      sender_backward_on_receiver_plan),
+                     ("cpu f32", "cpu", f32, sss.batch_seg_plans),
+                     ("cpu f64", "cpu", f64, sss.batch_seg_plans))}
+        box_check[name] = {run: grad_error(g, grads["cpu f64"])
+                           for run, g in grads.items() if run != "cpu f64"}
+        log(f"[box] {name} one step on a {BOX_CHECK_ATOMS}-atom sorted box "
+            f"({int(check_box.edge_mask.sum())} edges), gradients against "
+            f"the CPU float64 run (tol {GRAD_TOL:g} of each parameter's "
+            "largest entry): " + ", ".join(
+                f"{run} {e:.3e}" for run, e in box_check[name].items()))
+        if box_check[name]["card"] > GRAD_TOL:
+            raise AssertionError(f"{name}: the gradients on the card do not "
+                                 "match the CPU")
+        if box_check[name]["card, planted fault"] <= GRAD_TOL:
+            raise AssertionError(f"{name}: the check of phase 6b passed the "
+                                 "planted fault")
+
+    # 6c. box training, the main path
+    box_runs = {}
+    for name in ("schnet_sorted", "egnn_sorted"):
+        cfg = bench_scale.MODELS[name]
+        box_model = bench_scale.build(name, cfg,
+                                      torch.Generator().manual_seed(0), dev)
+        step_fn = bench_scale.make_step(box_model, box, box_plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, losses = [], []
+        for _ in range(BOX_STEPS):
+            t = time.perf_counter()
+            losses.append(step_fn().item())      # host read: synchronous
+            times.append(time.perf_counter() - t)
+        got = counts()
+        per_step = bench_scale.sorted_launches_per_step(name, cfg["num_layers"])
+        want = {k: 0 for k in got}
+        want["sorted_segment_sum"] = BOX_STEPS * per_step
+        step_ms = statistics.median(times[1:]) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        box_runs[name] = {"launches": got, "step_ms": step_ms,
+                          "step_times_ms": [x * 1e3 for x in times],
+                          "edges_per_s": box_edges / step_ms * 1e3,
+                          "peak_mem_gb": peak_gb, "losses": losses}
+        log(f"[box] {name} {cfg} on the {BOX_ATOMS}-atom box: {BOX_STEPS} "
+            f"steps, median {step_ms:.2f} ms per step after the first "
+            f"({box_edges / step_ms * 1e3:.4g} edges/s), peak "
+            f"{peak_gb:.3f} GB; losses {losses}; launches {got} (want K3 "
+            f"{per_step} per step) [{card}]")
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: a loss is not finite")
+        del box_model, step_fn
+        torch.cuda.empty_cache()
 
     # 7. summary
     kernels = [{
@@ -551,12 +827,33 @@ def main() -> int:
         "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
         "library_ms": None,
     }]
+    # K3 at the box's receiver plan, D 128 (messages, h gathers); K4 at the
+    # shuffled box, D 128
+    for name, readings, main_shape, replaces, launched in (
+            ("sorted_segment_sum", k3, "box rcv plan D128",
+             "geometric_message_passing_tpu/ops/pallas_sorted_segsum.py:114",
+             sum(r["launches"]["sorted_segment_sum"] for r in box_runs.values())),
+            ("segment_sum", k4, "K4 shuffled box D128",
+             "geometric_message_passing_tpu/ops/pallas_edge.py:50",
+             sum(r["launches"]["segment_sum"] for r in box_runs.values()))):
+        top = next(r for r in readings if r["shape"] == main_shape)
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": "geometric_message_passing_tpu_torch/csrc/sorted_segsum.cu",
+            "replaces": replaces, "launches": launched,
+            "on_main_path": name == "sorted_segment_sum",
+            "max_abs_err": max(r["max_abs_err"] for r in readings),
+            **{k: top[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "segment_reduce_ms")},
+            "shapes": readings})
     log(json.dumps({"kernels": kernels, "card": card,
                     "predict_ms": ms, "predict_graphs_per_s": N_GRAPHS / ms * 1e3,
                     "host_batch_ms": host_ms, "train_time_s": res.train_time,
                     "train_epochs": EPOCHS, "test_mae": res.test,
                     "best_val_mae": res.best_val, "train_check": check,
-                    "train_check_epoch_tol": tol}))
+                    "train_check_epoch_tol": tol, "box_check": box_check,
+                    "box_train": box_runs}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,9 @@
 """Synthetic geometric-graph generators — host-side, numpy (port of
-``datasets.py``; only the star graphs so far).
+``datasets.py``; the star graphs and the molecular boxes so far).
 
-All geometric randomness comes from Python's ``random`` module, drawn in the
-same order as the JAX package, so the same seed gives bit-identical graphs.
+Every draw comes from the same generator as in the JAX package (Python's
+``random`` for the star graphs, numpy's ``default_rng`` for the boxes), in
+the same order, so the same seed gives bit-identical graphs.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from typing import List
 import numpy as np
 
 from .graph import Graph, to_undirected
+from .ops.radius_graph import radius_graph
 
-__all__ = ["create_star_graphs"]
+__all__ = ["create_star_graphs", "create_molecular_boxes"]
 
 
 def _random_spokes(rnd: random.Random, n_spoke: int, dim: int) -> List[np.ndarray]:
@@ -79,3 +81,25 @@ def create_star_graphs(num=5, fold=(3,), dim=3, target="max", seed=0) -> List[Gr
                      dtype=np.float32)
         dataset.append(Graph(atoms, to_undirected(edge_index), np.stack(pos), y))
     return dataset
+
+
+def create_molecular_boxes(num=1, n_nodes=10_000, cutoff=3.0,
+                           avg_degree=14.0, n_species=8, seed=0,
+                           max_num_neighbors=None) -> List[Graph]:
+    """Synthetic molecular boxes, the box-scale benchmark's data: ``n_nodes``
+    atoms uniform in a cube sized so that the expected radius-graph degree
+    at ``cutoff`` is ``avg_degree``, ``n_species`` atom types, edges from
+    ``ops.radius_graph``.  Target: edges per atom / 10."""
+    density = avg_degree / (4.0 / 3.0 * np.pi * cutoff**3)
+    side = (n_nodes / density) ** (1.0 / 3.0)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num):
+        pos = rng.uniform(0.0, side, size=(n_nodes, 3)).astype(np.float32)
+        atoms = rng.integers(0, n_species, n_nodes).astype(np.int32)
+        edge_index = radius_graph(pos, cutoff,
+                                  max_num_neighbors=max_num_neighbors)
+        y = np.asarray([edge_index.shape[1] / max(n_nodes, 1) / 10.0],
+                       np.float32)
+        out.append(Graph(atoms, edge_index, pos, y))
+    return out

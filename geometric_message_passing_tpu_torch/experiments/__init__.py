@@ -1,1 +1,2 @@
-"""Experiment harness of the port: batch inference so far."""
+"""Experiment harness of the port: batch inference, star-graph training
+and the box-scale benchmark so far."""

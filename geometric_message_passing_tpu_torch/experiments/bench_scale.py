@@ -1,0 +1,191 @@
+"""Box-scale training throughput of the port on one CUDA card (port of the
+repository's ``scripts/bench_scale.py``, its SchNet and EGNN models).
+
+    python -m geometric_message_passing_tpu_torch.experiments.bench_scale \\
+        [--sizes 10000,30000,100000] \\
+        [--models schnet,schnet_sorted,egnn,egnn_sorted] [--steps N]
+
+Data: one synthetic molecular box per size (``datasets.create_molecular_boxes``:
+cutoff 3.0, average degree 14, 8 species, seed 0; 1,350,872 edges at 100k
+atoms), batched alone.  The ``_sorted`` models take the receiver-sorted box
+and its segment plans (``ops.sorted_segsum.batch_seg_plans``): every segment
+reduction and gather backward runs the sorted segment-sum kernel.  Models at
+the widths of ``MODELS`` (4 layers x 128), ``in_dim`` 8, ``out_dim`` 1,
+initial weights from seed 0; no narrower fallback.
+
+Step: L1-sum loss, backward, Adam (lr 1e-4).  A call is
+``max(4, min(40, 1_500_000 // n))`` steps ending in a host read of the loss;
+two warm calls, then 3 timed calls on the host clock.  The box, the plans and
+the copy to the card come before the timed window.
+
+Prints one JSON line per (model, size) with the JAX script's keys plus
+``peak_mem_gb`` (``torch.cuda.max_memory_allocated`` over the warm and
+timed calls); ``device`` is the card's ``nvidia-smi`` name and power limit.
+A model that fails (out of memory, say) prints a row with ``error`` and the
+script exits 1 after the last row.  It needs a card and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import sys
+import time
+import traceback
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..datasets import create_molecular_boxes
+from ..graph import GraphBatch, GraphLoader, sort_edges_by_receiver
+from ..models import model_registry
+from ..ops.sorted_segsum import SegmentPlan, batch_seg_plans
+from .bench import card_line
+from .train import l1_sum_loss, make_tx, seed_everything
+
+MODELS = {
+    "schnet": dict(num_layers=4, hidden_channels=128, num_filters=128),
+    "egnn": dict(num_layers=4, emb_dim=128),
+    "egnn_sorted": dict(num_layers=4, emb_dim=128),
+    "schnet_sorted": dict(num_layers=4, hidden_channels=128, num_filters=128),
+}
+SORTED = {"egnn_sorted": "egnn", "schnet_sorted": "schnet"}
+LR = 1e-4
+
+
+def build(name: str, cfg: dict, generator: torch.Generator, device="cuda"):
+    """The registry model behind ``name`` (``_sorted`` names its plain one)."""
+    return model_registry[SORTED.get(name, name)](
+        out_dim=1, in_dim=8, **cfg, generator=generator, device=device)
+
+
+def box_batch(n_nodes: int, sort: bool, cutoff: float = 3.0,
+              avg_degree: float = 14.0) -> GraphBatch:
+    """The benchmark's box of ``n_nodes`` atoms as one padded batch on the
+    host, its edges sorted by receiver when ``sort``."""
+    graphs = create_molecular_boxes(num=1, n_nodes=n_nodes, cutoff=cutoff,
+                                    avg_degree=avg_degree, n_species=8, seed=0)
+    if sort:
+        graphs = [sort_edges_by_receiver(g) for g in graphs]
+    return next(iter(GraphLoader(graphs, batch_size=1)))
+
+
+def steps_per_call(n_nodes: int) -> int:
+    return max(4, min(40, 1_500_000 // n_nodes))
+
+
+def sorted_launches_per_step(name: str, num_layers: int) -> int:
+    """Sorted segment-sum kernel launches in one training step of a
+    ``_sorted`` model on the card (``equivariant_pred`` off).  SchNet, per
+    layer: the receiver sum and the sender gather's backward.  EGNN, per
+    layer: two receiver sums (messages; position messages with the count)
+    and the backward of the receiver and sender gathers of ``h``; from layer
+    1 on the positions depend on the weights, so the backward of their two
+    gathers runs too (layer 0's positions are data: autograd skips it)."""
+    if name == "schnet_sorted":
+        return 2 * num_layers
+    if name == "egnn_sorted":
+        return 4 * num_layers + 2 * (num_layers - 1)
+    raise ValueError(f"{name!r} is not a sorted model")
+
+
+def make_step(model: torch.nn.Module, batch: GraphBatch,
+              plans: Optional[Dict[str, SegmentPlan]] = None,
+              lr: float = LR) -> Callable[[], torch.Tensor]:
+    """One training step per call of the result: L1-sum loss, backward and
+    an Adam step on ``model``'s parameters; returns the loss (on the
+    device, not read)."""
+    opt = make_tx(model.parameters(), lr)
+
+    def step() -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = l1_sum_loss(model(batch, seg_plans=plans), batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
+              reps: int = 3) -> dict:
+    """Time ``name`` on ``batch`` (already on the card): two warm calls of
+    ``steps`` steps, then ``reps`` timed calls."""
+    edges = int(batch.edge_mask.sum())
+    nodes = int(batch.node_mask.sum())
+    model = build(name, cfg, seed_everything(0), batch.atoms.device)
+    plans = batch_seg_plans(batch) if name in SORTED else None
+    step = make_step(model, batch, plans)
+
+    def call() -> float:
+        for _ in range(steps):
+            loss = step()
+        return float(loss)          # host read: waits for the device
+
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    call()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss = call()
+    dt = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        raise FloatingPointError(f"{name}: loss {loss} is not finite")
+    sps = steps * reps / dt
+    return {
+        "model": name, "nodes": nodes, "edges": edges,
+        "ms_per_step": 1000.0 / sps,
+        "steps_per_sec": sps,
+        "edges_per_sec_per_chip": edges * sps,
+        "cfg": dict(cfg),
+        "device": card_line(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "steps_per_call": steps, "loss": loss,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sizes", type=str, default="10000,30000,100000")
+    ap.add_argument("--models", type=str,
+                    default="schnet,schnet_sorted,egnn,egnn_sorted")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="steps per call (0 = by size)")
+    ap.add_argument("--cutoff", type=float, default=3.0)
+    ap.add_argument("--avg_degree", type=float, default=14.0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_scale: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = args.models.split(",")
+    for name in names:
+        if name not in MODELS:
+            raise SystemExit(f"bench_scale: unknown model {name!r}; "
+                             f"ported: {sorted(MODELS)}")
+    failed = False
+    for n_nodes in [int(s) for s in args.sizes.split(",")]:
+        batches = {}
+        steps = args.steps or steps_per_call(n_nodes)
+        for name in names:
+            sort = name in SORTED
+            if sort not in batches:
+                batches[sort] = box_batch(n_nodes, sort, args.cutoff,
+                                          args.avg_degree).to("cuda")
+            try:
+                row = bench_one(name, MODELS[name], batches[sort], steps)
+            except Exception as exc:      # out of memory, say: no fallback
+                traceback.print_exc()
+                failed = True
+                row = {"model": name, "nodes": n_nodes,
+                       "error": f"{type(exc).__name__}: "
+                                f"{str(exc).splitlines()[0][:160]}"}
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(json.dumps(row), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -326,3 +326,12 @@ def random_split(dataset: Sequence, fractions: Sequence[float], seed: int = 0):
         out.append([dataset[int(i)] for i in perm[off : off + s]])
         off += s
     return out
+
+
+def sort_edges_by_receiver(g: Graph) -> Graph:
+    """The graph with its edges reordered by receiver (``edge_index[1]``),
+    a stable sort: the layout in which the sorted segment sum's receiver
+    plan is the identity (``ops.sorted_segsum``)."""
+    ei = np.asarray(g.edge_index)
+    order = np.argsort(ei[1], kind="stable")
+    return Graph(g.atoms, ei[:, order], g.pos, g.y)

@@ -1,3 +1,11 @@
-"""Models of the port."""
+"""Models of the port, and their registry by the JAX package's names."""
 
+from .egnn import EGNNLayer, EGNNModel  # noqa: F401
 from .egnn_fused import EGNNFusedModel, FusedEGNNLayer  # noqa: F401
+from .schnet import SchNetInteraction, SchNetModel  # noqa: F401
+
+model_registry = {
+    "schnet": SchNetModel,
+    "egnn": EGNNModel,
+    "egnn_fused": EGNNFusedModel,
+}

@@ -1,11 +1,25 @@
-"""Parameter initialisation matching ``torch.nn.Linear``'s default (port of
-``nn/basic.py``'s ``torch_linear_*`` inits), drawn from a given generator."""
+"""Scalar building blocks (port of ``nn/basic.py``): activations, the
+``torch.nn.Linear`` default initialisation drawn from a given generator, and
+the Linear/Norm/Act ``MLP``."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
+from torch import nn
+from torch.nn import functional as F
+
+ACT = {
+    "relu": torch.relu,
+    "swish": F.silu,
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "abs": torch.abs,
+    None: lambda x: x,
+}
 
 
 def torch_linear_init_(t: torch.Tensor, fan_in: int,
@@ -24,3 +38,41 @@ def linear(in_features: int, out_features: int,
     torch_linear_init_(layer.weight, in_features, generator)
     torch_linear_init_(layer.bias, in_features, generator)
     return layer
+
+
+class MLP(nn.Module):
+    """Linear -> Norm -> Act, once per width of ``hidden``; the last layer's
+    norm and activation only with ``norm_final`` / ``act_final``.  ``norm``
+    is ``'layer'`` (LayerNorm, eps 1e-5) or None; ``'batch'`` is not ported
+    yet.  Linears take torch's default init from ``generator``.
+
+    ``dense[k]`` and ``norm[k]`` are the JAX MLP's ``Dense_k`` and
+    ``LayerNorm_k``."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int],
+                 activation: Optional[str] = "relu",
+                 norm: Optional[str] = "layer", act_final: bool = True,
+                 norm_final: bool = True, *, generator: torch.Generator):
+        super().__init__()
+        if norm not in ("layer", None):
+            raise NotImplementedError(f"MLP norm={norm!r} is not ported yet")
+        if activation not in ACT:
+            raise ValueError(f"activation must be one of {sorted(map(str, ACT))}")
+        self.act = ACT[activation]
+        self.act_final = act_final
+        widths = [in_dim, *hidden]
+        self.dense = nn.ModuleList(linear(a, b, generator)
+                                   for a, b in zip(widths, widths[1:]))
+        n_norm = 0 if norm is None else len(hidden) - (0 if norm_final else 1)
+        self.norm = nn.ModuleList(nn.LayerNorm(w, eps=1e-5)
+                                  for w in hidden[:n_norm])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        last = len(self.dense) - 1
+        for i, dense in enumerate(self.dense):
+            x = dense(x)
+            if i < len(self.norm):
+                x = self.norm[i](x)
+            if i < last or self.act_final:
+                x = self.act(x)
+        return x

@@ -41,6 +41,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_egnn_bwd": [I, P, P, I, P, P, P, P, P, P, P, P, P, P,
                          P, P, P, P, P, P, P, P, I, I, I, I, P],
     },
+    "sorted_segsum": {
+        "gmp_sorted_segsum": [I, P, P, P, P, I, I, P],
+    },
 }
 
 _lock = threading.Lock()

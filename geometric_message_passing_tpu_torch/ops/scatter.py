@@ -1,10 +1,10 @@
 """Masked segment reductions (port of ``ops/scatter.py``).
 
-Pad rows contribute zero; an empty segment gives 0 for both sum and mean
+Pad rows contribute zero; an empty segment gives 0 for sum, mean and max
 (torch_scatter semantics).  These are plain PyTorch: on CUDA ``index_add_``
 sums with atomics, so the order of a sum may vary from run to run there.
-The deterministic reduction of the hot path is the EGNN message kernel's
-(``ops/edge.py``).
+The deterministic reductions of the hot paths are the EGNN message kernel's
+(``ops/edge.py``) and the sorted segment sum's (``ops/sorted_segsum.py``).
 """
 
 from __future__ import annotations
@@ -37,3 +37,16 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     count = segment_sum(ones, segment_ids, num_segments, mask)[..., 0]
     count = torch.clamp_min(count, 1.0)
     return total / count.reshape(count.shape + (1,) * (total.ndim - 1))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Max with empty segments mapped to 0."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data), data,
+                           torch.full_like(data, -torch.inf))
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), -torch.inf)
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    out = out.scatter_reduce(0, idx, data, "amax", include_self=True)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

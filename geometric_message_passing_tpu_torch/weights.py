@@ -16,6 +16,65 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _dense(sd: Dict[str, torch.Tensor], prefix: str,
+           dense: Mapping[str, Any]) -> None:
+    """A flax Dense (``kernel [in, out]``, optional ``bias``) as the
+    ``torch.nn.Linear`` at ``prefix`` (``weight [out, in]``)."""
+    sd[f"{prefix}.weight"] = _t(dense["kernel"]).T.contiguous()
+    if "bias" in dense:
+        sd[f"{prefix}.bias"] = _t(dense["bias"])
+
+
+def _mlp(sd: Dict[str, torch.Tensor], prefix: str,
+         mlp: Mapping[str, Any]) -> None:
+    """A JAX ``MLP``'s ``Dense_k`` / ``LayerNorm_k`` as the port's
+    ``MLP.dense[k]`` / ``MLP.norm[k]``."""
+    for name, value in mlp.items():
+        kind, k = name.rsplit("_", 1)
+        if kind == "Dense":
+            _dense(sd, f"{prefix}.dense.{k}", value)
+        elif kind == "LayerNorm":
+            sd[f"{prefix}.norm.{k}.weight"] = _t(value["scale"])
+            sd[f"{prefix}.norm.{k}.bias"] = _t(value["bias"])
+        else:
+            raise ValueError(f"unexpected MLP entry {prefix}/{name}")
+
+
+def egnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.egnn.EGNNModel`` from the variables of the
+    JAX ``EGNNModel``: ``params/emb_in/embedding``,
+    ``params/conv_i/{mlp_msg,mlp_pos,mlp_upd}/{Dense_k,LayerNorm_k}`` and
+    ``params/Dense_0``, ``params/Dense_1`` (or ``params/pred``)."""
+    params = variables["params"]
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("conv_"))
+    for i in range(n_layers):
+        for mlp in ("mlp_msg", "mlp_pos", "mlp_upd"):
+            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp])
+    for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
+                                  ("pred", "pred")):
+        if flax_name in params:
+            _dense(sd, torch_name, params[flax_name])
+    return sd
+
+
+def schnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.schnet.SchNetModel`` from the variables of the
+    JAX ``SchNetModel``: ``params/embedding/embedding [100, d]``,
+    ``params/interaction_i/Dense_0..Dense_4`` (``Dense_2`` without bias) and
+    ``params/Dense_0``, ``params/Dense_1``."""
+    params = variables["params"]
+    sd = {"embedding.weight": _t(params["embedding"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("interaction_"))
+    for i in range(n_layers):
+        for k in range(5):
+            _dense(sd, f"interactions.{i}.dense_{k}",
+                   params[f"interaction_{i}"][f"Dense_{k}"])
+    for k in range(2):
+        _dense(sd, f"dense_{k}", params[f"Dense_{k}"])
+    return sd
+
+
 def egnn_fused_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.egnn_fused.EGNNFusedModel`` from the
     variables of the JAX ``EGNNFusedModel``:
@@ -32,7 +91,5 @@ def egnn_fused_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
                                   ("pred", "pred")):
         if flax_name in params:
-            dense = params[flax_name]
-            sd[f"{torch_name}.weight"] = _t(dense["kernel"]).T.contiguous()
-            sd[f"{torch_name}.bias"] = _t(dense["bias"])
+            _dense(sd, torch_name, params[flax_name])
     return sd

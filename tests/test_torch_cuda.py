@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from geometric_message_passing_tpu_torch import datasets, graph
-from geometric_message_passing_tpu_torch.experiments import train
+from geometric_message_passing_tpu_torch.experiments import bench_scale, train
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.models import EGNNFusedModel
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 
 # f32 sums in another order (the kernel's K-loop and CSR rows against the
 # plain version's matmuls and index_add_); the backward's weight gradient,
@@ -174,4 +175,125 @@ def test_two_train_steps_on_card_match_cpu(cuda_device):
                                rtol=1e-5)
     for key, value in results["cpu"][1].items():
         torch.testing.assert_close(results["cuda"][1][key], value,
+                                   atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The sorted segment sum (K3) and the segment sum over unsorted ids (K4)
+# ---------------------------------------------------------------------------
+
+# f32 sums of the same rows in another order (the plain version's
+# index_add_ on the card uses atomics), the JAX test's own tolerance
+SEG_TOL = 1e-5
+
+
+def _seg_case(e, n, d, seed, masked, sort, device):
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, n, e)
+    if sort:
+        seg = np.sort(seg)
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    mask = rng.random(e) >= masked
+    return (torch.from_numpy(data).to(device), torch.from_numpy(seg).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,d,masked,sort", [
+    (3000, 700, 64, 0.1, False),
+    (3000, 700, 64, 0.1, True),       # identity plan
+    (5000, 128, 128, 0.0, True),
+    (2000, 50, 4, 0.1, False),        # one thread per segment
+    (2000, 50, 3, 0.1, True),
+    (1500, 300, 1, 0.2, False),
+    (700, 90, 130, 0.1, False),       # D % 4 != 0: scalar lanes
+    (900, 40, 256, 0.1, False),       # two float4 column passes
+    (1500, 300, 32, 1.0, False),      # all masked: every segment empty
+    (0, 20, 16, 0.0, False),          # no edges
+])
+def test_sorted_segsum_kernel_matches_plain(cuda_device, e, n, d, masked, sort):
+    data, seg, mask = _seg_case(e, n, d, 11, masked, sort, cuda_device)
+    plan = sss.build_segment_plan(seg, n, mask=mask, device=cuda_device)
+    if e and masked < 1.0:
+        assert plan.identity_perm == (sort and masked == 0.0)
+    before = sss.sorted_segment_sum.launches
+    with torch.no_grad():
+        first = sss.sorted_segment_sum(data, plan, seg, mask)
+        second = sss.sorted_segment_sum(data, plan, seg, mask)
+        want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    torch.cuda.synchronize()
+    assert sss.sorted_segment_sum.launches == before + 2
+    assert torch.equal(first, second)          # no atomics: bitwise repeatable
+    torch.testing.assert_close(first, want, atol=SEG_TOL, rtol=SEG_TOL)
+    if masked == 1.0:
+        assert torch.equal(first, torch.zeros_like(first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,d,masked", [(3000, 700, 64, 0.1),
+                                          (2000, 50, 3, 0.0),
+                                          (1500, 300, 32, 1.0)])
+def test_segment_sum_kernel_matches_plain(cuda_device, e, n, d, masked):
+    data, seg, mask = _seg_case(e, n, d, 12, masked, False, cuda_device)
+    before = sss.segment_sum.launches
+    with torch.no_grad():
+        first = sss.segment_sum(data, seg.int(), n, mask)
+        second = sss.segment_sum(data, seg, n, mask)
+        want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    torch.cuda.synchronize()
+    assert sss.segment_sum.launches == before + 2
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, want, atol=SEG_TOL, rtol=SEG_TOL)
+
+
+@pytest.mark.cuda
+def test_sorted_gather_backward_launches_kernel(cuda_device):
+    data, seg, mask = _seg_case(3000, 700, 64, 13, 0.1, False, cuda_device)
+    h = torch.randn((700, 64), device=cuda_device, requires_grad=True)
+    plan = sss.build_segment_plan(seg, 700, mask=mask, device=cuda_device)
+    before = sss.sorted_segment_sum.launches
+    out = sss.sorted_gather(h, seg, plan, mask)
+    assert sss.sorted_segment_sum.launches == before    # a plain gather
+    (dh,) = torch.autograd.grad((out * data).sum(), [h])
+    assert sss.sorted_segment_sum.launches == before + 1
+    want = sss.sorted_segment_sum_plain(data, seg, 700, mask)
+    torch.testing.assert_close(dh, want, atol=SEG_TOL, rtol=SEG_TOL)
+
+
+@pytest.mark.cuda
+def test_plan_on_another_device_raises(cuda_device):
+    data, seg, mask = _seg_case(300, 70, 8, 14, 0.1, False, cuda_device)
+    plan = sss.build_segment_plan(seg, 70, mask=mask, device="cpu")
+    with pytest.raises(ValueError):
+        sss.sorted_segment_sum(data, plan, seg, mask)
+    with pytest.raises(ValueError):
+        sss.sorted_gather(torch.zeros((70, 8), device=cuda_device), seg, plan,
+                          mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["egnn_sorted", "schnet_sorted"])
+def test_two_box_adam_steps_on_card_match_cpu(cuda_device, name):
+    cfg = dict(num_layers=2, emb_dim=32) if name == "egnn_sorted" else \
+        dict(num_layers=2, hidden_channels=32, num_filters=32)
+    host = bench_scale.box_batch(400, sort=True)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        batch = host.to(dev)
+        model = bench_scale.build(name, cfg, torch.Generator().manual_seed(3),
+                                  dev)
+        plans = sss.batch_seg_plans(batch)
+        step = bench_scale.make_step(model, batch, plans)
+        before = sss.sorted_segment_sum.launches
+        losses = [step().item() for _ in range(2)]
+        launches = sss.sorted_segment_sum.launches - before
+        results[dev.type] = (losses, launches, {k: v.cpu() for k, v in
+                                                model.state_dict().items()})
+    per_step = bench_scale.sorted_launches_per_step(name, 2)
+    assert per_step == {"egnn_sorted": 10, "schnet_sorted": 4}[name]
+    assert results["cuda"][1] == 2 * per_step
+    assert results["cpu"][1] == 0
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
+    for key, value in results["cpu"][2].items():
+        torch.testing.assert_close(results["cuda"][2][key], value,
                                    atol=1e-5, rtol=1e-4)

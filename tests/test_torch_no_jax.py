@@ -38,7 +38,15 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments.infer",
                    "geometric_message_passing_tpu_torch.experiments.train",
                    "geometric_message_passing_tpu_torch.experiments.bench",
-                   "geometric_message_passing_tpu_torch.experiments.profile_train"):
+                   "geometric_message_passing_tpu_torch.experiments.profile_train",
+                   "geometric_message_passing_tpu_torch.experiments.bench_scale",
+                   "geometric_message_passing_tpu_torch.ops.radius_graph",
+                   "geometric_message_passing_tpu_torch.ops.norms",
+                   "geometric_message_passing_tpu_torch.ops.radial",
+                   "geometric_message_passing_tpu_torch.ops.sorted_segsum",
+                   "geometric_message_passing_tpu_torch.nn.basic",
+                   "geometric_message_passing_tpu_torch.models.egnn",
+                   "geometric_message_passing_tpu_torch.models.schnet"):
         assert module in res["imported"]
 
 
