@@ -20,17 +20,35 @@ Phases; any failure raises and the script exits non-zero:
      K3 (``sorted_segment_sum``) at random unsorted ids (E 3000, N 700,
      D 64, 10% masked), with every edge masked (empty segments), and on the
      receiver-sorted 100k-atom box with its receiver plan (identity) at
-     D 128 and D 4 and its sender plan at D 128 and D 3; K4
+     D 128, D 4 and D 177 (GVP-GNN's merged sum) and its sender plan at
+     D 128, D 3 and D 176 (GVP-GNN's sender gather backward); K4
      (``segment_sum``) at E 3000 / N 700 / D 64 and on the box's edges in
      shuffled order at D 128: atol = rtol = 1e-5 of the f32 sum (the JAX
      test's), two runs bitwise equal, and beside kernel, whole call and
      plain version the library calls (one ``index_add_`` on the masked
      data, one ``torch.segment_reduce`` on the sorted rows);
+  3b. K5 (``gvp_message``, forward and backward) against its plain versions
+     at three shapes: a small random case (N 40, E 150, 16/4 nodes, 8/1
+     edges), the star train bucket at full width (N 800, E 1400; 128/16
+     nodes, 32/1 edges, layer 0's weights of the phase-4b model) and the
+     unsorted 10k-atom box at full width (129,224 edges).  Forward: atol =
+     rtol = 1e-4.  Backward (``check_gvp_bwd``): the edges with a ReLU
+     pre-activation within 1e-5 of zero (a float64 run finds them; their
+     mask may flip between two f32 runs) masked off and counted, then the
+     feature cotangents within 1e-4 and each weight's gradient within 1e-5
+     of that weight's largest entry (at least 1), 1e-3 at the box (f32 sums
+     of 129k edges in another order), with both f32 versions' distances from
+     float64 printed at full width.  Two runs bitwise equal; kernels, whole
+     call and plain version timed beside the bound;
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
      result must be finite, of shape (1400, 1), and match the same weights
      run on the CPU through the plain path (atol 1e-4);
+  4b. GVP serving: ``Predictor(GVPGNNModel(4 layers, 128/16,
+     use_pallas=True))`` over the same graphs, counters set to 0 just before
+     and read just after: 14 x 4 K5 forward launches and nothing else; finite
+     (1400, 1), within 1e-4 of the CPU plain path; median of 7 calls;
   5. train, against the CPU: the bench configuration (split 50/20/30,
      batch 100, lr 5e-4) from the same weights and the same shuffle, run on
      the card, on the CPU plain path in float32 and on the CPU in float64,
@@ -45,11 +63,25 @@ Phases; any failure raises and the script exits non-zero:
      card must lie within 10x the CPU float32 run's largest relative
      distance from the float64 run (at least 1e-5) of the float64 value.
      The planted fault must fail both checks;
+  5b. GVP one ``train_step`` against the CPU (dropout rate 0 on these
+     copies: the card's and the CPU's generators draw different masks): on
+     the card, on the CPU in float32 and in float64; every gradient on the
+     card within 1e-2 of that parameter's largest float64 entry.  Printed
+     beside it: the card run again (run to run) and on the plain route
+     (``use_pallas=False``, a witness of the card's rounding outside K5).
+     A planted fault, the edge features cut off from K5's gradient (``W_e``
+     and ``W_e_norm`` learn nothing), must fail that check;
   6. train, the main path: one 200-epoch ``fit_regression`` on the card with
      the launch counters set to 0 just before and read just after: K2 must
      have launched 4 x (train steps) times, K1 4 x (train steps + validation
      batches + test batches of the epochs whose best-val rule fired); the
      test MAE must be finite and below 0.2;
+  6d. GVP training, the main path: a 100-epoch ``fit_regression`` of the
+     phase-4b model with dropout on, counters set to 0 just before and read
+     just after: K5 forward 4 x (train steps + validation batches + test
+     batches of the fired epochs), backward 4 x train steps, nothing else;
+     losses finite, the last epoch's mean train loss below the first's; the
+     test MAE printed beside a constant predictor's (the train-target mean);
   6b. box training, against the CPU: one bench_scale step (L1-sum loss,
      Adam 1e-4) of ``schnet_sorted`` and ``egnn_sorted`` (4 layers x 128)
      on a receiver-sorted box of 2000 atoms, from the same weights, on the
@@ -64,12 +96,21 @@ Phases; any failure raises and the script exits non-zero:
      launched exactly ``bench_scale.sorted_launches_per_step`` times per
      step (8 for SchNet, 22 for EGNN), the others never; every loss finite;
      prints ms per step, edges/s and peak device memory;
+  6e. ``gvp_sorted`` (4 layers, 128/16; its chain on the plain route, as in
+     the JAX script): one step on the 2000-atom sorted box against the CPU
+     float64 run with phase 6b's planted fault rejected (dropout rate 0 on
+     those copies), then a few steps on the 100k-atom box with remat and
+     dropout on: K3 exactly ``sorted_launches_per_step("gvp_sorted", 4,
+     remat=True)`` (12) times per step, no K5; ms per step, edges/s, peak
+     device memory;
   7. summary: one JSON line of kernels, then the device line last.
 
+Phases run in the order 1, 2, 3, 3b, 4, 4b, 5, 5b, 6, 6d, 6b, 6c, 6e, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
-permutation, row pointers or ids and mask, and the output written once.
+permutation, row pointers or ids and mask, and the output written once; K5's
+is ``gvp_bound_ms``.
 """
 
 from __future__ import annotations
@@ -92,9 +133,12 @@ from geometric_message_passing_tpu_torch.experiments.train import (
     fit_regression, make_tx, train_step)
 from geometric_message_passing_tpu_torch.graph import (
     GraphLoader, assemble_batch, build_slot_data, pad_sizes)
-from geometric_message_passing_tpu_torch.models import EGNNFusedModel, egnn_fused
+from geometric_message_passing_tpu_torch.models import (
+    EGNNFusedModel, GVPGNNModel, egnn_fused, gvpgnn)
+from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
 from geometric_message_passing_tpu_torch.ops import _build
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 from geometric_message_passing_tpu_torch.ops.edge import (
     egnn_message, egnn_message_bwd, egnn_message_bwd_plain, egnn_message_plain,
@@ -300,15 +344,15 @@ def bwd_bound_ms(args) -> tuple:
 
 
 @contextlib.contextmanager
-def message_pass(fn):
-    """Run ``EGNNFusedModel``'s layers through ``fn`` in place of
-    ``egnn_message`` (phase 5's witness and planted fault)."""
-    saved = egnn_fused.egnn_message
-    egnn_fused.egnn_message = fn
+def patched(module, name: str, fn):
+    """Run ``module``'s calls of ``name`` through ``fn`` (phase 5's witness
+    and the planted faults of phases 5 and 5b)."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        egnn_fused.egnn_message = saved
+        setattr(module, name, saved)
 
 
 def without_weight_grad(send, recv, emask, h, pos, packed_w):
@@ -317,12 +361,15 @@ def without_weight_grad(send, recv, emask, h, pos, packed_w):
     return egnn_message(send, recv, emask, h, pos, packed_w.detach())
 
 
-def first_step(model, device, dtype, graphs, row):
+def first_step(model, device, dtype, graphs, row, cast_data: bool = False):
     """One ``train_step`` of a copy of ``model`` on the graphs ``row``:
     each parameter's gradient (zero where it got none) and its value after
-    the Adam step, in float64 on the CPU."""
+    the Adam step, in float64 on the CPU.  ``cast_data``: positions and
+    targets in ``dtype`` too (GVP-GNN's LayerNorms take one type)."""
     work = copy.deepcopy(model).to(device=device, dtype=dtype)
     slot = build_slot_data(graphs, device=device)
+    if cast_data:
+        slot.pos, slot.y = slot.pos.to(dtype), slot.y.to(dtype)
     train_step(work, make_tx(work.parameters(), LR), slot, row.to(device))
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in work.named_parameters()}
@@ -334,16 +381,18 @@ def step_reading(got, want) -> tuple:
     """How far one ``first_step`` lies from another: the largest gradient
     error relative to that parameter's largest reference entry, the count
     of gradient entries whose sign differs from a nonzero reference entry,
-    and the largest parameter distance after the step in units of lr."""
-    err, flips, moved = 0.0, 0, 0.0
+    the largest parameter distance after the step in units of lr, and the
+    parameter of the largest gradient error."""
+    err, flips, moved, worst = 0.0, 0, 0.0, ""
     for name, g in got[0].items():
         ref = want[0][name]
         top = ref.abs().max().item()
         diff = (g - ref).abs().max().item()
-        err = max(err, diff / top if top > 0 else diff)
+        if (diff / top if top > 0 else diff) > err:
+            err, worst = (diff / top if top > 0 else diff), name
         flips += int(((torch.sign(g) != torch.sign(ref)) & (ref != 0)).sum())
         moved = max(moved, (got[1][name] - want[1][name]).abs().max().item() / LR)
-    return err, flips, moved
+    return err, flips, moved, worst
 
 
 def fired_epochs(per_epoch: np.ndarray) -> int:
@@ -483,16 +532,241 @@ def sender_backward_on_receiver_plan(b):
     return {"rcv": plans["rcv"], "snd": plans["rcv"]}
 
 
+# ---------------------------------------------------------------------------
+# GVP-GNN and its message kernels (K5)
+# ---------------------------------------------------------------------------
+
+GVP_LAYERS, GVP_EPOCHS = 4, 100
+GVP_BOX_ATOMS = 10_000      # K5's large shape: the unsorted 10k box
+FLIP_MARGIN = 1e-5          # ReLU pre-activations closer to 0 may flip
+W_TOL, W_TOL_BOX = 1e-5, 1e-3   # K5's dW against its plain version
+
+
+def gvp_model(device, use_pallas: bool = True, **kw) -> GVPGNNModel:
+    """The slice's model: GVP-GNN at its defaults (128/16 nodes, 32/1
+    edges), 4 layers, star-graph input and output widths, seed 0."""
+    return GVPGNNModel(num_layers=GVP_LAYERS, in_dim=1, out_dim=1,
+                       use_pallas=use_pallas, device=device,
+                       generator=torch.Generator().manual_seed(0), **kw)
+
+
+def without_dropout(model):
+    """A copy of ``model`` with every dropout rate 0 (the card's and the
+    CPU's generators draw different masks)."""
+    work = copy.deepcopy(model)
+    for m in work.modules():
+        if isinstance(m, GVPDropout):
+            m.rate = 0.0
+    return work
+
+
+def gvp_random_case(n, e, seed, masked, dev, node=(16, 4), edge_dims=(8, 1),
+                    layers=3):
+    """K5's inputs drawn at random as the JAX test draws them, with random
+    cotangents: (indices, node planes, edge planes, weights, cotangents)."""
+    rng = np.random.default_rng(seed)
+    (S, V), (SE, VE) = node, edge_dims
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(dev)
+    dims = [(2 * S + SE, 2 * V + VE)] + [node] * layers
+    ws = []
+    for k in range(layers):
+        (si, vi), (so, vo) = dims[k], dims[k + 1]
+        h = max(vi, vo)
+        ws += [f(vi, h) * 0.2, f(h, vo) * 0.2, f(si + h, so) * 0.1,
+               f(so) * 0.1, f(so, vo) * 0.1, f(vo) * 0.1]
+    idx = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, n, e).astype(np.int32),
+        rng.integers(0, n, e).astype(np.int32), rng.random(e) >= masked))
+    return (idx, [f(n, S)] + [f(n, V) for _ in range(3)],
+            [f(e, SE)] + [f(e, VE) for _ in range(3)], ws,
+            [f(n, S)] + [f(n, V) for _ in range(3)])
+
+
+def gvp_layer_case(batch, model: GVPGNNModel, seed: int):
+    """K5's inputs at layer 0 of ``model`` on ``batch`` (both on the card):
+    random node features and cotangents, the model's edge features
+    (``embed_edges``) and layer 0's chain weights."""
+    dev = batch.pos.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, S, V = batch.num_nodes, model.s_dim, model.v_dim
+
+    def draw():
+        return [torch.randn((n, S), generator=gen, device=dev)] + [
+            torch.randn((n, V), generator=gen, device=dev) for _ in range(3)]
+
+    with torch.no_grad():
+        es, ev = model.embed_edges(batch)
+        ws = [w.detach().contiguous()
+              for w in model.layers[0].conv.chain_weights()]
+    return ((batch.senders, batch.receivers, batch.edge_mask), draw(),
+            [es.contiguous()] + [ev[..., c].contiguous() for c in range(3)],
+            ws, draw())
+
+
+def check_gvp_fwd(label: str, case) -> float:
+    """K5 forward against its plain version (atol = rtol = 1e-4), finite,
+    two runs bitwise equal; returns the largest difference."""
+    idx, nodes, edges, ws, _ = case
+    with torch.no_grad():
+        got = gm.gvp_message(*idx, *nodes, *edges, *ws)
+        again = gm.gvp_message(*idx, *nodes, *edges, *ws)
+        want = gm.gvp_message_plain(*idx, *nodes, *edges, ws, len(ws) // gm.N_W)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, a, w_, part in zip(got, again, want, ("s", "vx", "vy", "vz", "cnt")):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: K5 {part} has non-finite values")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: K5 {part}: two runs differ bitwise")
+        top = (g - w_).abs().max().item() if g.numel() else 0.0
+        err = max(err, top)
+        if not torch.allclose(g, w_, atol=ATOL, rtol=RTOL):
+            raise AssertionError(f"{label}: K5 {part} differs from the plain "
+                                 f"version by {top:.3e}")
+    log(f"  {label}: N={nodes[0].shape[0]} E={idx[0].shape[0]} "
+        f"live={int(idx[2].sum())} widths {gm.chain_dims(ws)[0]} "
+        f"max_abs_err={err:.3e}, bitwise repeatable")
+    return err
+
+
+def check_gvp_bwd(label: str, case, w_tol: float = W_TOL) -> float:
+    """K5 backward against its plain version, two runs bitwise equal.  An
+    edge with a ReLU pre-activation within FLIP_MARGIN of zero (float64 run,
+    ``gm.relu_margins``) may take that mask one way in the kernel and the
+    other in the plain version, and its cotangents then differ by O(1):
+    such edges are masked off, and their count printed.  Then the 8 feature
+    cotangents must lie within atol = rtol = 1e-4 and each weight's
+    gradient within ``w_tol`` of that weight's largest entry (at least 1).
+    At full width both f32 versions' distances from a float64 run are
+    printed."""
+    idx, nodes, edges, ws, cots = case
+    margins = gm.relu_margins(*idx, nodes, edges, ws)
+    near = margins <= FLIP_MARGIN
+    live = int(idx[2].sum())
+    idx = (idx[0], idx[1], idx[2] & ~near)
+    got = gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots)
+    again = gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots)
+    want = gm.gvp_message_bwd_plain(*idx, *nodes, *edges, ws, *cots)
+    torch.cuda.synchronize()
+    names = [f"gvp{k}.{w}" for k in range(len(ws) // gm.N_W)
+             for w in ("Wh", "Wv", "Ws", "bs", "Wsv", "bsv")]
+    parts = ["ds", "dvx", "dvy", "dvz", "des", "devx", "devy", "devz"] + names
+    got_all, again_all = list(got[:8]) + got[8], list(again[:8]) + again[8]
+    want_all = list(want[:8]) + want[8]
+    worst, report, w_worst = 0.0, [], (0.0, "")
+    for i, (g, a, w_, part) in enumerate(zip(got_all, again_all, want_all,
+                                             parts)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: K5 backward {part} is not finite")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: K5 backward {part}: two runs "
+                                 "differ bitwise")
+        top = (g - w_).abs().max().item() if g.numel() else 0.0
+        worst = max(worst, top)
+        if i < 8:
+            ok = torch.allclose(g, w_, atol=ATOL, rtol=RTOL)
+            report.append(f"{part} {top:.2e}")
+        else:
+            scale = max(w_.abs().max().item(), 1.0)
+            ok = top <= w_tol * scale
+            w_worst = max(w_worst, (top / scale, part))
+        if not ok:
+            raise AssertionError(f"{label}: K5 backward {part} differs from its "
+                                 f"plain version by {top:.3e}")
+    log(f"  {label}: K5 backward max_abs_err " + ", ".join(report)
+        + f"; dW worst {w_worst[0]:.2e} of its largest entry ({w_worst[1]}, "
+        f"tol {w_tol:g}); {int(near.sum())} of {live} live edges within "
+        f"{FLIP_MARGIN:g} of a ReLU flip masked off (smallest margin "
+        f"{margins.min().item() if margins.numel() else float('inf'):.2e}); "
+        "bitwise repeatable")
+    if nodes[0].shape[1] >= 128:
+        f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+        exact = gm.gvp_message_bwd_plain(*idx, *f64(nodes), *f64(edges),
+                                         f64(ws), *f64(cots))
+        exact_all = list(exact[:8]) + [torch.cat([d.reshape(-1) for d in exact[8]])]
+        flat = lambda ts: list(ts[:8]) + [torch.cat(  # noqa: E731
+            [d.reshape(-1) for d in ts[8:]])]
+        log(f"  {label}: vs float64, kernel / plain f32: " + ", ".join(
+            f"{p} {(g.double() - x).abs().max().item():.2e} / "
+            f"{(w_.double() - x).abs().max().item():.2e}"
+            for g, w_, x, p in zip(flat(got_all), flat(want_all), exact_all,
+                                   parts[:8] + ["dW"]) if x.numel()))
+    return worst
+
+
+def gvp_kernels_ms(case, iters: int, backward: bool) -> float:
+    """Device time of K5's kernels alone (forward or backward): the CSRs,
+    the flat weights and the buffers are made once, outside the loop."""
+    (send, recv, emask), nodes, edges, ws, cots = case
+    n = nodes[0].shape[0]
+    dims, w = gm.chain_dims(ws), gm._flat(ws)
+    rcsr = edge.receiver_csr(recv, emask, n)
+    if not backward:
+        so, vo = dims[-1][3], dims[-1][4]
+        outs = [torch.empty((n, width), device=w.device)
+                for width in (so, vo, vo, vo, 1)]
+        return cuda_time_ms(lambda: gm.launch_fwd(
+            send, recv, emask, nodes, edges, w, dims, rcsr, outs), iters)
+    scsr = edge.sender_csr(send, emask, n)
+    bufs = gm.bwd_buffers(send, nodes, edges, ws, dims)
+    return cuda_time_ms(lambda: gm.launch_bwd(
+        send, recv, emask, nodes, edges, w, dims, cots, rcsr, scsr, bufs), iters)
+
+
+def gvp_bound_ms(case, backward: bool) -> tuple:
+    """Least time for K5 on these inputs: bytes (each input read once, each
+    output written once) over the HBM rate against the operations the live
+    edges need over the f32 rate.  Per live edge: the chain's products
+    2 sum(3 vi h + (si+h) so + 3 h vo + so vo), about 12 ops per activation
+    element (norm, bias, ReLU, two sigmoids, the gate) and the receiver sum;
+    backward: the forward recomputed, the products twice more (input
+    cotangents and weight gradients), the elementwise work twice more and the
+    two node sums."""
+    (send, recv, emask), nodes, edges, ws, cots = case
+    dims = gm.chain_dims(ws)
+    n, e = nodes[0].shape[0], send.shape[0]
+    products = sum(2 * (3 * vi * h + (si + h) * so + 3 * h * vo + so * vo)
+                   for si, vi, h, so, vo in dims)
+    elementwise = sum(12 * (h + so + 3 * vo) for si, vi, h, so, vo in dims)
+    so, vo = dims[-1][3], dims[-1][4]
+    feats = sum(t.numel() for t in nodes + edges)
+    weights = sum(w.numel() for w in ws)
+    n_bytes = 2 * e * send.element_size() + e + 4 * (feats + weights)
+    if backward:
+        n_bytes += 4 * (sum(c.numel() for c in cots) + feats + weights)
+        per_edge = 3 * products + 3 * elementwise + 2 * (
+            nodes[0].shape[1] + 3 * nodes[1].shape[1])
+    else:
+        n_bytes += 4 * n * (so + 3 * vo + 1)
+        per_edge = products + elementwise + so + 3 * vo + 1
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int(emask.sum()) * per_edge / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def without_edge_grad(send, recv, emask, s, vx, vy, vz, es, evx, evy, evz,
+                      *ws):
+    """The planted fault of phase 5b: ``gvp_message`` with the edge
+    features cut off from the gradient (K5's edge cotangents dropped), so
+    ``W_e`` and ``W_e_norm`` learn nothing."""
+    return gm.gvp_message(send, recv, emask, s, vx, vy, vz, es.detach(),
+                          evx.detach(), evy.detach(), evz.detach(), *ws)
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
+    gm.gvp_message.launches = gm.gvp_message.bwd_launches = 0
 
 
 def counts() -> dict:
     return {"egnn_message": egnn_message.launches,
             "egnn_message_bwd": egnn_message.bwd_launches,
             "sorted_segment_sum": sss.sorted_segment_sum.launches,
-            "segment_sum": sss.segment_sum.launches}
+            "segment_sum": sss.segment_sum.launches,
+            "gvp_message": gm.gvp_message.launches,
+            "gvp_message_bwd": gm.gvp_message.bwd_launches}
 
 
 def main() -> int:
@@ -606,8 +880,10 @@ def main() -> int:
                            timed=False))
     if sss.sorted_segment_sum(data, plan, seg, mask).abs().max().item() != 0:
         raise AssertionError("all masked: the sum is not zero")
+    # D 177: gvp_sorted's merged receiver sum (128 + 3 x 16 + the count);
+    # D 176: its sender gather's backward
     for key, d, seed in (("rcv", 128, 23), ("rcv", 4, 24), ("snd", 128, 25),
-                         ("snd", 3, 26)):
+                         ("snd", 3, 26), ("rcv", 177, 41), ("snd", 176, 42)):
         idx = box.receivers if key == "rcv" else box.senders
         k3.append(check_segsum(f"box {key} plan D{d}", box_rows(box, d, seed),
                                idx, box.edge_mask, box.num_nodes,
@@ -620,6 +896,56 @@ def main() -> int:
                            box.receivers[shuffle], box.edge_mask[shuffle],
                            box.num_nodes))
     del data, seg, mask, shuffle
+    torch.cuda.empty_cache()
+
+    # 3b. K5 against its plain version
+    log("[kernels] gvp_message (K5) vs gvp_message_plain: forward atol = rtol "
+        f"= {ATOL}; backward as chip_smoke.check_gvp_bwd states [{card}]")
+    gvp_cuda = gvp_model(dev)
+    k5_small = gvp_random_case(40, 150, seed=21, masked=0.1, dev=dev)
+    slot = build_slot_data(loaders[0].graphs, device=dev)
+    k5_train = gvp_layer_case(assemble_batch(slot, torch.arange(BATCH, device=dev)),
+                              gvp_cuda, seed=31)
+    t = time.perf_counter()
+    gvp_box = bench_scale.box_batch(GVP_BOX_ATOMS, sort=False).to(dev)
+    k5_box = gvp_layer_case(gvp_box, gvp_cuda, seed=32)
+    log(f"  unsorted box of {GVP_BOX_ATOMS} atoms: {int(gvp_box.edge_mask.sum())} "
+        f"edges (bucket N {gvp_box.num_nodes}, E {gvp_box.num_edges}), built "
+        f"in {time.perf_counter() - t:.2f} s")
+    k5_err = max(check_gvp_fwd("small", k5_small),
+                 check_gvp_fwd("train bucket", k5_train),
+                 check_gvp_fwd("10k box", k5_box))
+    k5_bwd_err = max(check_gvp_bwd("small", k5_small),
+                     check_gvp_bwd("train bucket", k5_train))
+    k5_bwd_err_box = check_gvp_bwd("10k box", k5_box, w_tol=W_TOL_BOX)
+    k5_times = {}
+    for label, case, iters in (("train bucket", k5_train, 50),
+                               ("10k box", k5_box, 5)):
+        idx, nodes, edges, ws, cots = case
+        chain = len(ws) // gm.N_W
+        with torch.no_grad():
+            fk = gvp_kernels_ms(case, iters, backward=False)
+            fc = cuda_time_ms(lambda: gm.gvp_message(*idx, *nodes, *edges, *ws),
+                              iters)
+            fp = cuda_time_ms(lambda: gm.gvp_message_plain(
+                *idx, *nodes, *edges, ws, chain), iters)
+            bk = gvp_kernels_ms(case, iters, backward=True)
+            bc = cuda_time_ms(lambda: gm.gvp_message_bwd(
+                *idx, *nodes, *edges, ws, *cots), iters)
+            bp = cuda_time_ms(lambda: gm.gvp_message_bwd_plain(
+                *idx, *nodes, *edges, ws, *cots), iters)
+        (fb, fby), (bb, bby) = gvp_bound_ms(case, False), gvp_bound_ms(case, True)
+        k5_times[label] = {"E": idx[0].shape[0], "live": int(idx[2].sum()),
+                           "N": nodes[0].shape[0],
+                           "fwd": dict(ms=fk, call_ms=fc, plain_ms=fp,
+                                       bound_ms=fb, bound_by=fby),
+                           "bwd": dict(ms=bk, call_ms=bc, plain_ms=bp,
+                                       bound_ms=bb, bound_by=bby)}
+        log(f"  {label}: forward kernels {fk:.4f} ms, whole call {fc:.4f} ms, "
+            f"plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); backward kernels "
+            f"{bk:.4f} ms, whole call {bc:.4f} ms, plain {bp:.4f} ms, bound "
+            f"{bb:.5f} ms ({bby}) [{card}]")
+    del k5_box, gvp_box, slot
     torch.cuda.empty_cache()
 
     # 4. serve
@@ -669,6 +995,40 @@ def main() -> int:
         f"{host_ms:.2f} ms; {want} calls x {call_ms:.4f} ms = "
         f"{want * call_ms:.2f} ms [{card}]")
 
+    # 4b. GVP serving
+    gvp_cpu = gvp_model("cpu")
+    for key, value in gvp_cuda.state_dict().items():
+        if not torch.equal(value.cpu(), gvp_cpu.state_dict()[key]):
+            raise AssertionError(f"CPU and CUDA GVP models differ at {key}")
+    gvp_pred = Predictor(gvp_cuda, batch_size=BATCH)
+    reset_counts()
+    y_gvp = gvp_pred.predict(graphs)
+    gvp_serve = counts()
+    gvp_want = -(-N_GRAPHS // BATCH) * GVP_LAYERS
+    log(f"[serve] GVP-GNN ({GVP_LAYERS} layers, 128/16, use_pallas=True) "
+        f"predict({N_GRAPHS} graphs): launches {gvp_serve} (want K5 forward "
+        f"{gvp_want}, nothing else)")
+    if y_gvp.shape != (N_GRAPHS, 1) or not np.isfinite(y_gvp).all():
+        raise AssertionError(f"GVP predict gave shape {y_gvp.shape}, "
+                             f"finite={np.isfinite(y_gvp).all()}")
+    if gvp_serve != dict({k: 0 for k in gvp_serve}, gvp_message=gvp_want):
+        raise AssertionError(f"GVP predict launched {gvp_serve}")
+    y_gvp_cpu = Predictor(gvp_cpu, batch_size=BATCH, device="cpu").predict(graphs)
+    gvp_serve_err = float(np.abs(y_gvp - y_gvp_cpu).max())
+    log(f"  vs the CPU plain path: max_abs_err={gvp_serve_err:.3e} (atol 1e-4)")
+    if not np.allclose(y_gvp, y_gvp_cpu, atol=1e-4, rtol=0):
+        raise AssertionError(f"GVP predict differs from the CPU run by "
+                             f"{gvp_serve_err}")
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gvp_pred.predict(graphs)
+        times.append(time.perf_counter() - t)
+    gvp_ms = statistics.median(times) * 1e3
+    log(f"[serve] GVP predict: median {gvp_ms:.2f} ms per call of 7 "
+        f"({N_GRAPHS / gvp_ms * 1e3:.0f} graphs/s) [{card}]")
+
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
     order = torch.from_numpy(np.random.default_rng(7).permutation(
@@ -681,7 +1041,7 @@ def main() -> int:
             ("cpu f64", "cpu", torch.float64, egnn_message))
     step, epoch = {}, {}
     for run, d_, dtype, fn in runs:
-        with message_pass(fn):
+        with patched(egnn_fused, "egnn_message", fn):
             step[run] = first_step(cpu_model, d_, dtype, loaders[0].graphs,
                                    order[:BATCH])
             egnn_message.launches = egnn_message.bwd_launches = 0
@@ -703,7 +1063,7 @@ def main() -> int:
         f"K1 {one_epoch[0]}, K2 {one_epoch[1]} (want {want_one})")
     check = {}
     for run, *_ in runs[:-1]:
-        g_err, flips, moved = step_reading(step[run], step["cpu f64"])
+        g_err, flips, moved, _ = step_reading(step[run], step["cpu f64"])
         rel = np.abs(epoch[run] - exact) / np.abs(exact)
         e_err = float(rel.max())
         check[run] = {"grad_err": g_err, "sign_flips": flips,
@@ -719,6 +1079,47 @@ def main() -> int:
         raise AssertionError("a check of phase 5 passed the planted fault")
     if check["card"]["epoch_err"] > tol or one_epoch != want_one:
         raise AssertionError("the epoch on the card does not match the CPU")
+
+    # 5b. GVP one step against the CPU, dropout rate 0 on the copies; the
+    # card once more on the plain route (use_pallas=False), a witness of the
+    # card's rounding outside K5, and once more through K5 (run to run)
+    quiet = without_dropout(gvp_cpu)
+    quiet_plain = copy.deepcopy(quiet)
+    for m in quiet_plain.modules():
+        if isinstance(m, gvpgnn.GVPConv):
+            m.use_pallas = False
+    gvp_step = {}
+    for run, net, d_, dtype, fn in (
+            ("card", quiet, "cuda", torch.float32, gm.gvp_message),
+            ("card again", quiet, "cuda", torch.float32, gm.gvp_message),
+            ("card, plain route", quiet_plain, "cuda", torch.float32,
+             gm.gvp_message),
+            ("card, planted fault", quiet, "cuda", torch.float32,
+             without_edge_grad),
+            ("cpu f32", quiet, "cpu", torch.float32, gm.gvp_message),
+            ("cpu f64", quiet, "cpu", torch.float64, gm.gvp_message)):
+        with patched(gvpgnn, "gvp_message", fn):
+            gvp_step[run] = first_step(net, d_, dtype, loaders[0].graphs,
+                                       order[:BATCH], cast_data=True)
+    gvp_check = {}
+    for run in ("card", "card again", "card, plain route",
+                "card, planted fault", "cpu f32"):
+        g_err, flips, moved, worst = step_reading(gvp_step[run],
+                                                  gvp_step["cpu f64"])
+        gvp_check[run] = {"grad_err": g_err, "sign_flips": flips,
+                          "step_lr": moved, "worst": worst}
+    rerun = step_reading(gvp_step["card again"], gvp_step["card"])
+    log(f"[train] GVP-GNN one train_step (graphs order[:{BATCH}], dropout "
+        "rate 0 on these copies: the card's and the CPU's generators differ) "
+        f"against the CPU float64 run, tol {GRAD_TOL:g} of each parameter's "
+        "largest entry: " + ", ".join(
+            f"{run} {c['grad_err']:.3e} ({c['worst']}; {c['sign_flips']} signs "
+            "differ)" for run, c in gvp_check.items())
+        + f"; card run to run {rerun[0]:.3e} ({rerun[3]})")
+    if gvp_check["card"]["grad_err"] > GRAD_TOL:
+        raise AssertionError("the GVP gradients on the card do not match the CPU")
+    if gvp_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
+        raise AssertionError("phase 5b's check passed the planted fault")
 
     # 6. train, the main path
     reset_counts()
@@ -743,6 +1144,35 @@ def main() -> int:
                              f"expected {want_train}")
     if not (np.isfinite(res.test) and res.test < 0.2):
         raise AssertionError(f"test MAE {res.test} is not finite and below 0.2")
+
+    # 6d. GVP training, the main path (dropout on)
+    reset_counts()
+    gres = fit_regression(gvp_cuda, None, *loaders, n_epochs=GVP_EPOCHS, lr=LR,
+                          seed=1, device="cuda")
+    gvp_train = counts()
+    gfired = fired_epochs(gres.perf_per_epoch)
+    gvp_train_want = dict({k: 0 for k in gvp_train}, gvp_message=GVP_LAYERS * (
+        GVP_EPOCHS * (steps + val_b) + gfired * test_b),
+        gvp_message_bwd=GVP_LAYERS * GVP_EPOCHS * steps)
+    epoch_loss = gres.train_losses.mean(axis=1)
+    y_train = np.array([np.atleast_1d(g.y)[0] for g in loaders[0].graphs])
+    y_test = np.array([np.atleast_1d(g.y)[0] for g in loaders[2].graphs])
+    const_mae = float(np.abs(y_test - y_train.mean()).mean())
+    log(f"[train] GVP-GNN fit_regression {GVP_EPOCHS} epochs: train_time "
+        f"{gres.train_time:.3f} s, test MAE {gres.test:.5f} (a constant "
+        f"predictor, the train-target mean: {const_mae:.5f}), best val MAE "
+        f"{gres.best_val:.5f}; mean train loss first / last epoch "
+        f"{epoch_loss[0]:.4f} / {epoch_loss[-1]:.4f}; launches {gvp_train} "
+        f"(want K5 {gvp_train_want['gvp_message']} forward, "
+        f"{gvp_train_want['gvp_message_bwd']} backward, {gfired} test passes) "
+        f"[{card}]")
+    if gvp_train != gvp_train_want:
+        raise AssertionError(f"GVP training launched {gvp_train}, expected "
+                             f"{gvp_train_want}")
+    if not (np.isfinite(gres.train_losses).all() and np.isfinite(gres.test)):
+        raise AssertionError("a GVP training loss or the test MAE is not finite")
+    if not epoch_loss[-1] < epoch_loss[0]:
+        raise AssertionError("GVP training did not lower the train loss")
 
     # 6b. box training, against the CPU
     check_box = bench_scale.box_batch(BOX_CHECK_ATOMS, sort=True)
@@ -809,6 +1239,64 @@ def main() -> int:
         del box_model, step_fn
         torch.cuda.empty_cache()
 
+    # 6e. gvp_sorted: one step against the CPU, then the main path at 100k
+    cfg = bench_scale.config("gvp_sorted", BOX_CHECK_ATOMS)
+    box_model = without_dropout(bench_scale.build(
+        "gvp_sorted", cfg, torch.Generator().manual_seed(0), "cpu"))
+    grads = {run: box_grads(box_model, check_box, plans, d_, dtype)
+             for run, d_, dtype, plans in (
+                 ("card", "cuda", f32, sss.batch_seg_plans),
+                 ("card, planted fault", "cuda", f32,
+                  sender_backward_on_receiver_plan),
+                 ("cpu f32", "cpu", f32, sss.batch_seg_plans),
+                 ("cpu f64", "cpu", f64, sss.batch_seg_plans))}
+    box_check["gvp_sorted"] = {run: grad_error(g, grads["cpu f64"])
+                               for run, g in grads.items() if run != "cpu f64"}
+    log(f"[box] gvp_sorted {cfg} one step on the {BOX_CHECK_ATOMS}-atom sorted "
+        "box (dropout rate 0 on these copies), gradients against the CPU "
+        f"float64 run (tol {GRAD_TOL:g}): " + ", ".join(
+            f"{run} {e:.3e}" for run, e in box_check["gvp_sorted"].items()))
+    if box_check["gvp_sorted"]["card"] > GRAD_TOL:
+        raise AssertionError("gvp_sorted: the gradients on the card do not "
+                             "match the CPU")
+    if box_check["gvp_sorted"]["card, planted fault"] <= GRAD_TOL:
+        raise AssertionError("gvp_sorted: phase 6e's check passed the planted "
+                             "fault")
+    del box_model, grads
+    cfg = bench_scale.config("gvp_sorted", BOX_ATOMS)
+    box_model = bench_scale.build("gvp_sorted", cfg,
+                                  torch.Generator().manual_seed(0), dev)
+    step_fn = bench_scale.make_step(box_model, box, box_plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(BOX_STEPS):
+        t = time.perf_counter()
+        losses.append(step_fn().item())
+        times.append(time.perf_counter() - t)
+    got = counts()
+    per_step = bench_scale.sorted_launches_per_step(
+        "gvp_sorted", cfg["num_layers"], cfg.get("remat", False))
+    want = dict({k: 0 for k in got}, sorted_segment_sum=BOX_STEPS * per_step)
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    box_runs["gvp_sorted"] = {"cfg": cfg, "launches": got, "step_ms": step_ms,
+                              "step_times_ms": [x * 1e3 for x in times],
+                              "edges_per_s": box_edges / step_ms * 1e3,
+                              "peak_mem_gb": peak_gb, "losses": losses}
+    log(f"[box] gvp_sorted {cfg} on the {BOX_ATOMS}-atom box: {BOX_STEPS} "
+        f"steps, median {step_ms:.2f} ms per step after the first "
+        f"({box_edges / step_ms * 1e3:.4g} edges/s), peak {peak_gb:.3f} GB; "
+        f"losses {losses}; launches {got} (want K3 {per_step} per step, no "
+        f"K5) [{card}]")
+    if got != want:
+        raise AssertionError(f"gvp_sorted launched {got}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("gvp_sorted: a loss is not finite")
+    del box_model, step_fn
+    torch.cuda.empty_cache()
+
     # 7. summary
     kernels = [{
         "name": "egnn_message", "ok": True, "route": "cuda",
@@ -827,6 +1315,22 @@ def main() -> int:
         "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
         "library_ms": None,
     }]
+    k5 = k5_times["train bucket"]
+    for name, direction, replaces, launched, errs in (
+            ("gvp_message", "fwd", "geometric_message_passing_tpu/ops/pallas_gvp.py:115",
+             gvp_train["gvp_message"], dict(max_abs_err=k5_err)),
+            ("gvp_message_bwd", "bwd",
+             "geometric_message_passing_tpu/ops/pallas_gvp.py:144",
+             gvp_train["gvp_message_bwd"],
+             dict(max_abs_err=k5_bwd_err, max_abs_err_10k_box=k5_bwd_err_box))):
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": "geometric_message_passing_tpu_torch/csrc/"
+                      f"{name}.cu",
+            "replaces": replaces, "launches": launched,
+            "serve_launches": gvp_serve[name], **errs,
+            **k5[direction], "library_ms": None,
+            "box_10k": k5_times["10k box"][direction]})
     # K3 at the box's receiver plan, D 128 (messages, h gathers); K4 at the
     # shuffled box, D 128
     for name, readings, main_shape, replaces, launched in (
@@ -853,7 +1357,13 @@ def main() -> int:
                     "train_epochs": EPOCHS, "test_mae": res.test,
                     "best_val_mae": res.best_val, "train_check": check,
                     "train_check_epoch_tol": tol, "box_check": box_check,
-                    "box_train": box_runs}))
+                    "box_train": box_runs, "gvp_predict_ms": gvp_ms,
+                    "gvp_train_time_s": gres.train_time,
+                    "gvp_train_epochs": GVP_EPOCHS, "gvp_test_mae": gres.test,
+                    "gvp_constant_test_mae": const_mae,
+                    "gvp_epoch_loss_first_last": [float(epoch_loss[0]),
+                                                  float(epoch_loss[-1])],
+                    "gvp_train_check": gvp_check}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,17 +1,24 @@
 """Box-scale training throughput of the port on one CUDA card (port of the
-repository's ``scripts/bench_scale.py``, its SchNet and EGNN models).
+repository's ``scripts/bench_scale.py``, its SchNet, EGNN and GVP-GNN
+models).
 
     python -m geometric_message_passing_tpu_torch.experiments.bench_scale \\
         [--sizes 10000,30000,100000] \\
-        [--models schnet,schnet_sorted,egnn,egnn_sorted] [--steps N]
+        [--models schnet,schnet_sorted,egnn,egnn_sorted,gvp,gvp_sorted] \\
+        [--steps N]
 
 Data: one synthetic molecular box per size (``datasets.create_molecular_boxes``:
 cutoff 3.0, average degree 14, 8 species, seed 0; 1,350,872 edges at 100k
 atoms), batched alone.  The ``_sorted`` models take the receiver-sorted box
 and its segment plans (``ops.sorted_segsum.batch_seg_plans``): every segment
-reduction and gather backward runs the sorted segment-sum kernel.  Models at
-the widths of ``MODELS`` (4 layers x 128), ``in_dim`` 8, ``out_dim`` 1,
-initial weights from seed 0; no narrower fallback.
+reduction and gather backward runs the sorted segment-sum kernel (GVP-GNN's
+merged receiver sum and sender gather backward; its message chain takes the
+plain route, not the GVP kernel, as in the JAX script).  Models at the widths
+of ``MODELS`` (4 layers x 128; GVP-GNN 4 layers at its defaults, 128/16
+node and 32/1 edge widths, with ``remat`` from 30k atoms on, the JAX
+script's rule), ``in_dim`` 8, ``out_dim`` 1, initial weights from seed 0; no
+narrower fallback.  The models train in training mode (GVP-GNN's dropout
+on), as the JAX script applies them with ``train=True``.
 
 Step: L1-sum loss, backward, Adam (lr 1e-4).  A call is
 ``max(4, min(40, 1_500_000 // n))`` steps ending in a host read of the loss;
@@ -50,8 +57,12 @@ MODELS = {
     "egnn": dict(num_layers=4, emb_dim=128),
     "egnn_sorted": dict(num_layers=4, emb_dim=128),
     "schnet_sorted": dict(num_layers=4, hidden_channels=128, num_filters=128),
+    "gvp": dict(num_layers=4),
+    "gvp_sorted": dict(num_layers=4),
 }
-SORTED = {"egnn_sorted": "egnn", "schnet_sorted": "schnet"}
+SORTED = {"egnn_sorted": "egnn", "schnet_sorted": "schnet",
+          "gvp_sorted": "gvp"}
+REMAT_FROM = 30_000   # GVP-GNN atoms from which the chain is rematerialised
 LR = 1e-4
 
 
@@ -76,18 +87,33 @@ def steps_per_call(n_nodes: int) -> int:
     return max(4, min(40, 1_500_000 // n_nodes))
 
 
-def sorted_launches_per_step(name: str, num_layers: int) -> int:
+def config(name: str, n_nodes: int) -> dict:
+    """``MODELS[name]`` at a box of ``n_nodes`` atoms: GVP-GNN rematerialises
+    its message chain from ``REMAT_FROM`` atoms on."""
+    cfg = dict(MODELS[name])
+    if name in ("gvp", "gvp_sorted") and n_nodes >= REMAT_FROM:
+        cfg["remat"] = True
+    return cfg
+
+
+def sorted_launches_per_step(name: str, num_layers: int,
+                             remat: bool = False) -> int:
     """Sorted segment-sum kernel launches in one training step of a
     ``_sorted`` model on the card (``equivariant_pred`` off).  SchNet, per
     layer: the receiver sum and the sender gather's backward.  EGNN, per
     layer: two receiver sums (messages; position messages with the count)
     and the backward of the receiver and sender gathers of ``h``; from layer
     1 on the positions depend on the weights, so the backward of their two
-    gathers runs too (layer 0's positions are data: autograd skips it)."""
+    gathers runs too (layer 0's positions are data: autograd skips it).
+    GVP-GNN, per layer: the merged receiver sum and the sender gather's
+    backward, and with ``remat`` the receiver sum once more, when the
+    backward reruns the checkpointed message pass."""
     if name == "schnet_sorted":
         return 2 * num_layers
     if name == "egnn_sorted":
         return 4 * num_layers + 2 * (num_layers - 1)
+    if name == "gvp_sorted":
+        return (3 if remat else 2) * num_layers
     raise ValueError(f"{name!r} is not a sorted model")
 
 
@@ -174,7 +200,8 @@ def main(argv=None) -> int:
                 batches[sort] = box_batch(n_nodes, sort, args.cutoff,
                                           args.avg_degree).to("cuda")
             try:
-                row = bench_one(name, MODELS[name], batches[sort], steps)
+                row = bench_one(name, config(name, n_nodes), batches[sort],
+                                steps)
             except Exception as exc:      # out of memory, say: no fallback
                 traceback.print_exc()
                 failed = True

@@ -74,11 +74,16 @@ class Predictor:
         loader = GraphLoader(graphs, self.batch_size, shuffle=False,
                              y_dtype=self.y_dtype, pad=self.pad)
         outs, remaining = [], len(graphs)
-        with torch.inference_mode():
-            for batch in loader:
-                n_real = min(self.batch_size, remaining)
-                remaining -= n_real
-                outs.append(self.model(batch.to(self.device))[:n_real])
-            return torch.cat(outs, dim=0).cpu().numpy()
+        was_training = self.model.training
+        self.model.eval()               # the JAX package's train=False
+        try:
+            with torch.inference_mode():
+                for batch in loader:
+                    n_real = min(self.batch_size, remaining)
+                    remaining -= n_real
+                    outs.append(self.model(batch.to(self.device))[:n_real])
+                return torch.cat(outs, dim=0).cpu().numpy()
+        finally:
+            self.model.train(was_training)
 
     __call__ = predict

@@ -4,7 +4,8 @@
         [--model egnn_sorted] [--atoms 100000] [--steps 3]
 
 Builds ``experiments/bench_scale.py``'s receiver-sorted box (or its plain
-box for a model without ``_sorted``) and model at full width, runs two warm
+box for a model without ``_sorted``) and model at full width (``gvp`` and
+``gvp_sorted`` with bench_scale's remat rule), runs two warm
 steps, times 5 untraced steps on the host clock (each ending in a host read
 of the loss), then traces ``--steps`` more with ``torch.profiler`` and
 prints:
@@ -31,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..ops.sorted_segsum import batch_seg_plans
 from .bench import card_line
-from .bench_scale import MODELS, SORTED, box_batch, build, make_step
+from .bench_scale import MODELS, SORTED, box_batch, build, config, make_step
 from .train import seed_everything
 
 # kernel-name fragments of each group, checked in this order
@@ -65,7 +66,8 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_box needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = box_batch(args.atoms, sort=args.model in SORTED).to("cuda")
-    model = build(args.model, MODELS[args.model], seed_everything(0))
+    cfg = config(args.model, args.atoms)
+    model = build(args.model, cfg, seed_everything(0))
     plans = batch_seg_plans(batch) if args.model in SORTED else None
     step = make_step(model, batch, plans)
     for _ in range(2):
@@ -94,7 +96,7 @@ def main(argv=None) -> dict:
         g[0] += dev_us / 1e3
         g[1] += count
     edges = int(batch.edge_mask.sum())
-    print(f"{args.model} {MODELS[args.model]} on a {args.atoms}-atom box "
+    print(f"{args.model} {cfg} on a {args.atoms}-atom box "
           f"({edges} edges), per step:")
     print(f"untraced: {step_ms:.3f} ms (mean of 5), idle share "
           f"{1 - device_ms / step_ms:.3f} at the traced device time")
@@ -106,7 +108,8 @@ def main(argv=None) -> dict:
     for dev_us, count, key in rows[:25]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:7.1f}x  {key[:100]}")
     res = {
-        "card": card_line(), "model": args.model, "atoms": args.atoms,
+        "card": card_line(), "model": args.model, "cfg": cfg,
+        "atoms": args.atoms,
         "edges": edges, "step_ms_untraced": step_ms,
         "idle_share_untraced": 1 - device_ms / step_ms,
         "step_ms_traced": traced_ms, "device_ms": device_ms,

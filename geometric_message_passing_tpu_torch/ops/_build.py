@@ -8,8 +8,9 @@ for ``sm_90a`` into a shared library at first use:
 
 The build directory is ``.gmp_torch_build/`` beside the package (listed in
 ``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.  ``build_all`` starts one ``nvcc`` per
-source, all at once.
+flags (and of the shared headers ``csrc/*.cuh``), so an edited source is
+rebuilt and a stale library is never loaded.  ``build_all`` starts one
+``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -44,6 +45,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "sorted_segsum": {
         "gmp_sorted_segsum": [I, P, P, P, P, I, I, P],
     },
+    "gvp_message": {
+        # features (8), weights, dims, 7 ints, CSR (2), scratch, outputs (5)
+        "gmp_gvp_fwd": [I, P, P, I, P, *[P] * 8, P, P, *[I] * 7, P, P, P,
+                        *[P] * 5, P],
+    },
+    "gvp_message_bwd": {
+        # features (8), weights, dims, 7 ints, cotangents (4), CSRs (4),
+        # scratch (4), node and edge cotangents (4 + 4), dW, split, stream
+        "gmp_gvp_bwd": [I, P, P, I, P, *[P] * 8, P, P, *[I] * 7, *[P] * 4,
+                        *[P] * 4, *[P] * 4, *[P] * 4, *[P] * 4, P, I, P],
+        "gmp_gvp_ops_width": [P, I],
+    },
 }
 
 _lock = threading.Lock()
@@ -64,7 +77,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -93,3 +93,57 @@ def egnn_fused_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         if flax_name in params:
             _dense(sd, torch_name, params[flax_name])
     return sd
+
+
+def _gvp(sd: Dict[str, torch.Tensor], prefix: str,
+         tree: Mapping[str, Any]) -> None:
+    """A JAX ``nn.gvp.GVP`` (``wh``, ``ws``, ``wv``, ``wsv`` Denses) as the
+    port's ``GVP`` at ``prefix``."""
+    for name, dense in tree.items():
+        if name not in ("wh", "ws", "wv", "wsv"):
+            raise ValueError(f"unexpected GVP entry {prefix}/{name}")
+        _dense(sd, f"{prefix}.{name}", dense)
+
+
+def _layer_norm(sd: Dict[str, torch.Tensor], prefix: str,
+                tree: Mapping[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(tree["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def gvp_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.gvpgnn.GVPGNNModel`` from the variables of
+    the JAX ``GVPGNNModel``: ``params/emb_in/embedding``, ``LayerNorm_0``,
+    the GVPs ``W_v`` and ``W_e``, ``W_e_norm/LayerNorm_0``,
+    ``layer_i/{conv, norm0, norm1, ff_k}`` (the conv's flat
+    ``gvp{k}_{wh,wv,ws,bs,wsv,bsv}`` arrays, or its ``gvp_k`` GVPs on the
+    general-config route) and ``Dense_0``/``Dense_1`` or ``pred``.
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    _layer_norm(sd, "layer_norm_0", params["LayerNorm_0"])
+    _gvp(sd, "W_v", params["W_v"])
+    _gvp(sd, "W_e", params["W_e"])
+    _layer_norm(sd, "W_e_norm.layer_norm", params["W_e_norm"]["LayerNorm_0"])
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        for name, value in params[f"layer_{i}"].items():
+            prefix = f"layers.{i}"
+            if name == "conv":
+                for key, leaf in value.items():
+                    if key.startswith("gvp_"):
+                        _gvp(sd, f"{prefix}.conv.gvps.{key[4:]}", leaf)
+                    else:
+                        sd[f"{prefix}.conv.{key}"] = _t(leaf)
+            elif name in ("norm0", "norm1"):
+                _layer_norm(sd, f"{prefix}.{name}.layer_norm",
+                            value["LayerNorm_0"])
+            elif name.startswith("ff_"):
+                _gvp(sd, f"{prefix}.ff.{name[3:]}", value)
+            else:
+                raise ValueError(f"unexpected entry layer_{i}/{name}")
+    for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
+                                  ("pred", "pred")):
+        if flax_name in params:
+            _dense(sd, torch_name, params[flax_name])
+    return sd

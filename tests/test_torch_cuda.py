@@ -14,8 +14,9 @@ import torch
 from geometric_message_passing_tpu_torch import datasets, graph
 from geometric_message_passing_tpu_torch.experiments import bench_scale, train
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
-from geometric_message_passing_tpu_torch.models import EGNNFusedModel
+from geometric_message_passing_tpu_torch.models import EGNNFusedModel, GVPGNNModel
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 
 # f32 sums in another order (the kernel's K-loop and CSR rows against the
@@ -293,6 +294,190 @@ def test_two_box_adam_steps_on_card_match_cpu(cuda_device, name):
     assert per_step == {"egnn_sorted": 10, "schnet_sorted": 4}[name]
     assert results["cuda"][1] == 2 * per_step
     assert results["cpu"][1] == 0
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
+    for key, value in results["cpu"][2].items():
+        torch.testing.assert_close(results["cuda"][2][key], value,
+                                   atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The GVP message pass (K5 forward and backward)
+# ---------------------------------------------------------------------------
+
+
+def _gvp_inputs(n, e, node_dims, edge_dims, n_layers, seed, masked,
+                index_dtype, device, zero_vectors=False):
+    """Node and edge features, indices, mask and chain weights (the JAX
+    test's scales); ``zero_vectors``: node vectors all zero, as layer 0 of
+    the model gets them from ``W_v``."""
+    rng = np.random.default_rng(seed)
+    (S, V), (SE, VE) = node_dims, edge_dims
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    nodes = [f(n, S)] + [f(n, V) * (0.0 if zero_vectors else 1.0)
+                         for _ in range(3)]
+    edges = [f(e, SE)] + [f(e, VE) for _ in range(3)]
+    dims = [(2 * S + SE, 2 * V + VE)] + [tuple(node_dims)] * n_layers
+    ws = []
+    for k in range(n_layers):
+        (si, vi), (so, vo) = dims[k], dims[k + 1]
+        h = max(vi, vo)
+        ws += [f(vi, h) * 0.2, f(h, vo) * 0.2, f(si + h, so) * 0.1,
+               f(so) * 0.1, f(so, vo) * 0.1, f(vo) * 0.1]
+    send, recv = rng.integers(0, n, e), rng.integers(0, n, e)
+    recv[:3] = send[:3]                       # zero-length live edges
+    emask = rng.random(e) >= masked
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return ((to(send).to(index_dtype), to(recv).to(index_dtype), to(emask)),
+            [to(a) for a in nodes], [to(a) for a in edges], [to(w) for w in ws])
+
+
+GVP_CASES = [
+    (40, 150, (16, 4), (8, 1), 3, 0.15, torch.int32, False),
+    (20, 70, (12, 4), (6, 1), 3, 0.15, torch.int64, False),
+    (30, 90, (16, 4), (8, 1), 1, 0.1, torch.int32, False),
+    (808, 1408, (128, 16), (32, 1), 3, 0.15, torch.int32, True),  # full width
+    (300, 1100, (64, 8), (16, 2), 2, 0.0, torch.int32, False),    # 3 slices
+    (17, 33, (5, 3), (3, 2), 2, 0.3, torch.int64, False),         # ragged widths
+    (6, 0, (16, 4), (8, 1), 3, 0.0, torch.int32, False),          # no edges
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,node,edge_dims,layers,masked,index_dtype,zero",
+                         GVP_CASES)
+def test_gvp_kernel_matches_plain(cuda_device, n, e, node, edge_dims, layers,
+                                  masked, index_dtype, zero):
+    idx, nodes, edges, ws = _gvp_inputs(n, e, node, edge_dims, layers, 20,
+                                        masked, index_dtype, cuda_device, zero)
+    before = gm.gvp_message.launches
+    with torch.no_grad():
+        first = gm.gvp_message(*idx, *nodes, *edges, *ws)
+        second = gm.gvp_message(*idx, *nodes, *edges, *ws)
+        want = gm.gvp_message_plain(*idx, *nodes, *edges, ws, layers)
+    torch.cuda.synchronize()
+    assert gm.gvp_message.launches == before + 2
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)       # deterministic: no atomics
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+
+
+# A ReLU pre-activation within f32 rounding of zero (~1e-6 for these sums of
+# 144-321 products) may take its mask the other way in the kernel than in the
+# plain version, and then that edge's cotangents differ by O(0.01):
+# chip_smoke.py masks such edges off at its full-width shapes
+# (``relu_margins``).  Here each case's seed keeps every pre-activation 5e-6
+# from zero.
+GVP_BWD_SEEDS = (21, 22, 21, 23, 20, 21, 21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,node,edge_dims,layers,masked,index_dtype,zero,"
+                         "seed", [c + (s,) for c, s in zip(GVP_CASES,
+                                                           GVP_BWD_SEEDS)])
+def test_gvp_bwd_kernel_matches_plain(cuda_device, n, e, node, edge_dims,
+                                      layers, masked, index_dtype, zero, seed):
+    idx, nodes, edges, ws = _gvp_inputs(n, e, node, edge_dims, layers, seed,
+                                        masked, index_dtype, cuda_device, zero)
+    margins = gm.relu_margins(*idx, nodes, edges, ws)
+    assert margins.numel() == 0 or margins.min().item() > 5e-6
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    cots = [torch.randn((n, w), generator=gen, device=cuda_device)
+            for w in (node[0],) + (node[1],) * 3]
+    before = gm.gvp_message.bwd_launches
+    first = gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots)
+    second = gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots)
+    want = gm.gvp_message_bwd_plain(*idx, *nodes, *edges, ws, *cots)
+    torch.cuda.synchronize()
+    assert gm.gvp_message.bwd_launches == before + 2
+    for a, b, w in zip(first[:8], second[:8], want[:8]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    for a, b, w in zip(first[8], second[8], want[8]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(
+            a, w, atol=W_REL * max(w.abs().max().item(), 1.0), rtol=0)
+
+
+@pytest.mark.cuda
+def test_gvp_autograd_on_card_launches_bwd_kernel(cuda_device):
+    idx, nodes, edges, ws = _gvp_inputs(30, 90, (16, 4), (8, 1), 3, 22, 0.1,
+                                        torch.int32, cuda_device)
+    leaves = [t.clone().requires_grad_() for t in nodes + edges + ws]
+    before = (gm.gvp_message.launches, gm.gvp_message.bwd_launches)
+    out = gm.gvp_message(*idx, *leaves)
+    grads = torch.autograd.grad(out[0].sum() + 2 * out[2].sum(), leaves)
+    assert (gm.gvp_message.launches,
+            gm.gvp_message.bwd_launches) == (before[0] + 1, before[1] + 1)
+    cots = [torch.ones_like(out[0]), torch.zeros_like(out[1]),
+            torch.full_like(out[2], 2.0), torch.zeros_like(out[3])]
+    want = gm.gvp_message_bwd_plain(*idx, *nodes, *edges, ws, *cots)
+    for g, w_ in zip(grads, list(want[:8]) + list(want[8])):
+        torch.testing.assert_close(
+            g, w_, atol=max(ATOL, W_REL * w_.abs().max().item()), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_gvp_kernel_raises_on_bad_widths(cuda_device):
+    idx, nodes, edges, ws = _gvp_inputs(10, 20, (16, 4), (8, 1), 3, 0, 0.0,
+                                        torch.int32, cuda_device)
+    with pytest.raises(ValueError):     # a chain that does not fit the nodes
+        gm.gvp_message(*idx, *nodes, *edges, *ws[6:])
+    with pytest.raises(ValueError):     # a message row wider than 256
+        wide = _gvp_inputs(10, 20, (250, 4), (8, 1), 1, 0, 0.0, torch.int32,
+                           cuda_device)
+        gm.gvp_message(*wide[0], *wide[1], *wide[2], *wide[3])
+
+
+@pytest.mark.cuda
+def test_gvp_model_on_card_matches_cpu(cuda_device):
+    """Serving and two train steps of a small GVP-GNN over K5 (in eval mode,
+    so without dropout: the two devices' generators differ)."""
+    graphs = datasets.create_star_graphs(num=24, fold=(5, 6, 7), seed=4)
+    kw = dict(num_layers=2, s_dim=32, v_dim=4, use_pallas=True)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = GVPGNNModel(**kw, generator=torch.Generator().manual_seed(2),
+                            device=dev)
+        before = gm.gvp_message.launches
+        y = Predictor(model, batch_size=8, device=dev).predict(graphs)
+        launched = gm.gvp_message.launches - before
+        slot = graph.build_slot_data(graphs, device=dev)
+        opt = train.make_tx(model.parameters(), 5e-4)
+        model.eval()
+        losses = [train.train_step(model, opt, slot,
+                                   torch.tensor(row, device=dev)).item()
+                  for row in ([3, 1, 23, 7, 0, 12], [5, 9, 2, 24, 24, 11])]
+        results[dev.type] = (y, launched, losses,
+                             {k: v.cpu() for k, v in model.state_dict().items()})
+    assert results["cuda"][1] == 3 * 2 and results["cpu"][1] == 0
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(results["cuda"][2], results["cpu"][2], rtol=1e-5)
+    for key, value in results["cpu"][3].items():
+        torch.testing.assert_close(results["cuda"][3][key], value,
+                                   atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_gvp_sorted_box_steps_on_card_match_cpu(cuda_device, remat):
+    cfg = dict(num_layers=2, s_dim=32, v_dim=4, remat=remat)
+    host = bench_scale.box_batch(400, sort=True)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        batch = host.to(dev)
+        model = bench_scale.build("gvp_sorted", cfg,
+                                  torch.Generator().manual_seed(3), dev).eval()
+        step = bench_scale.make_step(model, batch, sss.batch_seg_plans(batch))
+        before = (sss.sorted_segment_sum.launches, gm.gvp_message.launches)
+        losses = [step().item() for _ in range(2)]
+        launches = (sss.sorted_segment_sum.launches - before[0],
+                    gm.gvp_message.launches - before[1])
+        results[dev.type] = (losses, launches, {k: v.cpu() for k, v in
+                                                model.state_dict().items()})
+    per_step = bench_scale.sorted_launches_per_step("gvp_sorted", 2, remat)
+    assert results["cuda"][1] == (2 * per_step, 0)
+    assert results["cpu"][1] == (0, 0)
     np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
     for key, value in results["cpu"][2].items():
         torch.testing.assert_close(results["cuda"][2][key], value,

@@ -46,7 +46,12 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.ops.sorted_segsum",
                    "geometric_message_passing_tpu_torch.nn.basic",
                    "geometric_message_passing_tpu_torch.models.egnn",
-                   "geometric_message_passing_tpu_torch.models.schnet"):
+                   "geometric_message_passing_tpu_torch.models.schnet",
+                   "geometric_message_passing_tpu_torch.nn.gvp",
+                   "geometric_message_passing_tpu_torch.ops.gvp_message",
+                   "geometric_message_passing_tpu_torch.models.gvpgnn",
+                   "geometric_message_passing_tpu_torch.experiments.trial_gvp",
+                   "geometric_message_passing_tpu_torch.experiments.profile_box"):
         assert module in res["imported"]
 
 
