@@ -40,6 +40,25 @@ Phases; any failure raises and the script exits non-zero:
      of 129k edges in another order), with both f32 versions' distances from
      float64 printed at full width.  Two runs bitwise equal; kernels, whole
      call and plain version timed beside the bound;
+  3c. K6 (``egnn_stack``, forward and backward: all 4 EGNN layers, update
+     MLP included, one launch per direction) against its plain versions at
+     three shapes: a small random case (N 30, E 110, D 16, 3 layers), the
+     star train bucket at full width (N 800, E 1400, 4 x 128, the phase-4
+     model's weights) and the unsorted 10k-atom box (129,224 edges, 4 x 128,
+     the same weights).  Forward: atol = rtol = 1e-4.  Backward
+     (``check_stack_bwd``): dh0 and dpos0 atol = rtol = 1e-4 and each
+     layer's dW within 1e-5 of its largest entry (at least 1).  On the box
+     some of the 10^8 ReLU pre-activations lie within f32 rounding of zero
+     and flip, in the kernel and in the plain f32 version at different
+     entries, and each flip's cotangent spreads through the layers below it
+     (at 4 layers some 2% of node rows; the plain f32 version lies as far
+     from float64 as the kernel).  So both are held to a float64 run of the
+     plain version: the kernel's node rows beyond atol = rtol = 1e-4 of it
+     at most 2x the plain f32 version's plus 0.5% of N, no entry beyond 0.1
+     of that output's largest float64 entry, and each layer's dW no further
+     from it than 2x the plain f32 version's distance plus 1e-3 of that
+     layer's largest entry.  Two runs bitwise equal; kernel, whole call and
+     plain version timed beside the bound (``stack_bound_ms``);
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
@@ -49,6 +68,11 @@ Phases; any failure raises and the script exits non-zero:
      use_pallas=True))`` over the same graphs, counters set to 0 just before
      and read just after: 14 x 4 K5 forward launches and nothing else; finite
      (1400, 1), within 1e-4 of the CPU plain path; median of 7 calls;
+  4c. whole-stack serving: ``Predictor(EGNNFusedModel(4, 128, pool "first",
+     fuse_stack=True))`` on phase 4's weights over the same graphs, counters
+     set to 0 just before and read just after: 14 K6 forward launches and
+     nothing else; finite (1400, 1), within 1e-4 of the CPU plain path and of
+     phase 4's per-layer result; median of 7 calls beside phase 4's;
   5. train, against the CPU: the bench configuration (split 50/20/30,
      batch 100, lr 5e-4) from the same weights and the same shuffle, run on
      the card, on the CPU plain path in float32 and on the CPU in float64,
@@ -71,11 +95,23 @@ Phases; any failure raises and the script exits non-zero:
      (``use_pallas=False``, a witness of the card's rounding outside K5).
      A planted fault, the edge features cut off from K5's gradient (``W_e``
      and ``W_e_norm`` learn nothing), must fail that check;
+  5c. whole-stack one ``train_step`` against the CPU: phase 5's first step
+     with ``fuse_stack=True`` on the card (one K6 launch each way), on the
+     CPU in float32 and in float64; every gradient on the card within 1e-2
+     of that parameter's largest float64 entry.  Printed beside it: the card
+     on the plain stack (a witness of the card's rounding outside K6).  A
+     planted fault, the update-MLP rows of the stacked weights cut off from
+     K6's gradient (no ``upd_*`` parameter learns), must fail that check;
   6. train, the main path: one 200-epoch ``fit_regression`` on the card with
      the launch counters set to 0 just before and read just after: K2 must
      have launched 4 x (train steps) times, K1 4 x (train steps + validation
      batches + test batches of the epochs whose best-val rule fired); the
      test MAE must be finite and below 0.2;
+  6f. whole-stack training, the main path: phase 6's run with
+     ``fuse_stack=True``, counters set to 0 just before and read just after:
+     K6 forward (train steps + validation batches + test batches of the
+     fired epochs) times, K6 backward (train steps) times, nothing else;
+     test MAE finite and below 0.2; train_time and test MAE beside phase 6's;
   6d. GVP training, the main path: a 100-epoch ``fit_regression`` of the
      phase-4b model with dropout on, counters set to 0 just before and read
      just after: K5 forward 4 x (train steps + validation batches + test
@@ -105,12 +141,13 @@ Phases; any failure raises and the script exits non-zero:
      device memory;
   7. summary: one JSON line of kernels, then the device line last.
 
-Phases run in the order 1, 2, 3, 3b, 4, 4b, 5, 5b, 6, 6d, 6b, 6c, 6e, 7.
+Phases run in the order 1, 2, 3, 3b, 3c, 4, 4b, 4c, 5, 5b, 5c, 6, 6f, 6d,
+6b, 6c, 6e, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
 permutation, row pointers or ids and mask, and the output written once; K5's
-is ``gvp_bound_ms``.
+is ``gvp_bound_ms``, K6's ``stack_bound_ms``.
 """
 
 from __future__ import annotations
@@ -138,6 +175,7 @@ from geometric_message_passing_tpu_torch.models import (
 from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
 from geometric_message_passing_tpu_torch.ops import _build
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 from geometric_message_passing_tpu_torch.ops.edge import (
@@ -754,10 +792,195 @@ def without_edge_grad(send, recv, emask, s, vx, vy, vz, es, evx, evy, evz,
                           evx.detach(), evy.detach(), evz.detach(), *ws)
 
 
+# ---------------------------------------------------------------------------
+# The whole EGNN stack (K6)
+# ---------------------------------------------------------------------------
+
+def model_wall(model: EGNNFusedModel, dev) -> torch.Tensor:
+    """The stacked rows ``[L, 7D+18, D]`` of ``model``'s layers, on ``dev``."""
+    with torch.no_grad():
+        return torch.stack([c.stack_packed() for c in model.convs]).to(dev)
+
+
+def stack_random_case(n: int, e: int, d: int, layers: int, seed: int, dev):
+    """K6's inputs drawn at random as the JAX test draws them (LayerNorm
+    scale rows at 1), with random cotangents: (args, cotangents)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(layers, es.stack_rows(d), d)) * 0.1).astype(np.float32)
+    for row in (2 * d + 2, 3 * d + 5, 4 * d + 8, 6 * d + 13, 7 * d + 16):
+        w[:, row, :] = 1.0
+    arrays = (rng.integers(0, n, e).astype(np.int32),
+              rng.integers(0, n, e).astype(np.int32), rng.random(e) >= 0.15,
+              rng.normal(size=(n, d)).astype(np.float32),
+              rng.normal(size=(n, 3)).astype(np.float32), w,
+              rng.normal(size=(n, d)).astype(np.float32),
+              rng.normal(size=(n, 3)).astype(np.float32))
+    t = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    return t[:6], t[6:]
+
+
+def stack_case(batch, wall: torch.Tensor, seed: int):
+    """K6's inputs on ``batch`` (on the card): random node features and
+    cotangents, the given stacked rows: (args, cotangents)."""
+    dev = batch.pos.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d = batch.num_nodes, wall.shape[2]
+    draw = lambda w: torch.randn((n, w), generator=gen, device=dev)  # noqa: E731
+    return ((batch.senders, batch.receivers, batch.edge_mask, draw(d),
+             batch.pos, wall), (draw(d), draw(3)))
+
+
+def check_stack_fwd(label: str, case) -> float:
+    """K6 forward against its plain version (atol = rtol = 1e-4), finite,
+    two runs bitwise equal; returns the largest difference."""
+    args, _ = case
+    layers = args[5].shape[0]
+    with torch.no_grad():
+        got, again = (es.egnn_stack(*args, layers) for _ in range(2))
+        want = es.egnn_stack_plain(*args, layers)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, a, w_, part in zip(got, again, want, ("h", "pos")):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: K6 {part} has non-finite values")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: K6 {part}: two runs differ bitwise")
+        err = max(err, (g - w_).abs().max().item())
+        if not torch.allclose(g, w_, atol=ATOL, rtol=RTOL):
+            raise AssertionError(f"{label}: K6 {part} differs from the plain "
+                                 f"version by {(g - w_).abs().max().item():.3e}")
+    log(f"  {label}: N={args[3].shape[0]} E={args[0].shape[0]} "
+        f"live={int(args[2].sum())} D={args[3].shape[1]} L={layers} "
+        f"max_abs_err={err:.3e}, bitwise repeatable")
+    return err
+
+
+def check_stack_bwd(label: str, case, large: bool = False) -> float:
+    """K6 backward against its plain version (tolerances in the module
+    docstring; ``large``: the float64 rule), two runs bitwise equal; returns
+    the largest difference from the plain version."""
+    args, cot = case
+    layers = args[5].shape[0]
+    got, again = (es.egnn_stack_bwd(*args, layers, *cot) for _ in range(2))
+    want = es.egnn_stack_bwd_plain(*args, layers, *cot)
+    exact = (es.egnn_stack_bwd_plain(
+        *(t.double() if t.is_floating_point() else t for t in args), layers,
+        *(c.double() for c in cot)) if large else None)
+    torch.cuda.synchronize()
+    n = args[3].shape[0]
+    worst, report = 0.0, []
+    for i, (g, a, w_, part) in enumerate(zip(got, again, want,
+                                             ("dh0", "dpos0", "dW"))):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: K6 backward {part} is not finite")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: K6 backward {part}: two runs "
+                                 "differ bitwise")
+        top = (g - w_).abs().max().item() if g.numel() else 0.0
+        worst = max(worst, top)
+        if not large:
+            if part == "dW":
+                rel = max((g[l] - w_[l]).abs().max().item()
+                          / max(w_[l].abs().max().item(), 1.0)
+                          for l in range(layers))
+                ok = rel <= 1e-5
+                report.append(f"dW {top:.2e} (worst layer {rel:.2e} of its "
+                              "largest entry)")
+            else:
+                ok = torch.allclose(g, w_, atol=ATOL, rtol=RTOL)
+                report.append(f"{part} {top:.2e}")
+        else:
+            x = exact[i]
+            dk, dp = (g.double() - x).abs(), (w_.double() - x).abs()
+            if part == "dW":
+                rel = [(dk[l].max() / x[l].abs().max()).item()
+                       for l in range(layers)]
+                rel_p = [(dp[l].max() / x[l].abs().max()).item()
+                         for l in range(layers)]
+                ok = all(r <= 2 * q + 1e-3 for r, q in zip(rel, rel_p))
+                report.append(f"dW vs plain {top:.2e}; worst layer vs float64 "
+                              f"kernel {max(rel):.2e} / plain f32 "
+                              f"{max(rel_p):.2e} of its largest entry")
+            else:
+                tol = ATOL + RTOL * x.abs()
+                rows_k = int((dk > tol).any(dim=1).sum())
+                rows_p = int((dp > tol).any(dim=1).sum())
+                ok = (rows_k <= 2 * rows_p + 0.005 * n
+                      and dk.max().item() <= 0.1 * x.abs().max().item())
+                report.append(f"{part} vs plain {top:.2e}; vs float64 kernel "
+                              f"{dk.max().item():.2e} ({rows_k} rows beyond "
+                              f"1e-4) / plain f32 {dp.max().item():.2e} "
+                              f"({rows_p} rows) of {n}")
+        if not ok:
+            raise AssertionError(f"{label}: K6 backward {part} differs from "
+                                 f"its plain version: {report[-1]}")
+    log(f"  {label}: K6 backward max_abs_err " + ", ".join(report)
+        + "; bitwise repeatable")
+    return worst
+
+
+def stack_kernel_ms(case, iters: int, backward: bool) -> float:
+    """Device time of K6 alone (forward or backward): the CSRs and the
+    buffers are made once, outside the loop."""
+    args, cot = case
+    send, recv, emask, h = args[:4]
+    n, d = h.shape
+    rcsr = edge.receiver_csr(recv, emask, n)
+    if not backward:
+        bufs = es.fwd_buffers(n, send.shape[0], d, h.device)
+        return cuda_time_ms(lambda: es._launch_fwd(*args, *rcsr, bufs), iters)
+    scsr = edge.sender_csr(send, emask, n)
+    bufs = es.bwd_buffers(n, send.shape[0], d, args[5].shape[0], h.device)
+    return cuda_time_ms(lambda: es._launch_bwd(*args, *cot, rcsr, scsr, bufs),
+                        iters)
+
+
+def stack_bound_ms(case, backward: bool) -> tuple:
+    """Least time for K6 on these inputs: bytes (each input read once, each
+    output written once) over the HBM rate against the operations the live
+    edges and the nodes need over the f32 rate.  Per layer and live edge:
+    the message MLP's products 2D(2D+1) + 4D^2, the scale dot 2D, three
+    LayerNorm+ReLU (~9 ops per element) and the receiver sum D + 3; per
+    node: the update MLP's products 6D^2, two LayerNorm+ReLU, the residual
+    and the position update D + 6.  Backward: that forward once, the
+    products twice more (input cotangents, weight gradients), LayerNorm
+    backward (~12 ops per element), the scale head's 4D, the node sums of
+    the edge cotangents 2D + 6 and the vector rows of dW (11D per edge, 6D
+    per node)."""
+    (send, recv, emask, h, pos, w), (gh, gpos) = case
+    (n, d), e, layers = h.shape, send.shape[0], w.shape[0]
+    edge_prod, node_prod = 2 * d * (2 * d + 1) + 4 * d * d, 6 * d * d
+    edge_elem, node_elem = 2 * d + 27 * d + d + 3, 18 * d + d + 6
+    n_bytes = 2 * e * send.element_size() + e + 4 * (h.numel() + pos.numel()
+                                                     + w.numel())
+    if backward:
+        n_bytes += 4 * (gh.numel() + gpos.numel()) + 4 * (
+            h.numel() + pos.numel() + w.numel())
+        per_edge = 3 * edge_prod + edge_elem + 36 * d + 4 * d + 2 * d + 6 + 11 * d
+        per_node = 3 * node_prod + node_elem + 24 * d + 6 * d
+    else:
+        n_bytes += 4 * (h.numel() + pos.numel())
+        per_edge, per_node = edge_prod + edge_elem, node_prod + node_elem
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = layers * (int(emask.sum()) * per_edge + n * per_node) / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def without_update_grad(send, recv, emask, h0, pos0, wall, n_layers):
+    """The planted fault of phase 5c: ``egnn_stack`` with the update-MLP
+    rows of the stacked weights cut off from the gradient (their dW rows
+    dropped), so no ``upd_*`` parameter learns."""
+    mr = msg_rows(h0.shape[1])
+    return es.egnn_stack(send, recv, emask, h0, pos0,
+                         torch.cat([wall[:, :mr], wall[:, mr:].detach()], dim=1),
+                         n_layers)
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
     gm.gvp_message.launches = gm.gvp_message.bwd_launches = 0
+    es.egnn_stack.launches = es.egnn_stack.bwd_launches = 0
 
 
 def counts() -> dict:
@@ -766,7 +989,9 @@ def counts() -> dict:
             "sorted_segment_sum": sss.sorted_segment_sum.launches,
             "segment_sum": sss.segment_sum.launches,
             "gvp_message": gm.gvp_message.launches,
-            "gvp_message_bwd": gm.gvp_message.bwd_launches}
+            "gvp_message_bwd": gm.gvp_message.bwd_launches,
+            "egnn_stack": es.egnn_stack.launches,
+            "egnn_stack_bwd": es.egnn_stack.bwd_launches}
 
 
 def main() -> int:
@@ -945,7 +1170,49 @@ def main() -> int:
             f"plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); backward kernels "
             f"{bk:.4f} ms, whole call {bc:.4f} ms, plain {bp:.4f} ms, bound "
             f"{bb:.5f} ms ({bby}) [{card}]")
-    del k5_box, gvp_box, slot
+    del k5_box
+
+    # 3c. K6 against its plain versions
+    log("[kernels] egnn_stack (K6) vs egnn_stack_plain: forward atol = rtol = "
+        f"{ATOL}; backward as chip_smoke.check_stack_bwd states [{card}]")
+    wall = model_wall(cpu_model, dev)
+    k6_small = stack_random_case(30, 110, 16, 3, seed=41, dev=dev)
+    k6_train = stack_case(assemble_batch(slot, torch.arange(BATCH, device=dev)),
+                          wall, seed=42)
+    k6_box = stack_case(gvp_box, wall, seed=43)
+    k6_err = max(check_stack_fwd("small", k6_small),
+                 check_stack_fwd("train bucket", k6_train),
+                 check_stack_fwd("10k box", k6_box))
+    k6_bwd_err = max(check_stack_bwd("small", k6_small),
+                     check_stack_bwd("train bucket", k6_train))
+    k6_bwd_err_box = check_stack_bwd("10k box", k6_box, large=True)
+    k6_times = {}
+    for label, case, iters in (("train bucket", k6_train, 50),
+                               ("10k box", k6_box, 5)):
+        args, cot = case
+        layers = args[5].shape[0]
+        with torch.no_grad():
+            fk = stack_kernel_ms(case, iters, backward=False)
+            fc = cuda_time_ms(lambda: es.egnn_stack(*args, layers), iters)
+            fp = cuda_time_ms(lambda: es.egnn_stack_plain(*args, layers), iters)
+            bk = stack_kernel_ms(case, iters, backward=True)
+            bc = cuda_time_ms(lambda: es.egnn_stack_bwd(*args, layers, *cot),
+                              iters)
+            bp = cuda_time_ms(lambda: es.egnn_stack_bwd_plain(*args, layers,
+                                                              *cot), iters)
+        (fb, fby), (bb, bby) = (stack_bound_ms(case, False),
+                                stack_bound_ms(case, True))
+        k6_times[label] = {"E": args[0].shape[0], "live": int(args[2].sum()),
+                           "N": args[3].shape[0], "L": layers,
+                           "fwd": dict(ms=fk, call_ms=fc, plain_ms=fp,
+                                       bound_ms=fb, bound_by=fby),
+                           "bwd": dict(ms=bk, call_ms=bc, plain_ms=bp,
+                                       bound_ms=bb, bound_by=bby)}
+        log(f"  {label}: forward kernel {fk:.4f} ms, whole call {fc:.4f} ms, "
+            f"plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); backward kernel "
+            f"{bk:.4f} ms, whole call {bc:.4f} ms, plain {bp:.4f} ms, bound "
+            f"{bb:.5f} ms ({bby}) [{card}]")
+    del k6_box, gvp_box, slot
     torch.cuda.empty_cache()
 
     # 4. serve
@@ -1028,6 +1295,49 @@ def main() -> int:
     gvp_ms = statistics.median(times) * 1e3
     log(f"[serve] GVP predict: median {gvp_ms:.2f} ms per call of 7 "
         f"({N_GRAPHS / gvp_ms * 1e3:.0f} graphs/s) [{card}]")
+
+    # 4c. whole-stack serving, phase 4's weights
+    stack_model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
+                                 fuse_stack=True, device="cuda",
+                                 generator=torch.Generator().manual_seed(0))
+    stack_cpu = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
+                               fuse_stack=True, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    for key, value in stack_model.state_dict().items():
+        if not torch.equal(value.cpu(), cpu_model.state_dict()[key]):
+            raise AssertionError(f"the stack and per-layer models differ at {key}")
+    stack_pred = Predictor(stack_model, batch_size=BATCH)
+    reset_counts()
+    y_stack = stack_pred.predict(graphs)
+    stack_serve = counts()
+    stack_want = -(-N_GRAPHS // BATCH)
+    log(f"[serve] EGNN whole stack (fuse_stack=True) predict({N_GRAPHS} "
+        f"graphs): launches {stack_serve} (want K6 forward {stack_want}, "
+        "nothing else)")
+    if y_stack.shape != (N_GRAPHS, 1) or not np.isfinite(y_stack).all():
+        raise AssertionError(f"stack predict gave shape {y_stack.shape}, "
+                             f"finite={np.isfinite(y_stack).all()}")
+    if stack_serve != dict({k: 0 for k in stack_serve}, egnn_stack=stack_want):
+        raise AssertionError(f"stack predict launched {stack_serve}")
+    y_stack_cpu = Predictor(stack_cpu, batch_size=BATCH,
+                            device="cpu").predict(graphs)
+    stack_serve_err = (float(np.abs(y_stack - y_stack_cpu).max()),
+                       float(np.abs(y_stack - y).max()))
+    log(f"  vs the CPU plain path: max_abs_err={stack_serve_err[0]:.3e}; vs "
+        f"phase 4's per-layer result: {stack_serve_err[1]:.3e} (atol 1e-4)")
+    if not (np.allclose(y_stack, y_stack_cpu, atol=1e-4, rtol=0)
+            and np.allclose(y_stack, y, atol=1e-4, rtol=0)):
+        raise AssertionError(f"stack predict differs by {stack_serve_err}")
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stack_pred.predict(graphs)
+        times.append(time.perf_counter() - t)
+    stack_ms = statistics.median(times) * 1e3
+    log(f"[serve] stack predict: median {stack_ms:.2f} ms per call of 7 "
+        f"({N_GRAPHS / stack_ms * 1e3:.0f} graphs/s); per layer (phase 4) "
+        f"{ms:.2f} ms [{card}]")
 
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
@@ -1121,6 +1431,41 @@ def main() -> int:
     if gvp_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
         raise AssertionError("phase 5b's check passed the planted fault")
 
+    # 5c. whole-stack one step against the CPU; the card once more on the
+    # plain stack, a witness of the card's rounding outside K6
+    stack_step, stack_launches = {}, {}
+    for run, d_, dtype, fn in (
+            ("card", "cuda", torch.float32, es.egnn_stack),
+            ("card, plain stack", "cuda", torch.float32, es.egnn_stack_plain),
+            ("card, planted fault", "cuda", torch.float32, without_update_grad),
+            ("cpu f32", "cpu", torch.float32, es.egnn_stack),
+            ("cpu f64", "cpu", torch.float64, es.egnn_stack)):
+        with patched(egnn_fused, "egnn_stack", fn):
+            reset_counts()
+            stack_step[run] = first_step(stack_cpu, d_, dtype,
+                                         loaders[0].graphs, order[:BATCH])
+            stack_launches[run] = counts()
+    stack_check = {}
+    for run in ("card", "card, plain stack", "card, planted fault", "cpu f32"):
+        g_err, flips, moved, worst = step_reading(stack_step[run],
+                                                  stack_step["cpu f64"])
+        stack_check[run] = {"grad_err": g_err, "sign_flips": flips,
+                            "step_lr": moved, "worst": worst}
+    log("[train] EGNN whole stack one train_step (graphs order[:"
+        f"{BATCH}]) against the CPU float64 run, tol {GRAD_TOL:g} of each "
+        "parameter's largest entry: " + ", ".join(
+            f"{run} {c['grad_err']:.3e} ({c['worst']}; {c['sign_flips']} signs "
+            "differ)" for run, c in stack_check.items())
+        + f"; K6 launches on the card {stack_launches['card']}")
+    if stack_launches["card"] != dict({k: 0 for k in stack_launches["card"]},
+                                      egnn_stack=1, egnn_stack_bwd=1):
+        raise AssertionError(f"the stack step launched {stack_launches['card']}")
+    if stack_check["card"]["grad_err"] > GRAD_TOL:
+        raise AssertionError("the stack gradients on the card do not match "
+                             "the CPU")
+    if stack_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
+        raise AssertionError("phase 5c's check passed the planted fault")
+
     # 6. train, the main path
     reset_counts()
     res = fit_regression(model, None, *loaders, n_epochs=EPOCHS, lr=LR,
@@ -1144,6 +1489,28 @@ def main() -> int:
                              f"expected {want_train}")
     if not (np.isfinite(res.test) and res.test < 0.2):
         raise AssertionError(f"test MAE {res.test} is not finite and below 0.2")
+
+    # 6f. whole-stack training, the main path
+    reset_counts()
+    sres = fit_regression(stack_model, None, *loaders, n_epochs=EPOCHS, lr=LR,
+                          seed=1, device="cuda")
+    stack_train = counts()
+    sfired = fired_epochs(sres.perf_per_epoch)
+    stack_train_want = dict({k: 0 for k in stack_train}, egnn_stack=EPOCHS * (
+        steps + val_b) + sfired * test_b, egnn_stack_bwd=EPOCHS * steps)
+    log(f"[train] EGNN whole stack fit_regression {EPOCHS} epochs: train_time "
+        f"{sres.train_time:.3f} s (per layer, phase 6: {res.train_time:.3f} s), "
+        f"test MAE {sres.test:.5f} (per layer {res.test:.5f}), best val MAE "
+        f"{sres.best_val:.5f}; launches {stack_train} (want K6 "
+        f"{stack_train_want['egnn_stack']} forward, "
+        f"{stack_train_want['egnn_stack_bwd']} backward, {sfired} test passes) "
+        f"[{card}]")
+    if stack_train != stack_train_want:
+        raise AssertionError(f"stack training launched {stack_train}, "
+                             f"expected {stack_train_want}")
+    if not (np.isfinite(sres.test) and sres.test < 0.2):
+        raise AssertionError(f"stack test MAE {sres.test} is not finite and "
+                             "below 0.2")
 
     # 6d. GVP training, the main path (dropout on)
     reset_counts()
@@ -1331,6 +1698,20 @@ def main() -> int:
             "serve_launches": gvp_serve[name], **errs,
             **k5[direction], "library_ms": None,
             "box_10k": k5_times["10k box"][direction]})
+    k6 = k6_times["train bucket"]
+    for name, direction, replaces, errs in (
+            ("egnn_stack", "fwd",
+             "geometric_message_passing_tpu/ops/pallas_egnn_stack.py:105",
+             dict(max_abs_err=k6_err)),
+            ("egnn_stack_bwd", "bwd",
+             "geometric_message_passing_tpu/ops/pallas_egnn_stack.py:132",
+             dict(max_abs_err=k6_bwd_err, max_abs_err_10k_box=k6_bwd_err_box))):
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": f"geometric_message_passing_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": stack_train[name],
+            "serve_launches": stack_serve[name], **errs, **k6[direction],
+            "library_ms": None, "box_10k": k6_times["10k box"][direction]})
     # K3 at the box's receiver plan, D 128 (messages, h gathers); K4 at the
     # shuffled box, D 128
     for name, readings, main_shape, replaces, launched in (
@@ -1363,7 +1744,12 @@ def main() -> int:
                     "gvp_constant_test_mae": const_mae,
                     "gvp_epoch_loss_first_last": [float(epoch_loss[0]),
                                                   float(epoch_loss[-1])],
-                    "gvp_train_check": gvp_check}))
+                    "gvp_train_check": gvp_check,
+                    "stack_predict_ms": stack_ms,
+                    "stack_train_time_s": sres.train_time,
+                    "stack_test_mae": sres.test,
+                    "stack_best_val_mae": sres.best_val,
+                    "stack_train_check": stack_check}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

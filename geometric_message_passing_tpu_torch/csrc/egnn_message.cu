@@ -29,66 +29,17 @@
 // for live (masked-in) edges.  Kernel 2 (egnn_reduce_kernel) sums them by
 // receiver over a CSR (edge order sorted stably by receiver, row pointers),
 // one warp per node, in ascending edge order: no atomics, so two runs give
-// bitwise-equal outputs.  The count is the row's length.
+// bitwise-equal outputs.  The count is the row's length.  The warp sum and
+// the K-tiled product are egnn_common.cuh's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "egnn_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 2;
-constexpr int kTileEdges = kWarps * kRowsPerWarp;   // edges per block
-constexpr int kTileK = 32;                          // weight rows per K-tile
-constexpr int kMaxCols = 8;                         // columns per lane, D <= 256
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  // xor butterfly: every lane ends with the same (bitwise) sum
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[r][c] = sum_k A[row r][k] * W[k][col c] for the warp's rows
-// (warp * kRowsPerWarp + r) and the lane's columns (lane + 32 c).  A lives in
-// shared memory with row stride lda; W [K, D] in global memory is staged
-// through ws in K-tiles.
-__device__ __forceinline__ void matmul_rows(
-    const float* __restrict__ A, int lda, int K,
-    const float* __restrict__ W, int D, float* __restrict__ ws,
-    float (&acc)[kRowsPerWarp][kMaxCols]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    const int kt = min(kTileK, K - k0);
-    __syncthreads();  // the previous tile is consumed, A is written
-    for (int i = threadIdx.x; i < kt * D; i += kThreads)
-      ws[i] = W[(size_t)k0 * D + i];
-    __syncthreads();
-    for (int kk = 0; kk < kt; ++kk) {
-      float a[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        a[r] = A[(warp * kRowsPerWarp + r) * lda + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int col = lane + 32 * c;
-        if (col < D) {
-          const float w = ws[kk * D + col];
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r)
-            acc[r][c] = fmaf(a[r], w, acc[r][c]);
-        }
-      }
-    }
-  }
-}
+using namespace egnn;
 
 // acc <- relu(LayerNorm(acc + bias) * gamma + beta), biased variance.
 __device__ __forceinline__ void bias_ln_relu(
@@ -147,14 +98,14 @@ __global__ void __launch_bounds__(kThreads) egnn_edge_kernel(
     const float* __restrict__ pos, const float* __restrict__ W,
     float* __restrict__ msg_e, float* __restrict__ pos_e, int E, int D) {
   extern __shared__ float smem[];
-  __shared__ float pd_s[kTileEdges][3];
+  __shared__ float pd_s[kTileRows][3];
   const int K1 = 2 * D + 1;
-  float* xs = smem;                       // [kTileEdges, K1]: [h_i, h_j, d], later msg
-  float* ys = xs + kTileEdges * K1;       // [kTileEdges, D]: first hidden layer
-  float* ws = ys + kTileEdges * D;        // [kTileK, D]: weight K-tile
+  float* xs = smem;                       // [kTileRows, K1]: [h_i, h_j, d], later msg
+  float* ys = xs + kTileRows * K1;       // [kTileRows, D]: first hidden layer
+  float* ws = ys + kTileRows * D;        // [kTileK, D]: weight K-tile
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long e0 = (long long)blockIdx.x * kTileEdges;
+  const long long e0 = (long long)blockIdx.x * kTileRows;
 
   // ---- gather (each warp fills its own rows) ----
   bool live[kRowsPerWarp];
@@ -279,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) egnn_reduce_kernel(
 
 size_t edge_smem_bytes(int D) {
   return sizeof(float) *
-         ((size_t)kTileEdges * (2 * D + 1) + (size_t)kTileEdges * D +
+         ((size_t)kTileRows * (2 * D + 1) + (size_t)kTileRows * D +
           (size_t)kTileK * D);
 }
 
@@ -292,7 +243,7 @@ int launch_edges(const void* send, const void* recv, const void* emask,
       egnn_edge_kernel<Idx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + kTileEdges - 1) / kTileEdges;
+  const int blocks = (E + kTileRows - 1) / kTileRows;
   egnn_edge_kernel<Idx><<<blocks, kThreads, smem, stream>>>(
       static_cast<const Idx*>(send), static_cast<const Idx*>(recv),
       static_cast<const uint8_t*>(emask), static_cast<const float*>(h),

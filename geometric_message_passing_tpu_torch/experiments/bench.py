@@ -12,6 +12,10 @@ measured runs (default 5); the value is the median ``train_time``.  The
 initial weights come from ``--init-seed`` (default 0), the shuffle from
 ``--seed`` (default 1), as in the root bench.
 
+As in the root bench, ``GMP_BENCH_MODEL=egnn`` trains the plain ``EGNNModel``
+(same numerics, plain tensor ops) in place of the default ``egnn_fused``
+(``EGNNFusedModel``, the per-layer message kernels).
+
 Prints one JSON line with the root bench's keys.  ``baseline_s`` is the
 reference implementation's own 26 s per run (its BASELINE.md), not a time
 of this card; ``device`` is the card's ``nvidia-smi`` name and power limit.
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -29,7 +34,7 @@ import torch
 
 from .. import datasets as ds
 from ..graph import GraphLoader, pad_sizes, random_split
-from ..models import EGNNFusedModel
+from ..models import EGNNFusedModel, EGNNModel
 from .train import fit_regression, seed_everything
 
 BASELINE_TRAIN_TIME_S = 26.0   # the reference implementation's train_time
@@ -46,10 +51,18 @@ def bench_data():
                   GraphLoader(va, **kw), GraphLoader(te, **kw))
 
 
-def bench_model(generator: torch.Generator, device="cuda") -> EGNNFusedModel:
-    return EGNNFusedModel(num_layers=N_LAYERS, emb_dim=WIDTH, in_dim=1,
-                          out_dim=1, pool="first", generator=generator,
-                          device=device)
+def bench_model(generator: torch.Generator, device="cuda",
+                fuse_stack: bool = False) -> torch.nn.Module:
+    """The bench's model: ``EGNNFusedModel`` (``fuse_stack`` picks its
+    strategy), or the plain ``EGNNModel`` when ``GMP_BENCH_MODEL=egnn`` (the
+    root bench's switch, its two values)."""
+    kw = dict(num_layers=N_LAYERS, emb_dim=WIDTH, in_dim=1, out_dim=1,
+              pool="first", generator=generator, device=device)
+    if os.environ.get("GMP_BENCH_MODEL", "egnn_fused") == "egnn":
+        if fuse_stack:
+            raise ValueError("fuse_stack is an EGNNFusedModel strategy")
+        return EGNNModel(**kw)
+    return EGNNFusedModel(**kw, fuse_stack=fuse_stack)
 
 
 def card_line() -> str:

@@ -1,0 +1,153 @@
+"""Per-model training-step throughput on one CUDA card, in edges per second
+(port of the repository's ``scripts/bench_throughput.py``).
+
+    python -m geometric_message_passing_tpu_torch.experiments.bench_throughput \\
+        [model ...]
+
+Models and depths are the JAX script's ``MODELS`` table; the port builds
+``schnet``, ``egnn``, ``egnn_fused`` (per-layer kernels K1/K2), ``egnn_stack``
+(``EGNNFusedModel(fuse_stack=True)``, the whole-stack kernel K6) and ``gvp``,
+and runs them all by default.  ``tfn``, ``mace``, ``dimenet`` and
+``spherenet`` are not ported yet: naming one raises.
+
+Data: 100 star graphs (fold 5/6/7, target max angle, seed 0) as one padded
+batch of 100 on the card.  Model: the registry's defaults at ``out_dim`` 1
+and the table's layer count, initial weights from seed 0.  Step: L1-sum
+loss, backward, Adam (lr 5e-4), in training mode (GVP-GNN's dropout on,
+drawn from the model's own generator, where the JAX script reuses one key
+for every step).  A call is 100 steps ending in a host read of the last
+loss; two warm calls, then three timed calls on the host clock.  The JAX
+script scans its 100 steps inside one device program; the port runs them
+as eager steps, so its number includes the host's launches and is not
+comparable with the JAX script's TPU numbers.
+
+Prints one JSON line per model with the JAX script's keys (``model``,
+``num_layers``, ``edges_per_batch``, ``steps_per_sec``,
+``edges_per_sec_per_chip``, ``edges_per_sec_per_chip_per_layer``) and
+``device``, the card's ``nvidia-smi`` name and power limit.  It needs a card
+and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable
+
+import torch
+
+from .. import datasets as ds
+from ..graph import GraphBatch, GraphLoader, pad_sizes
+from ..models import EGNNFusedModel, model_registry
+from .bench import card_line
+from .train import l1_sum_loss, make_tx, seed_everything
+
+# the JAX script's table (reference-config layer counts)
+MODELS = {
+    "schnet": dict(num_layers=4),
+    "egnn": dict(num_layers=4),
+    "egnn_fused": dict(num_layers=4),
+    "egnn_stack": dict(num_layers=4),
+    "gvp": dict(num_layers=4),
+    "tfn": dict(num_layers=4, max_ell=3),
+    "mace": dict(num_layers=2, max_ell=3, correlation=3),
+    "dimenet": dict(num_layers=4),
+    "spherenet": dict(num_layers=2),
+}
+PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp")
+STEPS, REPS, WARM, LR = 100, 3, 2, 5e-4
+
+
+def check_names(names) -> None:
+    """Raise on a name outside the table or not ported yet."""
+    for name in names:
+        if name not in MODELS:
+            raise ValueError(f"unknown model {name!r}; the table has "
+                             f"{sorted(MODELS)}")
+        if name not in PORTED:
+            raise NotImplementedError(f"{name!r} is not ported yet; ported: "
+                                      f"{', '.join(PORTED)}")
+
+
+def build(name: str, generator: torch.Generator, device="cuda"):
+    """The model behind ``name`` at the table's depth and ``out_dim`` 1."""
+    check_names([name])
+    cfg = dict(MODELS[name], out_dim=1, generator=generator, device=device)
+    if name == "egnn_fused":
+        return EGNNFusedModel(**cfg)
+    if name == "egnn_stack":
+        return EGNNFusedModel(fuse_stack=True, **cfg)
+    return model_registry[name](**cfg)
+
+
+def star_batch(num: int = 100, batch_size: int = 100, device="cuda") -> GraphBatch:
+    """The JAX script's batch: the first padded batch of ``num`` star graphs
+    (fold 5/6/7, seed 0), on ``device``."""
+    data = ds.create_star_graphs(num=num, fold=[5, 6, 7], dim=3, target="max",
+                                 seed=0)
+    loader = GraphLoader(data, batch_size=batch_size,
+                         pad=pad_sizes(data, batch_size))
+    return next(iter(loader)).to(device)
+
+
+def make_step(model: torch.nn.Module, batch: GraphBatch,
+              lr: float = LR) -> Callable[[], torch.Tensor]:
+    """One training step per call of the result, in training mode: L1-sum
+    loss, backward and an Adam step; returns the loss on the device."""
+    opt = make_tx(model.parameters(), lr)
+    model.train()
+
+    def step() -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = l1_sum_loss(model(batch), batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def bench_one(name: str, batch: GraphBatch, steps: int = STEPS,
+              reps: int = REPS, warm: int = WARM) -> dict:
+    """Time ``name``'s train step on ``batch`` (on the card)."""
+    model = build(name, seed_everything(0), batch.pos.device)
+    step = make_step(model, batch)
+
+    def call() -> float:
+        for _ in range(steps):
+            loss = step()
+        return float(loss)          # host read: waits for the device
+
+    for _ in range(warm):
+        call()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    sps = steps * reps / (time.perf_counter() - t0)
+    edges = int(batch.edge_mask.sum())
+    layers = MODELS[name]["num_layers"]
+    return {"model": name, "num_layers": layers, "edges_per_batch": edges,
+            "steps_per_sec": sps, "edges_per_sec_per_chip": edges * sps,
+            "edges_per_sec_per_chip_per_layer": edges * sps / layers,
+            "device": card_line()}
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("models", nargs="*", default=list(PORTED))
+    args = ap.parse_args(argv)
+    check_names(args.models)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_throughput: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = star_batch()
+    rows = []
+    for name in args.models:
+        rows.append(bench_one(name, batch))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

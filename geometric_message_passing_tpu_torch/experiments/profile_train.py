@@ -1,25 +1,35 @@
-"""Where the time of one training epoch goes, on one CUDA card.
+"""Where the time of one training epoch and of one train step goes, on one
+CUDA card.
 
-    python -m geometric_message_passing_tpu_torch.experiments.profile_train
+    python -m geometric_message_passing_tpu_torch.experiments.profile_train \
+        [--fuse-stack]
 
 Trains the bench configuration (EGNN 4 layers x 128, pool "first", 1400
-star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``)
-through ``fit_regression`` for a few warm epochs, then traces one more epoch
-(7 train steps, the validation pass and, since its best-val rule fires on a
-first epoch, the test pass) with ``torch.profiler`` and prints:
+star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``;
+``--fuse-stack`` runs its whole-stack strategy, K6, in place of the
+per-layer kernels K1/K2) through ``fit_regression`` for a few warm epochs,
+then traces one more epoch (7 train steps, the validation pass and, since
+its best-val rule fires on a first epoch, the test pass) with
+``torch.profiler`` and prints:
   * the mean epoch wall time of an untraced 10-epoch run, and the traced
     epoch's wall time (host clock, profiler overhead included), device busy
     time and the device's idle share of each;
-  * device time and launch counts by group: K1 (the message kernel), K2 (its
-    backward), the CSR build (sort, searchsorted), matrix products outside
-    the kernels (update MLP, readout), the Adam update and the rest;
-  * the top kernels by device time, with launch counts.
+  * device time and launch counts by group: K6 (the whole stack), K1 (the
+    message kernel), K2 (its backward), the CSR build (sort, searchsorted),
+    matrix products outside the kernels (update MLP, readout), the Adam
+    update and the rest;
+  * the top kernels by device time, with launch counts;
+  * one train step on the first train batch (``train_step``): the mean
+    wall time of 20 untraced steps, each ending in a synchronise, and the
+    device time and idle share of 5 traced steps.
 The last line is one JSON object of these numbers with the card's name and
 power limit.  It needs a card and raises without one.
 """
 
 from __future__ import annotations
 
+import argparse
+import copy
 import json
 import time
 from collections import defaultdict
@@ -28,11 +38,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .bench import LR, bench_data, bench_model, card_line
-from .train import fit_regression, seed_everything
+from ..graph import build_slot_data
+from .bench import BATCH_SIZE, LR, bench_data, bench_model, card_line
+from .train import fit_regression, make_tx, seed_everything, train_step
 
 # kernel-name fragments of each group, checked in this order
 GROUPS = (
+    ("K6 egnn_stack", ("egnn_stack_",)),
     ("K1 egnn_message", ("egnn_edge_kernel", "egnn_reduce_kernel")),
     ("K2 egnn_message_bwd", ("egnn_bwd_",)),
     ("CSR build", ("radixSort", "RadixSort", "searchsorted", "sort")),
@@ -48,12 +60,59 @@ def _group(name: str) -> str:
     return "other"
 
 
-def main(warm_epochs: int = 3) -> dict:
+def _device_rows(prof):
+    """(device us, count, name) of the trace's device-side events (kernels,
+    copies), largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)):
+            rows.append((ev.self_device_time_total, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def step_reading(model, loaders, steps: int = 20, traced: int = 5) -> dict:
+    """One train step of a copy of ``model`` on the first ``BATCH_SIZE``
+    training graphs: untraced wall ms (mean of ``steps``, each ending in a
+    synchronise), device ms per step and idle share from ``traced`` steps."""
+    work = copy.deepcopy(model)
+    slot = build_slot_data(loaders[0].graphs, device="cuda")
+    row = torch.arange(BATCH_SIZE, device="cuda")
+    opt = make_tx(work.parameters(), LR)
+
+    def step():
+        train_step(work, opt, slot, row)
+        torch.cuda.synchronize()
+
+    for _ in range(5):
+        step()
+    t = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall_ms = (time.perf_counter() - t) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(traced):
+            step()
+        traced_ms = (time.perf_counter() - t) / traced * 1e3
+    rows = _device_rows(prof)
+    device_ms = sum(r[0] for r in rows) / 1e3 / traced
+    return {"step_ms": wall_ms, "traced_step_ms": traced_ms,
+            "device_ms": device_ms, "idle_share": 1 - device_ms / wall_ms,
+            "device_events": sum(r[1] for r in rows) / traced}
+
+
+def main(argv=None, warm_epochs: int = 3) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fuse-stack", action="store_true",
+                    help="the whole-stack strategy (K6)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     _, loaders = bench_data()
-    model = bench_model(seed_everything(0))
+    model = bench_model(seed_everything(0), fuse_stack=args.fuse_stack)
     fit = dict(lr=LR, seed=1, device="cuda")
     warm = fit_regression(model, None, *loaders, n_epochs=warm_epochs, **fit)
     model.load_state_dict(warm.variables)
@@ -65,12 +124,7 @@ def main(warm_epochs: int = 3) -> dict:
         t = time.perf_counter()
         fit_regression(model, None, *loaders, n_epochs=1, **fit)
         traced_wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []
-    for ev in prof.key_averages():   # device-side events: kernels, copies
-        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                and not getattr(ev, "is_user_annotation", False)):
-            rows.append((ev.self_device_time_total, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
     groups = defaultdict(lambda: [0.0, 0])
     for dev_us, count, key in rows:
@@ -86,14 +140,20 @@ def main(warm_epochs: int = 3) -> dict:
     print("top kernels:")
     for dev_us, count, key in rows[:20]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    step = step_reading(model, loaders)
+    print(f"one train step: {step['step_ms']:.3f} ms untraced (mean of 20), "
+          f"device {step['device_ms']:.3f} ms, idle share "
+          f"{step['idle_share']:.3f}, {step['device_events']:.0f} device events")
     res = {
-        "card": card_line(), "epoch_ms_untraced": epoch_ms,
+        "card": card_line(), "fuse_stack": args.fuse_stack,
+        "epoch_ms_untraced": epoch_ms,
         "idle_share_untraced": 1 - device_ms / epoch_ms,
         "traced_wall_ms": traced_wall_ms, "device_ms": device_ms,
         "idle_share": 1 - device_ms / traced_wall_ms,
         "groups": {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()},
         "top_kernels": [{"name": k, "count": c, "ms": u / 1e3}
                         for u, c, k in rows[:20]],
+        "train_step": step,
     }
     print(json.dumps(res))
     return res

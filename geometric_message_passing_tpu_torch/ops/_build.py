@@ -57,6 +57,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                         *[P] * 4, *[P] * 4, *[P] * 4, *[P] * 4, P, I, P],
         "gmp_gvp_ops_width": [P, I],
     },
+    "egnn_stack": {
+        # indices, features, weights, CSR (2), scratch (2), outputs (2),
+        # barrier, N, E, D, L, stream
+        "gmp_egnn_stack_fwd": [I, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
+                               I, I, I, I, P],
+    },
+    "egnn_stack_bwd": {
+        # indices, features, weights, cotangents (2), CSRs (4), scratch and
+        # outputs (18), barrier, N, E, D, L, split, stream
+        "gmp_egnn_stack_bwd": [I, P, P, I, *[P] * 10, *[P] * 19, *[I] * 5, P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,108 @@
+"""The port's ``experiments/bench_throughput.py`` against the JAX script
+``scripts/bench_throughput.py`` (its table and its batch), its train step at
+full width on the CPU, the rows that are not ported yet, and the bench's
+``GMP_BENCH_MODEL`` switch (``experiments/bench.py``)."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from geometric_message_passing_tpu import datasets as jds
+from geometric_message_passing_tpu import graph as jgraph
+from geometric_message_passing_tpu_torch.experiments import bench
+from geometric_message_passing_tpu_torch.experiments import bench_throughput as bt
+from geometric_message_passing_tpu_torch.models import (EGNNFusedModel,
+                                                        EGNNModel, GVPGNNModel,
+                                                        SchNetModel)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _jax_script():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_throughput", ROOT / "scripts" / "bench_throughput.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_table_is_the_jax_scripts():
+    assert bt.MODELS == _jax_script().MODELS
+    assert set(bt.PORTED) < set(bt.MODELS)
+
+
+def test_batch_is_the_jax_scripts():
+    data = jds.create_star_graphs(num=100, fold=[5, 6, 7], dim=3, target="max",
+                                  seed=0)
+    jbatch = next(iter(jgraph.GraphLoader(data, batch_size=100,
+                                          pad=jgraph.pad_sizes(data, 100))))
+    batch = bt.star_batch(device="cpu")
+    assert int(batch.edge_mask.sum()) == int(np.asarray(jbatch.edge_mask).sum())
+    for name in ("senders", "receivers", "edge_mask", "pos", "y"):
+        np.testing.assert_array_equal(getattr(batch, name).numpy(),
+                                      np.asarray(getattr(jbatch, name)))
+
+
+@pytest.mark.parametrize("name", ["tfn", "mace", "dimenet", "spherenet"])
+def test_unported_rows_raise_by_name(name):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        bt.build(name, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        bt.main([name])
+
+
+def test_unknown_row_raises():
+    with pytest.raises(ValueError, match="unknown model"):
+        bt.main(["egnn_sorted"])
+
+
+def test_default_rows_are_the_ported_ones_and_need_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        bt.main([])
+
+
+@pytest.mark.parametrize("name,cls,extra", [
+    ("schnet", SchNetModel, {}), ("egnn", EGNNModel, {}),
+    ("egnn_fused", EGNNFusedModel, {"fuse_stack": False}),
+    ("egnn_stack", EGNNFusedModel, {"fuse_stack": True}),
+    ("gvp", GVPGNNModel, {}),
+])
+def test_ported_rows_build_and_step_on_cpu(name, cls, extra):
+    model = bt.build(name, torch.Generator().manual_seed(0), "cpu")
+    assert isinstance(model, cls)
+    assert all(getattr(model, k) == v for k, v in extra.items())
+    batch = bt.star_batch(num=8, batch_size=8, device="cpu")
+    with torch.no_grad():
+        assert model(batch).shape == (batch.num_graphs, 1)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = bt.make_step(model, batch)
+    losses = [step().item() for _ in range(2)]
+    assert model.training and np.isfinite(losses).all()
+    assert any(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+
+
+def test_stack_row_steps_as_the_per_layer_row():
+    batch = bt.star_batch(num=8, batch_size=8, device="cpu")
+    losses = []
+    for name in ("egnn_fused", "egnn_stack"):
+        step = bt.make_step(bt.build(name, torch.Generator().manual_seed(0),
+                                     "cpu"), batch)
+        losses.append([step().item() for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("value,cls", [(None, EGNNFusedModel),
+                                       ("egnn_fused", EGNNFusedModel),
+                                       ("egnn", EGNNModel)])
+def test_bench_model_switch(monkeypatch, value, cls):
+    if value is None:
+        monkeypatch.delenv("GMP_BENCH_MODEL", raising=False)
+    else:
+        monkeypatch.setenv("GMP_BENCH_MODEL", value)
+    model = bench.bench_model(torch.Generator().manual_seed(0), device="cpu")
+    assert type(model) is cls
+    assert (model.num_layers, model.emb_dim, model.pool) == (4, 128, "first")

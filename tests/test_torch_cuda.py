@@ -16,6 +16,7 @@ from geometric_message_passing_tpu_torch.experiments import bench_scale, train
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.models import EGNNFusedModel, GVPGNNModel
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 
@@ -481,4 +482,123 @@ def test_gvp_sorted_box_steps_on_card_match_cpu(cuda_device, remat):
     np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
     for key, value in results["cpu"][2].items():
         torch.testing.assert_close(results["cuda"][2][key], value,
+                                   atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The whole EGNN stack (K6, forward and backward)
+# ---------------------------------------------------------------------------
+
+
+def _stack_inputs(n, e, d, n_layers, seed, masked, index_dtype, device):
+    rng = np.random.default_rng(seed)
+    send, recv = rng.integers(0, n, e), rng.integers(0, n, e)
+    recv[:4] = send[:4]                    # zero-length live edges
+    w = (rng.normal(size=(n_layers, es.stack_rows(d), d)) * 0.1).astype(np.float32)
+    for row in (2 * d + 2, 3 * d + 5, 4 * d + 8, 6 * d + 13, 7 * d + 16):
+        w[:, row, :] = 1.0                 # LayerNorm scales
+    arrays = (send, recv, rng.random(e) >= masked,
+              rng.normal(size=(n, d)).astype(np.float32),
+              rng.normal(size=(n, 3)).astype(np.float32), w,
+              rng.normal(size=(n, d)).astype(np.float32),
+              rng.normal(size=(n, 3)).astype(np.float32))
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+    t[0], t[1] = t[0].to(index_dtype), t[1].to(index_dtype)
+    return tuple(t[:6]), tuple(t[6:])
+
+
+STACK_CASES = [
+    (30, 110, 16, 3, 0.15, torch.int32),
+    (800, 1400, 128, 4, 0.15, torch.int32),   # the star train bucket's size
+    (17, 33, 16, 1, 0.3, torch.int64),        # E not a multiple of the tile
+    (50, 301, 256, 2, 0.1, torch.int64),      # widest D
+    (600, 1100, 32, 2, 0.0, torch.int32),     # three edge slices, two node slices
+    (6, 0, 48, 2, 0.0, torch.int32),          # no edges
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,d,n_layers,masked,index_dtype", STACK_CASES)
+def test_stack_kernels_match_plain(cuda_device, n, e, d, n_layers, masked,
+                                   index_dtype):
+    args, cot = _stack_inputs(n, e, d, n_layers, seed=11, masked=masked,
+                              index_dtype=index_dtype, device=cuda_device)
+    before = (es.egnn_stack.launches, es.egnn_stack.bwd_launches)
+    with torch.no_grad():
+        first, second = (es.egnn_stack(*args, n_layers) for _ in range(2))
+    want = es.egnn_stack_plain(*args, n_layers)
+    grads = [es.egnn_stack_bwd(*args, n_layers, *cot) for _ in range(2)]
+    want_grads = es.egnn_stack_bwd_plain(*args, n_layers, *cot)
+    torch.cuda.synchronize()
+    # one launch per call and direction, whatever the layer count
+    assert (es.egnn_stack.launches, es.egnn_stack.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)           # deterministic: no atomics
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    for a, b, w, name in zip(*grads, want_grads, ("dh0", "dpos0", "dW")):
+        assert torch.equal(a, b), name
+        if name == "dW":
+            for layer in range(n_layers):
+                torch.testing.assert_close(
+                    a[layer], w[layer],
+                    atol=W_REL * max(w[layer].abs().max().item(), 1.0), rtol=0)
+        else:
+            torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_stack_autograd_on_card_launches_bwd_kernel(cuda_device):
+    args, cot = _stack_inputs(40, 150, 32, 3, seed=12, masked=0.1,
+                              index_dtype=torch.int32, device=cuda_device)
+    send, recv, emask, h, pos, w = args
+    leaves = [t.clone().requires_grad_() for t in (h, pos, w)]
+    before = (es.egnn_stack.launches, es.egnn_stack.bwd_launches)
+    ho, po = es.egnn_stack(send, recv, emask, *leaves, 3)
+    grads = torch.autograd.grad((ho * cot[0]).sum() + (po * cot[1]).sum(), leaves)
+    assert (es.egnn_stack.launches, es.egnn_stack.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = es.egnn_stack_bwd_plain(*args, 3, *cot)
+    for g, w_ in zip(grads, want):
+        torch.testing.assert_close(
+            g, w_, atol=max(ATOL, W_REL * w_.abs().max().item()), rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_stack_kernel_raises_on_unsupported_width(cuda_device):
+    args, _ = _stack_inputs(10, 20, 24, 2, seed=0, masked=0.0,
+                            index_dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        es.egnn_stack(*args, 2)
+
+
+@pytest.mark.cuda
+def test_two_stack_train_steps_on_card_match_cpu(cuda_device):
+    graphs = datasets.create_star_graphs(num=24, fold=(5, 6, 7), seed=4)
+    kw = dict(num_layers=3, emb_dim=32, in_dim=1, out_dim=1, pool="first",
+              fuse_stack=True)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = EGNNFusedModel(**kw, generator=torch.Generator().manual_seed(2),
+                               device=dev)
+        slot = graph.build_slot_data(graphs, device=dev)
+        opt = train.make_tx(model.parameters(), 5e-4)
+        before = (es.egnn_stack.launches, es.egnn_stack.bwd_launches,
+                  edge.egnn_message.launches, edge.egnn_message.bwd_launches)
+        losses = [train.train_step(model, opt, slot,
+                                   torch.tensor(row, device=dev)).item()
+                  for row in ([3, 1, 24, 7, 0, 12], [5, 9, 2, 24, 24, 11])]
+        launches = tuple(a - b for a, b in zip(
+            (es.egnn_stack.launches, es.egnn_stack.bwd_launches,
+             edge.egnn_message.launches, edge.egnn_message.bwd_launches), before))
+        y = Predictor(model, batch_size=8, device=dev).predict(graphs)
+        results[dev.type] = (losses, launches, y, {k: v.cpu() for k, v in
+                                                   model.state_dict().items()})
+    assert results["cuda"][1] == (2, 2, 0, 0)
+    assert results["cpu"][1] == (0, 0, 0, 0)
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(results["cuda"][2], results["cpu"][2],
+                               atol=ATOL, rtol=RTOL)
+    for key, value in results["cpu"][3].items():
+        torch.testing.assert_close(results["cuda"][3][key], value,
                                    atol=1e-5, rtol=1e-4)

@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.ops.gvp_message",
                    "geometric_message_passing_tpu_torch.models.gvpgnn",
                    "geometric_message_passing_tpu_torch.experiments.trial_gvp",
-                   "geometric_message_passing_tpu_torch.experiments.profile_box"):
+                   "geometric_message_passing_tpu_torch.experiments.profile_box",
+                   "geometric_message_passing_tpu_torch.ops.egnn_stack",
+                   "geometric_message_passing_tpu_torch.experiments.bench_throughput"):
         assert module in res["imported"]
 
 
