@@ -22,9 +22,13 @@ Phases; any failure raises and the script exits non-zero:
      receiver-sorted 100k-atom box with its receiver plan (identity) at
      D 128, D 4 and D 177 (GVP-GNN's merged sum) and its sender plan at
      D 128, D 3 and D 176 (GVP-GNN's sender gather backward); K4
-     (``segment_sum``) at E 3000 / N 700 / D 64 and on the box's edges in
-     shuffled order at D 128: atol = rtol = 1e-5 of the f32 sum (the JAX
-     test's), two runs bitwise equal, and beside kernel, whole call and
+     (``segment_sum``) at E 3000 / N 700 / D 64, on the box's edges in
+     shuffled order at D 128 and as a sum pool of the box's nodes into its
+     graph at D 176 (one long segment: the kernel's block path): atol = rtol
+     = 1e-5 of the f32 sum (the JAX test's; for the pool, whose 1e5-row f32
+     sums lie ~1e-2 from the exact one in any order, no farther from a
+     float64 sum than twice the plain version), two runs bitwise equal, and
+     beside kernel, whole call and
      plain version the library calls (one ``index_add_`` on the masked
      data, one ``torch.segment_reduce`` on the sorted rows);
   3b. K5 (``gvp_message``, forward and backward) against its plain versions
@@ -59,6 +63,14 @@ Phases; any failure raises and the script exits non-zero:
      from it than 2x the plain f32 version's distance plus 1e-3 of that
      layer's largest entry.  Two runs bitwise equal; kernel, whole call and
      plain version timed beside the bound (``stack_bound_ms``);
+  3d. K7 (``edge_weighted_contract``, forward and backward) against its
+     plain versions at the JAX test's three shapes (``tests/test_pallas.py``:
+     bf16 W in the third), at the five groups of TFN's layer 0 and of a
+     hidden layer at the TFN train bucket (E 1408), f32 W, and at one hidden
+     group with bf16 W: within 2e-5 (bf16 W: 3e-2) of max(|ref|, 1), the
+     JAX test's tolerances and scaling; dW in W's type; two runs bitwise
+     equal; per group kernel, whole call, plain version and ``torch.bmm``
+     beside the bound (``k7_bound_ms``), and each layer's sums;
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
@@ -66,13 +78,21 @@ Phases; any failure raises and the script exits non-zero:
      run on the CPU through the plain path (atol 1e-4);
   4b. GVP serving: ``Predictor(GVPGNNModel(4 layers, 128/16,
      use_pallas=True))`` over the same graphs, counters set to 0 just before
-     and read just after: 14 x 4 K5 forward launches and nothing else; finite
-     (1400, 1), within 1e-4 of the CPU plain path; median of 7 calls;
+     and read just after: 14 x 4 K5 forward launches, 14 K4 (the sum pool)
+     and nothing else; finite (1400, 1), within 1e-4 of the CPU plain path;
+     median of 7 calls;
   4c. whole-stack serving: ``Predictor(EGNNFusedModel(4, 128, pool "first",
      fuse_stack=True))`` on phase 4's weights over the same graphs, counters
      set to 0 just before and read just after: 14 K6 forward launches and
      nothing else; finite (1400, 1), within 1e-4 of the CPU plain path and of
      phase 4's per-layer result; median of 7 calls beside phase 4's;
+  4d. TFN serving: ``Predictor(TFNModel)`` at the star configuration
+     (``bench.TFN_STAR``: 4 layers, max_ell 3, emb_dim 64, mlp_dim 256, gate,
+     residual, pool "first") over 1400 star graphs with seven spokes (fold
+     [7], seed 0), counters set to 0 just before and read just after: K7
+     5 x 4 x 14 = 280 forward launches, K4 4 x 14 = 56, no K7 backward,
+     nothing else; finite (1400, 1), within 1e-4 of the same weights on the
+     CPU plain path; median of 7 calls;
   5. train, against the CPU: the bench configuration (split 50/20/30,
      batch 100, lr 5e-4) from the same weights and the same shuffle, run on
      the card, on the CPU plain path in float32 and on the CPU in float64,
@@ -102,20 +122,41 @@ Phases; any failure raises and the script exits non-zero:
      on the plain stack (a witness of the card's rounding outside K6).  A
      planted fault, the update-MLP rows of the stacked weights cut off from
      K6's gradient (no ``upd_*`` parameter learns), must fail that check;
+  5d. TFN one ``train_step`` (its split 50/20/30, batch 100, lr 5e-4): at
+     full width the card through K7/K4 (exactly 20 K7 launches each way and
+     5 K4: 4 message sums and the embedding's gradient) against the card
+     through their plain twins (both f32: gradients
+     within 1e-3 of each parameter's largest entry); at emb_dim 16 with 2
+     layers (a float64 CPU step at full width is ~1 TFLOP) the card against
+     the CPU in float32 and float64, gradients within 1e-2 of each
+     parameter's largest float64 entry; a planted fault, K7's dT dropped
+     (``without_contract_dT``), must fail that check;
   6. train, the main path: one 200-epoch ``fit_regression`` on the card with
      the launch counters set to 0 just before and read just after: K2 must
      have launched 4 x (train steps) times, K1 4 x (train steps + validation
-     batches + test batches of the epochs whose best-val rule fired); the
-     test MAE must be finite and below 0.2;
+     batches + test batches of the epochs whose best-val rule fired), K4
+     once per train step (the embedding's gradient, ``nn.basic.Embedding``);
+     the test MAE must be finite and below 0.2;
   6f. whole-stack training, the main path: phase 6's run with
-     ``fuse_stack=True``, counters set to 0 just before and read just after:
+     ``fuse_stack=True``, counters set to 0 just before and read just after
+     (K4 once per train step, the embedding's gradient):
      K6 forward (train steps + validation batches + test batches of the
      fired epochs) times, K6 backward (train steps) times, nothing else;
      test MAE finite and below 0.2; train_time and test MAE beside phase 6's;
+  6g. TFN training, the main path: one 200-epoch ``fit_regression`` of the
+     phase-4d model (lr 5e-4, shuffle seed 1), counters set to 0 just before
+     and read just after: K7 forward 20 x (train steps + validation batches
+     + test batches of the fired epochs), backward 20 x train steps, K4 4 x
+     the forward calls + 1 x train steps (the embedding's gradient), nothing
+     else; test MAE finite and below 0.09,
+     printed beside the JAX package's 0.0637 +- 0.0010 and the reference's
+     0.0667;
   6d. GVP training, the main path: a 100-epoch ``fit_regression`` of the
      phase-4b model with dropout on, counters set to 0 just before and read
      just after: K5 forward 4 x (train steps + validation batches + test
-     batches of the fired epochs), backward 4 x train steps, nothing else;
+     batches of the fired epochs), backward 4 x train steps, K4 once per
+     forward (the sum pool) and once per train step (the embedding's
+     gradient), nothing else;
      losses finite, the last epoch's mean train loss below the first's; the
      test MAE printed beside a constant predictor's (the train-target mean);
   6b. box training, against the CPU: one bench_scale step (L1-sum loss,
@@ -130,24 +171,30 @@ Phases; any failure raises and the script exits non-zero:
      (1,350,872 edges), a few bench_scale steps each, with the launch
      counters set to 0 just before and read just after: K3 must have
      launched exactly ``bench_scale.sorted_launches_per_step`` times per
-     step (8 for SchNet, 22 for EGNN), the others never; every loss finite;
+     step (8 for SchNet, 22 for EGNN), K4 twice (the sum pool and the
+     embedding's gradient), the others never; every loss finite;
      prints ms per step, edges/s and peak device memory;
   6e. ``gvp_sorted`` (4 layers, 128/16; its chain on the plain route, as in
      the JAX script): one step on the 2000-atom sorted box against the CPU
      float64 run with phase 6b's planted fault rejected (dropout rate 0 on
      those copies), then a few steps on the 100k-atom box with remat and
      dropout on: K3 exactly ``sorted_launches_per_step("gvp_sorted", 4,
-     remat=True)`` (12) times per step, no K5; ms per step, edges/s, peak
-     device memory;
+     remat=True)`` (12) times per step, K4 twice, no K5; ms per step,
+     edges/s, peak device memory;
+  6h. repair: every ``ops.scatter.segment_sum`` of a CUDA tensor is K4, so
+     two runs of one plain-route ``egnn`` step (4 x 128) on the unsorted
+     10k-atom box give bitwise-equal gradients, with exactly 14 K4 launches
+     per step (per layer the message sum and the position mean's two sums,
+     the pool and the embedding's gradient: ``nn.basic.Embedding``);
   7. summary: one JSON line of kernels, then the device line last.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 4, 4b, 4c, 5, 5b, 5c, 6, 6f, 6d,
-6b, 6c, 6e, 7.
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 4, 4b, 4c, 4d, 5, 5b, 5c, 5d,
+6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
 permutation, row pointers or ids and mask, and the output written once; K5's
-is ``gvp_bound_ms``, K6's ``stack_bound_ms``.
+is ``gvp_bound_ms``, K6's ``stack_bound_ms``, K7's ``k7_bound_ms``.
 """
 
 from __future__ import annotations
@@ -164,17 +211,22 @@ import torch
 
 from geometric_message_passing_tpu_torch.experiments import bench_scale
 from geometric_message_passing_tpu_torch.experiments.bench import (
-    LR, N_EPOCHS as EPOCHS, bench_data, card_line)
+    LR, N_EPOCHS as EPOCHS, TFN_STAR, bench_data, card_line, tfn_data,
+    tfn_model as _tfn_model)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.experiments.train import (
     fit_regression, make_tx, train_step)
 from geometric_message_passing_tpu_torch.graph import (
     GraphLoader, assemble_batch, build_slot_data, pad_sizes)
 from geometric_message_passing_tpu_torch.models import (
-    EGNNFusedModel, GVPGNNModel, egnn_fused, gvpgnn)
+    EGNNFusedModel, GVPGNNModel, TFNModel, egnn_fused, gvpgnn)
+from geometric_message_passing_tpu_torch.nn import conv as tfn_conv
+from geometric_message_passing_tpu_torch.nn import tensor_product
 from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
 from geometric_message_passing_tpu_torch.ops import _build
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import edge_contract as ec
+from geometric_message_passing_tpu_torch.ops import scatter
 from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
@@ -472,10 +524,14 @@ def library_ms(data, seg, mask, n: int, order, rowptr, iters: int) -> tuple:
 
 
 def check_segsum(label: str, data, seg, mask, n: int, plan=None,
-                 timed: bool = True, iters: int = 50) -> dict:
+                 timed: bool = True, iters: int = 50,
+                 long_rows: bool = False) -> dict:
     """K3 (through ``plan``) or, without a plan, K4 on these inputs against
     the plain version: within SEG_TOL, finite, two runs bitwise equal; then,
-    when ``timed``, the times.  Returns the reading."""
+    when ``timed``, the times.  ``long_rows`` (segments of ~1e5 rows, whose
+    f32 sums in any order lie ~1e-2 from the exact one): both held to a
+    float64 sum instead, the kernel no farther than twice the plain
+    version plus SEG_TOL of the largest sum.  Returns the reading."""
     if plan is not None:
         def call():
             return sss.sorted_segment_sum(data, plan, seg, mask)
@@ -496,7 +552,15 @@ def check_segsum(label: str, data, seg, mask, n: int, plan=None,
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite values")
     err = (got - want).abs().max().item() if got.numel() else 0.0
-    if not torch.allclose(got, want, atol=SEG_TOL, rtol=SEG_TOL):
+    if long_rows:
+        exact = sss.sorted_segment_sum_plain(data.double(), seg, n, mask)
+        d_k = (got.double() - exact).abs().max().item()
+        d_p = (want.double() - exact).abs().max().item()
+        log(f"  {label}: vs float64, kernel {d_k:.3e}, plain {d_p:.3e}")
+        if d_k > 2 * d_p + SEG_TOL * exact.abs().max().item():
+            raise AssertionError(f"{label}: {d_k:.3e} from the float64 sum, "
+                                 f"the plain version {d_p:.3e}")
+    elif not torch.allclose(got, want, atol=SEG_TOL, rtol=SEG_TOL):
         raise AssertionError(f"{label}: differs from the plain version by "
                              f"{err:.3e}")
     if not torch.equal(got, again):
@@ -976,11 +1040,150 @@ def without_update_grad(send, recv, emask, h0, pos0, wall, n_layers):
                          n_layers)
 
 
+# ---------------------------------------------------------------------------
+# TFN and the per-edge CG contraction (K7)
+# ---------------------------------------------------------------------------
+
+TFN_NARROW = dict(num_layers=2, emb_dim=16)   # a step held to float64
+
+
+def tfn_model(device, **kw):
+    """TFN at its star configuration (``kw`` overrides), weights from seed 0."""
+    return _tfn_model(torch.Generator().manual_seed(0), device, **kw)
+TFN_EPOCHS, TFN_MAE_MAX = 200, 0.09
+TFN_JAX_MAE, TFN_JAX_SD, TFN_REF_MAE = 0.0637, 0.0010, 0.0667
+K7_TOL, K7_TOL_BF16 = 2e-5, 3e-2   # the JAX test's, x max(|ref|, 1)
+K7_PLAIN_TOL = 1e-3   # full-width step, K7/K4 vs the plain twins, both f32
+
+
+def k7_case(e: int, k: int, w: int, m: int, wdtype, seed: int, dev):
+    """K7's inputs drawn at random (standard normal, as the JAX test):
+    T [E, K, m], W [E, K, w] in ``wdtype``, a cotangent dO [E, w, m]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((e, k, m), generator=gen, device=dev),
+            torch.randn((e, k, w), generator=gen, device=dev).to(wdtype),
+            torch.randn((e, w, m), generator=gen, device=dev))
+
+
+def k7_bound_ms(T, W, backward: bool) -> tuple:
+    """Least time for K7 on these inputs: bytes (forward: T and W read, out
+    written; backward: T, W and dO read, dT and dW written) over the HBM
+    rate against 2 E K w m operations forward (4 E K w m backward) over the
+    f32 rate."""
+    e, k, m = T.shape
+    w = W.shape[2]
+    t_bytes, w_bytes, o_bytes = 4 * T.numel(), W.element_size() * W.numel(), \
+        4 * e * w * m
+    n_bytes = (2 * t_bytes + 2 * w_bytes + o_bytes if backward
+               else t_bytes + w_bytes + o_bytes)
+    ops = (4 if backward else 2) * e * k * w * m
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b > t_o else (t_o, "operations")
+
+
+def check_k7(label: str, case, timed: bool = True, iters: int = 20) -> dict:
+    """K7 forward and backward against the plain versions: within K7_TOL
+    (K7_TOL_BF16 for bf16 W) of max(|ref|, 1), finite, dW in W's type, two
+    runs bitwise equal; then, when ``timed``, kernel, whole call, plain
+    version and ``torch.bmm`` (the library: one call forward, two backward,
+    on an f32 copy of W made outside the loop) beside the bound."""
+    T, W, dO = case
+    tol = K7_TOL if W.dtype == torch.float32 else K7_TOL_BF16
+    with torch.no_grad():
+        got, again = (ec.edge_weighted_contract(T, W) for _ in range(2))
+        want = ec.edge_weighted_contract_plain(T, W)
+        (dT, dW), (dT2, dW2) = (ec.edge_weighted_contract_bwd(T, W, dO)
+                                for _ in range(2))
+        wdT, wdW = ec.edge_weighted_contract_bwd_plain(T, W, dO)
+    torch.cuda.synchronize()
+    if dW.dtype != W.dtype or dT.dtype != torch.float32:
+        raise AssertionError(f"{label}: K7 backward types {dT.dtype}, {dW.dtype}")
+    errs = {}
+    for part, g, a, r in (("out", got, again, want), ("dT", dT, dT2, wdT),
+                          ("dW", dW.float(), dW2.float(), wdW.float())):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: K7 {part} has non-finite values")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{label}: K7 {part}: two runs differ bitwise")
+        err = (g - r).abs().max().item()
+        scale = max(r.abs().max().item(), 1.0)
+        if err > tol * scale:
+            raise AssertionError(f"{label}: K7 {part} differs from the plain "
+                                 f"version by {err:.3e} (tol {tol * scale:.3e})")
+        errs[part] = err
+    e, k, m = T.shape
+    w = W.shape[2]
+    reading = {"shape": label, "E": e, "K": k, "m": m, "w": w,
+               "W": str(W.dtype).replace("torch.", ""),
+               "max_abs_err": max(errs.values()), "errors": errs}
+    head = (f"  {label}: E={e} K={k} m={m} w={w} W {reading['W']} errors "
+            + ", ".join(f"{p} {v:.2e}" for p, v in errs.items()))
+    if not timed:
+        log(head + " (tol " f"{tol:g} of max(|ref|, 1)), bitwise repeatable")
+        return reading
+    out, dTb, dWb = torch.empty_like(got), torch.empty_like(T), torch.empty_like(W)
+    Wf = W if W.dtype == torch.float32 else W.float()
+    with torch.no_grad():
+        fwd = dict(
+            ms=cuda_time_ms(lambda: ec.launch_fwd(T, W, out), iters),
+            call_ms=cuda_time_ms(lambda: ec.edge_weighted_contract(T, W), iters),
+            plain_ms=cuda_time_ms(lambda: ec.edge_weighted_contract_plain(T, W),
+                                  iters),
+            library_ms=cuda_time_ms(lambda: torch.bmm(Wf.transpose(1, 2), T),
+                                    iters))
+        bwd = dict(
+            ms=cuda_time_ms(lambda: ec.launch_bwd(T, W, dO, dTb, dWb), iters),
+            call_ms=cuda_time_ms(lambda: ec.edge_weighted_contract_bwd(T, W, dO),
+                                 iters),
+            plain_ms=cuda_time_ms(
+                lambda: ec.edge_weighted_contract_bwd_plain(T, W, dO), iters),
+            library_ms=cuda_time_ms(lambda: (torch.bmm(Wf, dO), torch.bmm(
+                T, dO.transpose(1, 2))), iters))
+    for d, back in ((fwd, False), (bwd, True)):
+        d["bound_ms"], d["bound_by"] = k7_bound_ms(T, W, back)
+    log(head + "; " + "; ".join(
+        f"{name} kernel {d['ms']:.4f} ms, whole call {d['call_ms']:.4f}, plain "
+        f"{d['plain_ms']:.4f}, bmm {d['library_ms']:.4f}, bound "
+        f"{d['bound_ms']:.5f} ({d['bound_by']})"
+        for name, d in (("forward", fwd), ("backward", bwd))))
+    return dict(reading, fwd=fwd, bwd=bwd)
+
+
+def k7_layer_sum(readings) -> dict:
+    """A layer's K7 times: its five groups' readings summed, per direction."""
+    out = {}
+    for direction in ("fwd", "bwd"):
+        keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+        out[direction] = {k: sum(r[direction][k] for r in readings) for k in keys}
+        bys = {r[direction]["bound_by"] for r in readings}
+        out[direction]["bound_by"] = bys.pop() if len(bys) == 1 else "mixed"
+    return out
+
+
+def without_contract_dT(T, W):
+    """The planted fault of phase 5d: K7 with its ``dT`` dropped (the CG
+    intermediate cut off from the gradient), so nothing below a contraction
+    learns through it: the embedding, and each layer's input."""
+    return ec.edge_weighted_contract(T.detach(), W)
+
+
+@contextlib.contextmanager
+def plain_tfn_twins():
+    """The TFN path through the plain twins of K7 and K4 on the card."""
+    with patched(tensor_product, "edge_weighted_contract",
+                 ec.edge_weighted_contract_plain), \
+            patched(tfn_conv, "segment_sum", scatter.segment_sum_plain):
+        yield
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
     gm.gvp_message.launches = gm.gvp_message.bwd_launches = 0
     es.egnn_stack.launches = es.egnn_stack.bwd_launches = 0
+    ec.edge_weighted_contract.launches = 0
+    ec.edge_weighted_contract.bwd_launches = 0
 
 
 def counts() -> dict:
@@ -991,7 +1194,9 @@ def counts() -> dict:
             "gvp_message": gm.gvp_message.launches,
             "gvp_message_bwd": gm.gvp_message.bwd_launches,
             "egnn_stack": es.egnn_stack.launches,
-            "egnn_stack_bwd": es.egnn_stack.bwd_launches}
+            "egnn_stack_bwd": es.egnn_stack.bwd_launches,
+            "edge_contract": ec.edge_weighted_contract.launches,
+            "edge_contract_bwd": ec.edge_weighted_contract.bwd_launches}
 
 
 def main() -> int:
@@ -1120,6 +1325,11 @@ def main() -> int:
     k4.append(check_segsum("K4 shuffled box D128", box_rows(box, 128, 29),
                            box.receivers[shuffle], box.edge_mask[shuffle],
                            box.num_nodes))
+    # a sum pool of the box's nodes into its one graph: one long segment
+    gen = torch.Generator(device=dev).manual_seed(30)
+    k4.append(check_segsum("K4 box pool D176", torch.randn(
+        (box.num_nodes, 176), generator=gen, device=dev), box.graph_id,
+        box.node_mask, box.num_graphs, long_rows=True))
     del data, seg, mask, shuffle
     torch.cuda.empty_cache()
 
@@ -1215,6 +1425,44 @@ def main() -> int:
     del k6_box, gvp_box, slot
     torch.cuda.empty_cache()
 
+    # 3d. K7 against its plain versions: the JAX test's shapes, then every
+    # group of TFN's layer 0 and hidden layers at its train bucket
+    log(f"[kernels] edge_weighted_contract (K7) vs its plain versions, "
+        f"forward and backward: tol {K7_TOL:g} (f32 W) / {K7_TOL_BF16:g} (bf16 "
+        f"W) of max(|ref|, 1) [{card}]")
+    tfn_graphs, tfn_loaders = tfn_data()
+    tfn_cpu = tfn_model("cpu")
+    tfn_slot = build_slot_data(tfn_loaders[0].graphs, device=dev)
+    tfn_e = assemble_batch(tfn_slot, torch.arange(BATCH, device=dev)).num_edges
+    k7_small = [check_k7(f"JAX test {e}x{k}x{w}x{m}", k7_case(
+        e, k, w, m, dt, seed=50 + i, dev=dev), timed=False)
+        for i, (e, k, w, m, dt) in enumerate((
+            (70, 96, 16, 7, torch.float32), (64, 32, 8, 1, torch.float32),
+            (33, 64, 16, 5, torch.bfloat16)))]
+    k7_groups = {}
+    for layer, conv in (("layer 0", tfn_cpu.convs[0]),
+                        ("hidden", tfn_cpu.convs[1])):
+        k7_groups[layer] = [
+            check_k7(f"{layer} group {g} (K {k}, m {m}, w {w})",
+                     k7_case(tfn_e, k, w, m, torch.float32, seed=60 + g, dev=dev))
+            for g, (k, m, w) in enumerate(conv.tp.group_shapes)]
+    k, m, w = tfn_cpu.convs[1].tp.group_shapes[3]
+    k7_bf16 = check_k7(f"hidden group 3 bf16 W (K {k}, m {m}, w {w})",
+                       k7_case(tfn_e, k, w, m, torch.bfloat16, seed=70, dev=dev))
+    k7_layer = {layer: k7_layer_sum(r) for layer, r in k7_groups.items()}
+    for layer, t in k7_layer.items():
+        log(f"  {layer} at E {tfn_e}, 5 groups: forward kernels "
+            f"{t['fwd']['ms']:.4f} ms, whole calls {t['fwd']['call_ms']:.4f}, "
+            f"plain {t['fwd']['plain_ms']:.4f}, bmm {t['fwd']['library_ms']:.4f}, "
+            f"bound {t['fwd']['bound_ms']:.5f}; backward kernels "
+            f"{t['bwd']['ms']:.4f} ms, whole calls {t['bwd']['call_ms']:.4f}, "
+            f"plain {t['bwd']['plain_ms']:.4f}, bmm {t['bwd']['library_ms']:.4f}, "
+            f"bound {t['bwd']['bound_ms']:.5f} [{card}]")
+    k7_err = max(r["max_abs_err"] for r in k7_small + [k7_bf16] + [
+        x for rs in k7_groups.values() for x in rs])
+    del tfn_slot
+    torch.cuda.empty_cache()
+
     # 4. serve
     model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                            generator=torch.Generator().manual_seed(0),
@@ -1272,13 +1520,15 @@ def main() -> int:
     y_gvp = gvp_pred.predict(graphs)
     gvp_serve = counts()
     gvp_want = -(-N_GRAPHS // BATCH) * GVP_LAYERS
+    gvp_batches = -(-N_GRAPHS // BATCH)
     log(f"[serve] GVP-GNN ({GVP_LAYERS} layers, 128/16, use_pallas=True) "
         f"predict({N_GRAPHS} graphs): launches {gvp_serve} (want K5 forward "
-        f"{gvp_want}, nothing else)")
+        f"{gvp_want}, K4 {gvp_batches} (the sum pool), nothing else)")
     if y_gvp.shape != (N_GRAPHS, 1) or not np.isfinite(y_gvp).all():
         raise AssertionError(f"GVP predict gave shape {y_gvp.shape}, "
                              f"finite={np.isfinite(y_gvp).all()}")
-    if gvp_serve != dict({k: 0 for k in gvp_serve}, gvp_message=gvp_want):
+    if gvp_serve != dict({k: 0 for k in gvp_serve}, gvp_message=gvp_want,
+                         segment_sum=gvp_batches):
         raise AssertionError(f"GVP predict launched {gvp_serve}")
     y_gvp_cpu = Predictor(gvp_cpu, batch_size=BATCH, device="cpu").predict(graphs)
     gvp_serve_err = float(np.abs(y_gvp - y_gvp_cpu).max())
@@ -1338,6 +1588,48 @@ def main() -> int:
     log(f"[serve] stack predict: median {stack_ms:.2f} ms per call of 7 "
         f"({N_GRAPHS / stack_ms * 1e3:.0f} graphs/s); per layer (phase 4) "
         f"{ms:.2f} ms [{card}]")
+
+    # 4d. TFN serving at the star configuration's full width
+    tfn_cuda = tfn_model(dev)
+    for key, value in tfn_cuda.state_dict().items():
+        if not torch.equal(value.cpu(), tfn_cpu.state_dict()[key]):
+            raise AssertionError(f"CPU and CUDA TFN models differ at {key}")
+    tfn_pred = Predictor(tfn_cuda, batch_size=BATCH)
+    reset_counts()
+    y_tfn = tfn_pred.predict(tfn_graphs)
+    tfn_serve = counts()
+    tfn_batches = -(-N_GRAPHS // BATCH)
+    tfn_layers = TFN_STAR["num_layers"]
+    tfn_serve_want = dict({k: 0 for k in tfn_serve},
+                          edge_contract=5 * tfn_layers * tfn_batches,
+                          segment_sum=tfn_layers * tfn_batches)
+    log(f"[serve] TFN {TFN_STAR} predict({N_GRAPHS} star graphs, fold [7]): "
+        f"launches {tfn_serve} (want K7 {tfn_serve_want['edge_contract']} "
+        f"forward, K4 {tfn_serve_want['segment_sum']}, nothing else)")
+    if y_tfn.shape != (N_GRAPHS, 1) or not np.isfinite(y_tfn).all():
+        raise AssertionError(f"TFN predict gave shape {y_tfn.shape}, "
+                             f"finite={np.isfinite(y_tfn).all()}")
+    if tfn_serve != tfn_serve_want:
+        raise AssertionError(f"TFN predict launched {tfn_serve}")
+    t = time.perf_counter()
+    y_tfn_cpu = Predictor(tfn_cpu, batch_size=BATCH,
+                          device="cpu").predict(tfn_graphs)
+    tfn_cpu_s = time.perf_counter() - t
+    tfn_serve_err = float(np.abs(y_tfn - y_tfn_cpu).max())
+    log(f"  vs the CPU plain path ({tfn_cpu_s:.1f} s on the host): "
+        f"max_abs_err={tfn_serve_err:.3e} (atol 1e-4)")
+    if not np.allclose(y_tfn, y_tfn_cpu, atol=1e-4, rtol=0):
+        raise AssertionError(f"TFN predict differs from the CPU run by "
+                             f"{tfn_serve_err}")
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tfn_pred.predict(tfn_graphs)
+        times.append(time.perf_counter() - t)
+    tfn_ms = statistics.median(times) * 1e3
+    log(f"[serve] TFN predict: median {tfn_ms:.2f} ms per call of 7 "
+        f"({N_GRAPHS / tfn_ms * 1e3:.0f} graphs/s) [{card}]")
 
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
@@ -1458,13 +1750,76 @@ def main() -> int:
             "differ)" for run, c in stack_check.items())
         + f"; K6 launches on the card {stack_launches['card']}")
     if stack_launches["card"] != dict({k: 0 for k in stack_launches["card"]},
-                                      egnn_stack=1, egnn_stack_bwd=1):
+                                      egnn_stack=1, egnn_stack_bwd=1,
+                                      segment_sum=1):   # the embedding
         raise AssertionError(f"the stack step launched {stack_launches['card']}")
     if stack_check["card"]["grad_err"] > GRAD_TOL:
         raise AssertionError("the stack gradients on the card do not match "
                              "the CPU")
     if stack_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
         raise AssertionError("phase 5c's check passed the planted fault")
+
+    # 5d. TFN one step: at full width the card through K7/K4 against the
+    # card through their plain twins; at a narrow width (a float64 CPU step
+    # at full width is ~1 TFLOP) the card against the CPU in float64, with
+    # a planted fault (K7's dT dropped)
+    tfn_order = torch.from_numpy(np.random.default_rng(8).permutation(
+        tfn_loaders[0].num_examples))
+    tfn_row, tfn_train_graphs = tfn_order[:BATCH], tfn_loaders[0].graphs
+    tfn_step, tfn_step_launches = {}, {}
+    for run, twins in (("card", contextlib.nullcontext),
+                       ("card, plain twins", plain_tfn_twins)):
+        with twins():
+            reset_counts()
+            tfn_step[run] = first_step(tfn_cpu, "cuda", torch.float32,
+                                       tfn_train_graphs, tfn_row)
+            tfn_step_launches[run] = counts()
+    full = step_reading(tfn_step["card"], tfn_step["card, plain twins"])
+    step_want = dict({k: 0 for k in tfn_step_launches["card"]},
+                     edge_contract=5 * tfn_layers,
+                     edge_contract_bwd=5 * tfn_layers,
+                     segment_sum=tfn_layers + 1)   # and the embedding's
+    log(f"[train] TFN one train_step at full width (graphs order[:{BATCH}]): "
+        f"K7/K4 against the plain twins on the card, gradients within "
+        f"{full[0]:.3e} of each parameter's largest entry ({full[3]}; "
+        f"{full[1]} signs differ; tol {K7_PLAIN_TOL:g}); launches "
+        f"{tfn_step_launches['card']} (want {step_want}); plain twins launched "
+        f"{tfn_step_launches['card, plain twins']}")
+    if tfn_step_launches["card"] != step_want:
+        raise AssertionError(f"the TFN step launched {tfn_step_launches['card']}")
+    if tfn_step_launches["card, plain twins"] != dict(
+            {k: 0 for k in step_want}, segment_sum=1):   # the embedding's
+        raise AssertionError("the plain twins launched K7 or K4 in the convs")
+    if full[0] > K7_PLAIN_TOL:
+        raise AssertionError("the TFN step through K7/K4 does not match the "
+                             "plain twins on the card")
+    narrow_cpu = tfn_model("cpu", **TFN_NARROW)
+    narrow = {}
+    for run, d_, dtype, fn in (
+            ("card", "cuda", torch.float32, ec.edge_weighted_contract),
+            ("card, planted fault", "cuda", torch.float32, without_contract_dT),
+            ("cpu f32", "cpu", torch.float32, ec.edge_weighted_contract),
+            ("cpu f64", "cpu", torch.float64, ec.edge_weighted_contract)):
+        with patched(tensor_product, "edge_weighted_contract", fn):
+            narrow[run] = first_step(narrow_cpu, d_, dtype, tfn_train_graphs,
+                                     tfn_row, cast_data=True)
+    tfn_check = {"full_width_vs_plain_twins": full[0]}
+    for run in ("card", "card, planted fault", "cpu f32"):
+        g_err, flips, moved, worst = step_reading(narrow[run], narrow["cpu f64"])
+        tfn_check[run] = {"grad_err": g_err, "sign_flips": flips,
+                          "step_lr": moved, "worst": worst}
+    log(f"[train] TFN one train_step at emb_dim {TFN_NARROW['emb_dim']}, "
+        f"{TFN_NARROW['num_layers']} layers, max_ell {TFN_STAR['max_ell']} "
+        f"against the CPU float64 run, tol {GRAD_TOL:g} of each parameter's "
+        "largest entry: " + ", ".join(
+            f"{run} {c['grad_err']:.3e} ({c['worst']}; {c['sign_flips']} signs "
+            "differ)" for run, c in tfn_check.items()
+            if isinstance(c, dict)))
+    if tfn_check["card"]["grad_err"] > GRAD_TOL:
+        raise AssertionError("the TFN gradients on the card do not match the CPU")
+    if tfn_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
+        raise AssertionError("phase 5d's check passed the planted fault")
+    del narrow, tfn_step
 
     # 6. train, the main path
     reset_counts()
@@ -1473,8 +1828,10 @@ def main() -> int:
     train_counts = counts()
     train_launches = (train_counts["egnn_message"],
                       train_counts["egnn_message_bwd"])
-    if train_counts["sorted_segment_sum"] or train_counts["segment_sum"]:
-        raise AssertionError(f"star training launched K3/K4: {train_counts}")
+    if (train_counts["sorted_segment_sum"]
+            or train_counts["segment_sum"] != EPOCHS * steps):
+        raise AssertionError(f"star training launched K3, or K4 other than "
+                             f"the embedding's gradient: {train_counts}")
     fired = fired_epochs(res.perf_per_epoch)
     want_train = (LAYERS * (EPOCHS * (steps + val_b) + fired * test_b),
                   LAYERS * EPOCHS * steps)
@@ -1497,7 +1854,8 @@ def main() -> int:
     stack_train = counts()
     sfired = fired_epochs(sres.perf_per_epoch)
     stack_train_want = dict({k: 0 for k in stack_train}, egnn_stack=EPOCHS * (
-        steps + val_b) + sfired * test_b, egnn_stack_bwd=EPOCHS * steps)
+        steps + val_b) + sfired * test_b, egnn_stack_bwd=EPOCHS * steps,
+        segment_sum=EPOCHS * steps)     # the embedding's gradient
     log(f"[train] EGNN whole stack fit_regression {EPOCHS} epochs: train_time "
         f"{sres.train_time:.3f} s (per layer, phase 6: {res.train_time:.3f} s), "
         f"test MAE {sres.test:.5f} (per layer {res.test:.5f}), best val MAE "
@@ -1512,15 +1870,47 @@ def main() -> int:
         raise AssertionError(f"stack test MAE {sres.test} is not finite and "
                              "below 0.2")
 
+    # 6g. TFN training, the star configuration's main path
+    tsteps, tval_b, ttest_b = (len(ld) for ld in tfn_loaders)
+    reset_counts()
+    tres = fit_regression(tfn_cuda, None, *tfn_loaders, n_epochs=TFN_EPOCHS,
+                          lr=LR, seed=1, device="cuda")
+    tfn_train = counts()
+    tfired = fired_epochs(tres.perf_per_epoch)
+    tfn_calls = TFN_EPOCHS * (tsteps + tval_b) + tfired * ttest_b
+    tfn_train_want = dict({k: 0 for k in tfn_train},
+                          edge_contract=5 * tfn_layers * tfn_calls,
+                          edge_contract_bwd=5 * tfn_layers * TFN_EPOCHS * tsteps,
+                          segment_sum=tfn_layers * tfn_calls
+                          + TFN_EPOCHS * tsteps)  # and the embedding's
+    log(f"[train] TFN fit_regression {TFN_EPOCHS} epochs (fold [7], lr {LR}): "
+        f"train_time {tres.train_time:.3f} s, test MAE {tres.test:.5f} (the "
+        f"JAX package {TFN_JAX_MAE} +- {TFN_JAX_SD}, the reference "
+        f"{TFN_REF_MAE}), best val MAE {tres.best_val:.5f}; launches "
+        f"{tfn_train} (want K7 {tfn_train_want['edge_contract']} forward, "
+        f"{tfn_train_want['edge_contract_bwd']} backward, K4 "
+        f"{tfn_train_want['segment_sum']}; {tfired} test passes) [{card}]")
+    if tfn_train != tfn_train_want:
+        raise AssertionError(f"TFN training launched {tfn_train}, expected "
+                             f"{tfn_train_want}")
+    if not (np.isfinite(tres.test) and tres.test < TFN_MAE_MAX):
+        raise AssertionError(f"TFN test MAE {tres.test} is not finite and "
+                             f"below {TFN_MAE_MAX}")
+    del tfn_cuda, tfn_pred
+    torch.cuda.empty_cache()
+
     # 6d. GVP training, the main path (dropout on)
     reset_counts()
     gres = fit_regression(gvp_cuda, None, *loaders, n_epochs=GVP_EPOCHS, lr=LR,
                           seed=1, device="cuda")
     gvp_train = counts()
     gfired = fired_epochs(gres.perf_per_epoch)
-    gvp_train_want = dict({k: 0 for k in gvp_train}, gvp_message=GVP_LAYERS * (
-        GVP_EPOCHS * (steps + val_b) + gfired * test_b),
-        gvp_message_bwd=GVP_LAYERS * GVP_EPOCHS * steps)
+    gvp_calls = GVP_EPOCHS * (steps + val_b) + gfired * test_b
+    gvp_train_want = dict({k: 0 for k in gvp_train},
+                          gvp_message=GVP_LAYERS * gvp_calls,
+                          gvp_message_bwd=GVP_LAYERS * GVP_EPOCHS * steps,
+                          # the sum pool, the embedding's gradient
+                          segment_sum=gvp_calls + GVP_EPOCHS * steps)
     epoch_loss = gres.train_losses.mean(axis=1)
     y_train = np.array([np.atleast_1d(g.y)[0] for g in loaders[0].graphs])
     y_test = np.array([np.atleast_1d(g.y)[0] for g in loaders[2].graphs])
@@ -1531,7 +1921,9 @@ def main() -> int:
         f"{gres.best_val:.5f}; mean train loss first / last epoch "
         f"{epoch_loss[0]:.4f} / {epoch_loss[-1]:.4f}; launches {gvp_train} "
         f"(want K5 {gvp_train_want['gvp_message']} forward, "
-        f"{gvp_train_want['gvp_message_bwd']} backward, {gfired} test passes) "
+        f"{gvp_train_want['gvp_message_bwd']} backward, K4 "
+        f"{gvp_train_want['segment_sum']}, "
+        f"{gfired} test passes) "
         f"[{card}]")
     if gvp_train != gvp_train_want:
         raise AssertionError(f"GVP training launched {gvp_train}, expected "
@@ -1588,6 +1980,7 @@ def main() -> int:
         per_step = bench_scale.sorted_launches_per_step(name, cfg["num_layers"])
         want = {k: 0 for k in got}
         want["sorted_segment_sum"] = BOX_STEPS * per_step
+        want["segment_sum"] = 2 * BOX_STEPS   # the pool, the embedding's grad
         step_ms = statistics.median(times[1:]) * 1e3
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         box_runs[name] = {"launches": got, "step_ms": step_ms,
@@ -1598,7 +1991,7 @@ def main() -> int:
             f"steps, median {step_ms:.2f} ms per step after the first "
             f"({box_edges / step_ms * 1e3:.4g} edges/s), peak "
             f"{peak_gb:.3f} GB; losses {losses}; launches {got} (want K3 "
-            f"{per_step} per step) [{card}]")
+            f"{per_step} and K4 2 per step) [{card}]")
         if got != want:
             raise AssertionError(f"{name} launched {got}, expected {want}")
         if not np.isfinite(losses).all():
@@ -1645,7 +2038,8 @@ def main() -> int:
     got = counts()
     per_step = bench_scale.sorted_launches_per_step(
         "gvp_sorted", cfg["num_layers"], cfg.get("remat", False))
-    want = dict({k: 0 for k in got}, sorted_segment_sum=BOX_STEPS * per_step)
+    want = dict({k: 0 for k in got}, sorted_segment_sum=BOX_STEPS * per_step,
+                segment_sum=2 * BOX_STEPS)
     step_ms = statistics.median(times[1:]) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     box_runs["gvp_sorted"] = {"cfg": cfg, "launches": got, "step_ms": step_ms,
@@ -1655,13 +2049,43 @@ def main() -> int:
     log(f"[box] gvp_sorted {cfg} on the {BOX_ATOMS}-atom box: {BOX_STEPS} "
         f"steps, median {step_ms:.2f} ms per step after the first "
         f"({box_edges / step_ms * 1e3:.4g} edges/s), peak {peak_gb:.3f} GB; "
-        f"losses {losses}; launches {got} (want K3 {per_step} per step, no "
-        f"K5) [{card}]")
+        f"losses {losses}; launches {got} (want K3 {per_step} and K4 2 per "
+        f"step, no K5) [{card}]")
     if got != want:
         raise AssertionError(f"gvp_sorted launched {got}, expected {want}")
     if not np.isfinite(losses).all():
         raise AssertionError("gvp_sorted: a loss is not finite")
     del box_model, step_fn
+    torch.cuda.empty_cache()
+
+    # 6h. the plain route's segment sums are K4: two runs of one plain-route
+    # egnn step on the unsorted 10k-atom box give bitwise-equal gradients
+    det_box = bench_scale.box_batch(GVP_BOX_ATOMS, sort=False).to(dev)
+    det_grads = []
+    reset_counts()
+    for _ in range(2):
+        det_model = bench_scale.build("egnn", bench_scale.MODELS["egnn"],
+                                      torch.Generator().manual_seed(0), dev)
+        bench_scale.make_step(det_model, det_box)()
+        det_grads.append({n: p.grad.clone()
+                          for n, p in det_model.named_parameters()
+                          if p.grad is not None})
+    det_counts = counts()
+    det_layers = bench_scale.MODELS["egnn"]["num_layers"]
+    det_want = dict({k: 0 for k in det_counts},
+                    segment_sum=2 * (3 * det_layers + 2))
+    differ = [n for n, g in det_grads[0].items()
+              if not torch.equal(g, det_grads[1][n])]
+    log(f"[repair] plain-route egnn step on the unsorted {GVP_BOX_ATOMS}-atom "
+        f"box, twice: {len(det_grads[0]) - len(differ)} of {len(det_grads[0])} "
+        f"parameter gradients bitwise equal; launches {det_counts} (want K4 "
+        f"{det_want['segment_sum']}: per step 3 per layer, the pool and the "
+        "embedding's gradient)")
+    if differ:
+        raise AssertionError(f"two plain-route box steps differ at {differ}")
+    if det_counts != det_want:
+        raise AssertionError(f"the plain-route box steps launched {det_counts}")
+    del det_box, det_model, det_grads
     torch.cuda.empty_cache()
 
     # 7. summary
@@ -1713,25 +2137,41 @@ def main() -> int:
             "serve_launches": stack_serve[name], **errs, **k6[direction],
             "library_ms": None, "box_10k": k6_times["10k box"][direction]})
     # K3 at the box's receiver plan, D 128 (messages, h gathers); K4 at the
-    # shuffled box, D 128
+    # shuffled box, D 128; its launches are the TFN run's (phase 6g)
     for name, readings, main_shape, replaces, launched in (
             ("sorted_segment_sum", k3, "box rcv plan D128",
              "geometric_message_passing_tpu/ops/pallas_sorted_segsum.py:114",
              sum(r["launches"]["sorted_segment_sum"] for r in box_runs.values())),
             ("segment_sum", k4, "K4 shuffled box D128",
              "geometric_message_passing_tpu/ops/pallas_edge.py:50",
-             sum(r["launches"]["segment_sum"] for r in box_runs.values()))):
+             tfn_train["segment_sum"])):
         top = next(r for r in readings if r["shape"] == main_shape)
         kernels.append({
             "name": name, "ok": True, "route": "cuda",
             "source": "geometric_message_passing_tpu_torch/csrc/sorted_segsum.cu",
-            "replaces": replaces, "launches": launched,
-            "on_main_path": name == "sorted_segment_sum",
+            "replaces": replaces, "launches": launched, "on_main_path": True,
             "max_abs_err": max(r["max_abs_err"] for r in readings),
             **{k: top[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms",
                                    "segment_reduce_ms")},
             "shapes": readings})
+    # K7: one hidden layer's five group launches at the TFN train bucket
+    for name, direction, replaces in (
+            ("edge_contract", "fwd",
+             "geometric_message_passing_tpu/ops/pallas_tp.py:62"),
+            ("edge_contract_bwd", "bwd",
+             "geometric_message_passing_tpu/ops/pallas_tp.py:77")):
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": "geometric_message_passing_tpu_torch/csrc/edge_contract.cu",
+            "replaces": replaces, "launches": tfn_train[name],
+            "serve_launches": tfn_serve[name], "max_abs_err": k7_err,
+            "shape": f"hidden layer, 5 groups, E {tfn_e}",
+            **k7_layer["hidden"][direction],
+            "layer_0": k7_layer["layer 0"][direction],
+            "groups": [dict(r[direction], K=r["K"], m=r["m"], w=r["w"])
+                       for r in k7_groups["hidden"]],
+            "bf16_group": k7_bf16[direction]})
     log(json.dumps({"kernels": kernels, "card": card,
                     "predict_ms": ms, "predict_graphs_per_s": N_GRAPHS / ms * 1e3,
                     "host_batch_ms": host_ms, "train_time_s": res.train_time,
@@ -1749,7 +2189,12 @@ def main() -> int:
                     "stack_train_time_s": sres.train_time,
                     "stack_test_mae": sres.test,
                     "stack_best_val_mae": sres.best_val,
-                    "stack_train_check": stack_check}))
+                    "stack_train_check": stack_check,
+                    "tfn_predict_ms": tfn_ms, "tfn_serve_err": tfn_serve_err,
+                    "tfn_train_time_s": tres.train_time,
+                    "tfn_train_epochs": TFN_EPOCHS, "tfn_test_mae": tres.test,
+                    "tfn_best_val_mae": tres.best_val,
+                    "tfn_train_check": tfn_check}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

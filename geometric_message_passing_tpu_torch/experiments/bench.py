@@ -34,7 +34,7 @@ import torch
 
 from .. import datasets as ds
 from ..graph import GraphLoader, pad_sizes, random_split
-from ..models import EGNNFusedModel, EGNNModel
+from ..models import EGNNFusedModel, EGNNModel, TFNModel
 from .train import fit_regression, seed_everything
 
 BASELINE_TRAIN_TIME_S = 26.0   # the reference implementation's train_time
@@ -49,6 +49,29 @@ def bench_data():
     kw = dict(batch_size=BATCH_SIZE, pad=pad_sizes(data, BATCH_SIZE))
     return data, (GraphLoader(tr, shuffle=True, seed=0, **kw),
                   GraphLoader(va, **kw), GraphLoader(te, **kw))
+
+
+# TFN's star configuration, the reference's (BASELINE.md: 4 layers, 200
+# epochs, lr 5e-4, pool "first", fold [7]) at its published width
+TFN_STAR = dict(num_layers=4, max_ell=3, emb_dim=64, mlp_dim=256,
+                pool="first", gate=True, residual=True, tp_precision="highest")
+
+
+def tfn_data():
+    """TFN's star data: 1400 star graphs with seven spokes (fold [7]),
+    target max angle, seed 0; split 50/20/30 (seed 0), batch 100."""
+    data = ds.create_star_graphs(num=N_DATA, fold=[7], dim=3, target="max",
+                                 seed=0)
+    tr, va, te = random_split(data, [0.5, 0.2, 0.3], seed=0)
+    kw = dict(batch_size=BATCH_SIZE, pad=pad_sizes(data, BATCH_SIZE))
+    return data, (GraphLoader(tr, shuffle=True, seed=0, **kw),
+                  GraphLoader(va, **kw), GraphLoader(te, **kw))
+
+
+def tfn_model(generator: torch.Generator, device="cuda", **kw) -> TFNModel:
+    """``TFNModel`` at ``TFN_STAR`` (entries overridden by ``kw``)."""
+    return TFNModel(**dict(TFN_STAR, **kw), in_dim=1, out_dim=1,
+                    generator=generator, device=device)
 
 
 def bench_model(generator: torch.Generator, device="cuda",

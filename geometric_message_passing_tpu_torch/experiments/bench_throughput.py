@@ -6,9 +6,11 @@
 
 Models and depths are the JAX script's ``MODELS`` table; the port builds
 ``schnet``, ``egnn``, ``egnn_fused`` (per-layer kernels K1/K2), ``egnn_stack``
-(``EGNNFusedModel(fuse_stack=True)``, the whole-stack kernel K6) and ``gvp``,
-and runs them all by default.  ``tfn``, ``mace``, ``dimenet`` and
-``spherenet`` are not ported yet: naming one raises.
+(``EGNNFusedModel(fuse_stack=True)``, the whole-stack kernel K6), ``gvp`` and
+``tfn`` (4 layers, max_ell 3 at its default widths: the per-edge CG
+contraction kernel K7 and the segment sum K4), and runs them all by default.
+``mace``, ``dimenet`` and ``spherenet`` are not ported yet: naming one
+raises.
 
 Data: 100 star graphs (fold 5/6/7, target max angle, seed 0) as one padded
 batch of 100 on the card.  Model: the registry's defaults at ``out_dim`` 1
@@ -55,7 +57,7 @@ MODELS = {
     "dimenet": dict(num_layers=4),
     "spherenet": dict(num_layers=2),
 }
-PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp")
+PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp", "tfn")
 STEPS, REPS, WARM, LR = 100, 3, 2, 5e-4
 
 

@@ -2,12 +2,14 @@
 CUDA card.
 
     python -m geometric_message_passing_tpu_torch.experiments.profile_train \
-        [--fuse-stack]
+        [--fuse-stack | --tfn]
 
 Trains the bench configuration (EGNN 4 layers x 128, pool "first", 1400
 star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``;
 ``--fuse-stack`` runs its whole-stack strategy, K6, in place of the
-per-layer kernels K1/K2) through ``fit_regression`` for a few warm epochs,
+per-layer kernels K1/K2; ``--tfn`` trains TFN's star configuration instead,
+``bench.TFN_STAR`` on ``bench.tfn_data``) through ``fit_regression`` for a
+few warm epochs,
 then traces one more epoch (7 train steps, the validation pass and, since
 its best-val rule fires on a first epoch, the test pass) with
 ``torch.profiler`` and prints:
@@ -15,9 +17,10 @@ its best-val rule fires on a first epoch, the test pass) with
     epoch's wall time (host clock, profiler overhead included), device busy
     time and the device's idle share of each;
   * device time and launch counts by group: K6 (the whole stack), K1 (the
-    message kernel), K2 (its backward), the CSR build (sort, searchsorted),
-    matrix products outside the kernels (update MLP, readout), the Adam
-    update and the rest;
+    message kernel), K2 (its backward), K7 (TFN's CG contraction, both
+    directions), K3/K4 (the segment sums), the CSR build (sort,
+    searchsorted), matrix products outside the kernels (update MLP, TFN's
+    edge-weight heads, readout), the Adam update and the rest;
   * the top kernels by device time, with launch counts;
   * one train step on the first train batch (``train_step``): the mean
     wall time of 20 untraced steps, each ending in a synchronise, and the
@@ -39,7 +42,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..graph import build_slot_data
-from .bench import BATCH_SIZE, LR, bench_data, bench_model, card_line
+from .bench import (BATCH_SIZE, LR, bench_data, bench_model, card_line,
+                    tfn_data, tfn_model)
 from .train import fit_regression, make_tx, seed_everything, train_step
 
 # kernel-name fragments of each group, checked in this order
@@ -47,6 +51,8 @@ GROUPS = (
     ("K6 egnn_stack", ("egnn_stack_",)),
     ("K1 egnn_message", ("egnn_edge_kernel", "egnn_reduce_kernel")),
     ("K2 egnn_message_bwd", ("egnn_bwd_",)),
+    ("K7 edge_contract", ("contract_fwd", "contract_bwd")),
+    ("K3/K4 segment sum", ("segsum_",)),
     ("CSR build", ("radixSort", "RadixSort", "searchsorted", "sort")),
     ("matmul outside kernels", ("gemm", "Gemm", "cutlass", "sm90_xmma")),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
@@ -105,14 +111,21 @@ def step_reading(model, loaders, steps: int = 20, traced: int = 5) -> dict:
 
 def main(argv=None, warm_epochs: int = 3) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--fuse-stack", action="store_true",
-                    help="the whole-stack strategy (K6)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--fuse-stack", action="store_true",
+                       help="the whole-stack strategy (K6)")
+    which.add_argument("--tfn", action="store_true",
+                       help="TFN's star configuration (K7)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, loaders = bench_data()
-    model = bench_model(seed_everything(0), fuse_stack=args.fuse_stack)
+    if args.tfn:
+        _, loaders = tfn_data()
+        model = tfn_model(seed_everything(0))
+    else:
+        _, loaders = bench_data()
+        model = bench_model(seed_everything(0), fuse_stack=args.fuse_stack)
     fit = dict(lr=LR, seed=1, device="cuda")
     warm = fit_regression(model, None, *loaders, n_epochs=warm_epochs, **fit)
     model.load_state_dict(warm.variables)
@@ -145,7 +158,7 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
           f"device {step['device_ms']:.3f} ms, idle share "
           f"{step['idle_share']:.3f}, {step['device_events']:.0f} device events")
     res = {
-        "card": card_line(), "fuse_stack": args.fuse_stack,
+        "card": card_line(), "fuse_stack": args.fuse_stack, "tfn": args.tfn,
         "epoch_ms_untraced": epoch_ms,
         "idle_share_untraced": 1 - device_ms / epoch_ms,
         "traced_wall_ms": traced_wall_ms, "device_ms": device_ms,

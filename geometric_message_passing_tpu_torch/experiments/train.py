@@ -115,6 +115,19 @@ class FitResult:
         default_factory=lambda: np.zeros((0, 0), np.float32))
 
 
+def reseed_dropout(model: torch.nn.Module, seed: int) -> None:
+    """Reseed every dropout generator of ``model`` (GVP-GNN's
+    ``_dropout_rng``) from ``seed``, as the JAX engine derives its dropout
+    stream from the fit's seed: a seed other than the shuffle's, drawn from
+    ``numpy.random.SeedSequence([seed, 1])``."""
+    derived = int(np.random.SeedSequence([seed, 1]).generate_state(
+        1, np.uint64)[0] >> np.uint64(2))
+    for module in model.modules():
+        rng = getattr(module, "_dropout_rng", None)
+        if rng is not None:
+            rng.reseed(derived)
+
+
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                slot: SlotData, idx_row: torch.Tensor) -> torch.Tensor:
     """One optimizer step on the batch of graphs ``idx_row``; returns the
@@ -182,6 +195,7 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     test_plan = torch.from_numpy(eval_slot_indices(slot_test.num_graphs, b)).to(dev)
     pad_row = torch.full((steps * b - m,), m, dtype=torch.long, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    reseed_dropout(model, seed)
 
     opt = make_tx(model.parameters(), lr)
     sched = plateau_init(lr)

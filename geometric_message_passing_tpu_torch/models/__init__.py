@@ -4,10 +4,12 @@ from .egnn import EGNNLayer, EGNNModel  # noqa: F401
 from .egnn_fused import EGNNFusedModel, FusedEGNNLayer  # noqa: F401
 from .gvpgnn import GVPConv, GVPConvLayer, GVPGNNModel  # noqa: F401
 from .schnet import SchNetInteraction, SchNetModel  # noqa: F401
+from .tfn import TFNModel  # noqa: F401
 
 model_registry = {
     "schnet": SchNetModel,
     "egnn": EGNNModel,
     "egnn_fused": EGNNFusedModel,
     "gvp": GVPGNNModel,
+    "tfn": TFNModel,
 }

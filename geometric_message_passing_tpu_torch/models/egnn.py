@@ -23,7 +23,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphBatch
-from ..nn.basic import MLP, linear
+from ..nn.basic import MLP, Embedding, linear
 from ..ops.norms import safe_norm
 from ..ops.scatter import segment_max, segment_mean, segment_sum
 from ..ops.sorted_segsum import SegmentPlan, sorted_gather, sorted_segment_sum
@@ -116,7 +116,7 @@ class EGNNModel(nn.Module):
         self.num_layers, self.emb_dim = num_layers, emb_dim
         self.pool, self.residual = pool, residual
         self.equivariant_pred = equivariant_pred
-        self.emb_in = nn.Embedding(in_dim, emb_dim)
+        self.emb_in = Embedding(in_dim, emb_dim)
         with torch.no_grad():
             self.emb_in.weight.normal_(0.0, 1.0, generator=generator)
         self.convs = nn.ModuleList(

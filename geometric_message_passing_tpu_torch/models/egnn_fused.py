@@ -25,7 +25,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphBatch
-from ..nn.basic import linear, torch_linear_init_
+from ..nn.basic import Embedding, linear, torch_linear_init_
 from ..ops.edge import egnn_message, layernorm, pack_egnn_weights
 from ..ops.egnn_stack import egnn_stack
 from .pooling import POOL
@@ -136,7 +136,7 @@ class EGNNFusedModel(nn.Module):
         self.pool, self.residual = pool, residual
         self.equivariant_pred, self.fuse_stack = equivariant_pred, fuse_stack
 
-        self.emb_in = nn.Embedding(in_dim, emb_dim)
+        self.emb_in = Embedding(in_dim, emb_dim)
         with torch.no_grad():
             self.emb_in.weight.normal_(0.0, 1.0, generator=generator)
         self.convs = nn.ModuleList(

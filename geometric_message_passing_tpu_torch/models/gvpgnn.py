@@ -19,7 +19,8 @@ Other activations or gates run a chain of ``nn.gvp.GVP`` modules
 
 Training mode (``module.train()``) is the JAX package's ``train=True``: the
 layers' ``GVPDropout`` is on, drawing from the model's own generator on the
-batch's device, seeded from the generator that drew the initial weights.
+batch's device, seeded from the generator that drew the initial weights and
+reseeded by ``fit_regression`` from its ``seed``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..graph import GraphBatch
 from ..nn import gvp
-from ..nn.basic import linear, torch_linear_init_
+from ..nn.basic import Embedding, linear, torch_linear_init_
 from ..ops.gvp_message import gvp_message, gvp_message_plain
 from ..ops.norms import safe_norm
 from ..ops.radial import radial_embedding
@@ -44,11 +45,17 @@ from .pooling import POOL
 
 class _DropoutRNG:
     """One dropout generator per device, seeded with ``seed``.  A deep copy
-    (``fit_regression`` trains one) starts again from the seed."""
+    (``fit_regression`` trains one) starts again from the seed;
+    ``fit_resident`` calls ``reseed`` with a seed drawn from its own, so the
+    masks follow the fit's seed, as the JAX package's dropout stream does."""
 
     def __init__(self, seed: int):
         self.seed = seed
         self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def reseed(self, seed: int) -> None:
+        self.seed = seed
+        self._gens.clear()
 
     def __call__(self, device: torch.device) -> torch.Generator:
         gen = self._gens.get(device)
@@ -271,7 +278,7 @@ class GVPGNNModel(nn.Module):
             0, 2**62, (), generator=generator)))
         node_dims, edge_dims = (s_dim, v_dim), (s_dim_edge, v_dim_edge)
 
-        self.emb_in = nn.Embedding(in_dim, s_dim)
+        self.emb_in = Embedding(in_dim, s_dim)
         with torch.no_grad():
             self.emb_in.weight.normal_(0.0, 1.0, generator=generator)
         self.layer_norm_0 = nn.LayerNorm(s_dim, eps=1e-5)

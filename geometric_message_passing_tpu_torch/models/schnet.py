@@ -25,6 +25,7 @@ from torch.nn import functional as F
 
 from .. import resolve_device
 from ..graph import GraphBatch
+from ..nn.basic import Embedding
 from ..ops.norms import safe_norm
 from ..ops.radial import gaussian_smearing
 from ..ops.scatter import segment_sum
@@ -104,7 +105,7 @@ class SchNetModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cutoff, self.num_gaussians, self.pool = cutoff, num_gaussians, pool
-        self.embedding = nn.Embedding(100, hidden_channels)
+        self.embedding = Embedding(100, hidden_channels)
         with torch.no_grad():
             self.embedding.weight.normal_(0.0, 1.0, generator=generator)
         self.interactions = nn.ModuleList(

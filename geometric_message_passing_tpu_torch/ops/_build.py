@@ -43,7 +43,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                          P, P, P, P, P, P, P, P, I, I, I, I, P],
     },
     "sorted_segsum": {
-        "gmp_sorted_segsum": [I, P, P, P, P, I, I, P],
+        # data, perm, rowptr, out, N, D, G, scratch, stream
+        "gmp_sorted_segsum": [I, P, P, P, P, I, I, I, P, P],
+        "gmp_sorted_segsum_f64": [I, P, P, P, P, I, I, I, P, P],
     },
     "gvp_message": {
         # features (8), weights, dims, 7 ints, CSR (2), scratch, outputs (5)
@@ -67,6 +69,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # indices, features, weights, cotangents (2), CSRs (4), scratch and
         # outputs (18), barrier, N, E, D, L, split, stream
         "gmp_egnn_stack_bwd": [I, P, P, I, *[P] * 10, *[P] * 19, *[I] * 5, P],
+    },
+    "edge_contract": {
+        # T, W, out, E, K, m, w, stream
+        "gmp_contract_fwd": [I, P, P, P, I, I, I, I, P],
+        "gmp_contract_fwd_bf16": [I, P, P, P, I, I, I, I, P],
+        # T, W, dO, dT, dW, E, K, m, w, stream
+        "gmp_contract_bwd": [I, P, P, P, P, P, I, I, I, I, P],
+        "gmp_contract_bwd_bf16": [I, P, P, P, P, P, I, I, I, I, P],
     },
 }
 

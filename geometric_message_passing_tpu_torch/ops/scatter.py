@@ -1,10 +1,17 @@
 """Masked segment reductions (port of ``ops/scatter.py``).
 
 Pad rows contribute zero; an empty segment gives 0 for sum, mean and max
-(torch_scatter semantics).  These are plain PyTorch: on CUDA ``index_add_``
-sums with atomics, so the order of a sum may vary from run to run there.
-The deterministic reductions of the hot paths are the EGNN message kernel's
-(``ops/edge.py``) and the sorted segment sum's (``ops/sorted_segsum.py``).
+(torch_scatter semantics).
+
+``segment_sum`` (and ``segment_mean``, whose sum and count are two segment
+sums) is deterministic on both devices: a CUDA tensor goes to the
+hand-written CSR segment sum (``ops.sorted_segsum.segment_sum``, K4), which
+adds each segment's rows in ascending row order without atomics, so two runs
+give bitwise-equal sums; a CPU tensor takes ``segment_sum_plain``, the
+masked ``index_add_``.  Data of more than two dimensions is summed as
+``[E, prod(rest)]`` rows and reshaped back.  ``segment_max`` stays plain
+PyTorch on both devices (``scatter_reduce`` with ``amax`` is
+order-independent).
 """
 
 from __future__ import annotations
@@ -18,14 +25,31 @@ def _bcast(mask: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (data.ndim - mask.ndim))
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum ``data`` rows into ``num_segments`` buckets; ``mask`` zeroes rows."""
+def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version: the masked ``index_add_`` of ``data`` rows into
+    ``num_segments`` buckets (on CUDA its order of addition is not fixed)."""
     if mask is not None:
         data = torch.where(_bcast(mask, data), data, torch.zeros_like(data))
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum ``data`` rows into ``num_segments`` buckets; ``mask`` zeroes rows.
+    On the card: K4, one launch (ids outside ``[0, num_segments)`` are
+    dropped there); on the CPU: ``segment_sum_plain``."""
+    if data.device.type == "cpu":
+        return segment_sum_plain(data, segment_ids, num_segments, mask)
+    from .sorted_segsum import segment_sum as csr_segment_sum
+
+    rest = tuple(data.shape[1:])
+    rows = data.reshape(data.shape[0], -1) if len(rest) != 1 else data
+    out = csr_segment_sum(rows, segment_ids, num_segments, mask)
+    return out.reshape((num_segments,) + rest)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

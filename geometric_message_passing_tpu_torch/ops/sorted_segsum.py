@@ -3,8 +3,9 @@
 ids (port of ``ops/pallas_edge.py::segment_sum_pallas``).
 
 Both reduce through one hand-written CUDA kernel, ``csrc/sorted_segsum.cu``:
-``out[s] = sum of data[perm[k]] for k in rowptr[s]:rowptr[s+1]``, in
-ascending k, exact f32, without atomics.
+``out[s] = sum of data[perm[k]] for k in rowptr[s]:rowptr[s+1]``, in a
+fixed order, in the data's type (f32, or f64 for the float64 reference
+runs on the card), without atomics.
 
 * ``build_segment_plan`` makes that CSR on the host, once per graph: a
   stable sort of the masked-in edges by segment id (masked-off edges sort
@@ -18,7 +19,9 @@ ascending k, exact f32, without atomics.
   counts their K3 launches.
 * ``segment_sum`` (K4) builds the CSR of unsorted ids on the device
   (``ops.edge.receiver_csr``) and launches the same kernel;
-  ``segment_sum.launches`` counts it.
+  ``segment_sum.launches`` counts it.  ``ops.scatter.segment_sum`` (every
+  plain-route message sum, ``segment_mean`` and the sum/mean pools) sends
+  its CUDA tensors here.
 
 Tensors on the CPU take the plain version of the kernel,
 ``sorted_segment_sum_plain``: the masked ``index_add_`` sum of
@@ -35,7 +38,7 @@ import torch
 
 from . import _build
 from .edge import receiver_csr
-from .scatter import segment_sum as sorted_segment_sum_plain
+from .scatter import segment_sum_plain as sorted_segment_sum_plain
 
 
 class SegmentPlan(NamedTuple):
@@ -84,8 +87,9 @@ def batch_seg_plans(batch) -> Dict[str, SegmentPlan]:
 
 def _check_cuda(data: torch.Tensor, rowptr: torch.Tensor,
                 perm: Optional[torch.Tensor], what: str) -> None:
-    if data.dtype != torch.float32:
-        raise ValueError(f"{what}: data must be float32, got {data.dtype}")
+    if data.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: data must be float32 or float64, got "
+                         f"{data.dtype}")
     if data.ndim != 2:
         raise ValueError(f"{what}: data must be [E, D], got {tuple(data.shape)}")
     for name, t in (("rowptr", rowptr), ("perm", perm)):
@@ -103,19 +107,42 @@ def _check_cuda(data: torch.Tensor, rowptr: torch.Tensor,
         raise ValueError(f"{what}: E and N must be below 2**31")
 
 
+LONG_ROWS = 1024        # rows per segment from which segments are chunked
+CHUNK_BLOCKS = 264      # blocks the chunked path aims for (2 per SM)
+MAX_CHUNKS = 64
+
+
+def segment_chunks(rows: int, n: int) -> int:
+    """Chunks per segment for ``rows`` rows in ``n`` segments: 0 (a warp or
+    a thread per segment) unless the segments are few and long (``rows >=
+    LONG_ROWS * n``: a pool of a whole box), then enough for ``n`` x chunks
+    blocks to fill the card."""
+    if n == 0 or rows < LONG_ROWS * n:
+        return 0
+    return max(1, min(MAX_CHUNKS, -(-CHUNK_BLOCKS // n)))
+
+
 def launch_csr_segsum(data: torch.Tensor, perm: Optional[torch.Tensor],
                       rowptr: torch.Tensor, out: torch.Tensor) -> None:
     """Launch the kernel on the current stream into ``out`` ``[N, D]``
-    (``perm`` None: rows in place).  No checks and no count: the wrappers
-    below and the timing code call it."""
+    (``perm`` None: rows in place), with the scratch of the chunked path
+    when the segments are few and long.  No checks and no count: the
+    wrappers below and the timing code call it."""
     lib = _build.load("sorted_segsum")
     n, d = out.shape
+    chunks = segment_chunks(data.shape[0], n)
+    scratch = (torch.empty((n, chunks, d), dtype=data.dtype, device=data.device)
+               if chunks else None)
     dev = data.device.index if data.device.index is not None else \
         torch.cuda.current_device()
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    _build.check(lib, lib.gmp_sorted_segsum(
+    fn = (lib.gmp_sorted_segsum if data.dtype == torch.float32
+          else lib.gmp_sorted_segsum_f64)
+    _build.check(lib, fn(
         dev, data.data_ptr(), None if perm is None else perm.data_ptr(),
-        rowptr.data_ptr(), out.data_ptr(), n, d, stream), "sorted segment sum")
+        rowptr.data_ptr(), out.data_ptr(), n, d, chunks,
+        None if scratch is None else scratch.data_ptr(), stream),
+        "sorted segment sum")
 
 
 def _sorted_segsum_cuda(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:

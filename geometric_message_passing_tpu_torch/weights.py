@@ -147,3 +147,36 @@ def gvp_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if flax_name in params:
             _dense(sd, torch_name, params[flax_name])
     return sd
+
+
+def tfn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.tfn.TFNModel`` from the variables of the JAX
+    ``TFNModel``: ``params/emb_in/embedding``, ``params/conv_i/fc/Dense_0``,
+    ``params/conv_i/fc_out{g}``, ``params/conv_i/_bn/{weight,bias}{k}`` and
+    ``batch_stats/conv_i/_bn/{mean,var}{k}`` (with ``batch_norm``), and
+    ``params/Dense_0``, ``params/Dense_1`` (or ``params/pred``).
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("conv_"))
+    for i in range(n_layers):
+        conv = params[f"conv_{i}"]
+        prefix = f"convs.{i}"
+        for name, value in conv.items():
+            if name == "fc":
+                _mlp(sd, f"{prefix}.fc", value)
+            elif name.startswith("fc_out"):
+                _dense(sd, f"{prefix}.fc_out.{name[len('fc_out'):]}", value)
+            elif name == "_bn":
+                for key, leaf in value.items():
+                    sd[f"{prefix}.bn.{key}"] = _t(leaf)
+            else:
+                raise ValueError(f"unexpected entry conv_{i}/{name}")
+        for key, leaf in stats.get(f"conv_{i}", {}).get("_bn", {}).items():
+            sd[f"{prefix}.bn.{key}"] = _t(leaf)
+    for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
+                                  ("pred", "pred")):
+        if flax_name in params:
+            _dense(sd, torch_name, params[flax_name])
+    return sd

@@ -12,10 +12,14 @@ import pytest
 import torch
 
 from geometric_message_passing_tpu_torch import datasets, graph
-from geometric_message_passing_tpu_torch.experiments import bench_scale, train
+from geometric_message_passing_tpu_torch.experiments import (
+    bench_scale, bench_throughput, train)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
-from geometric_message_passing_tpu_torch.models import EGNNFusedModel, GVPGNNModel
+from geometric_message_passing_tpu_torch.models import (EGNNFusedModel,
+                                                        GVPGNNModel, TFNModel)
 from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import edge_contract as ec
+from geometric_message_passing_tpu_torch.ops import scatter
 from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
@@ -602,3 +606,192 @@ def test_two_stack_train_steps_on_card_match_cpu(cuda_device):
     for key, value in results["cpu"][3].items():
         torch.testing.assert_close(results["cuda"][3][key], value,
                                    atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The deterministic segment sums (ops/scatter.segment_sum -> K4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((3000, 64), torch.float32),
+                                         ((3000, 16, 3), torch.float32),
+                                         ((3000,), torch.float32),
+                                         ((3000, 5), torch.float64),
+                                         ((200_000, 160), torch.float32)])
+def test_scatter_segment_sum_launches_k4(cuda_device, shape, dtype):
+    """Any width, 1-3 dimensions, f32 or f64; the last case is one long
+    segment per few rows (a pool of a box into 3 graphs: the block path)."""
+    rng = np.random.default_rng(0)
+    n = 3 if shape[0] > 100_000 else 700
+    data = torch.from_numpy(rng.standard_normal(shape)).to(cuda_device, dtype)
+    seg = torch.from_numpy(rng.integers(0, n, shape[0])).to(cuda_device)
+    mask = torch.from_numpy(rng.random(shape[0]) > 0.1).to(cuda_device)
+    before = sss.segment_sum.launches
+    got = scatter.segment_sum(data, seg, n, mask)
+    again = scatter.segment_sum(data, seg, n, mask)
+    want = scatter.segment_sum_plain(data, seg, n, mask)
+    assert sss.segment_sum.launches == before + 2
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, again)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    if shape[0] > 100_000:
+        # 1e5-row f32 sums lie ~1e-2 from the exact one in any order: hold
+        # both to a float64 sum
+        exact = scatter.segment_sum_plain(data.double(), seg, n, mask)
+        d_k = (got.double() - exact).abs().max().item()
+        d_p = (want.double() - exact).abs().max().item()
+        assert d_k <= 2 * d_p + tol * exact.abs().max().item()
+    else:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    mean = scatter.segment_mean(data, seg, n, mask)
+    assert sss.segment_sum.launches == before + 4
+    torch.testing.assert_close(
+        mean.cpu(), scatter.segment_mean(data.cpu(), seg.cpu(), n, mask.cpu()),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_plain_route_box_step_is_bitwise_repeatable(cuda_device):
+    """Two runs of one plain-route egnn step (its message, position and
+    pool sums and its embedding's gradient through K4) on the 10k-atom box
+    give bitwise-equal gradients."""
+    batch = bench_scale.box_batch(10_000, sort=False).to(cuda_device)
+    grads = []
+    before = sss.segment_sum.launches
+    for _ in range(2):
+        model = bench_scale.build("egnn", dict(num_layers=4, emb_dim=128),
+                                  torch.Generator().manual_seed(0), cuda_device)
+        bench_scale.make_step(model, batch)()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    # per step: 4 layers x (message sum + the position mean's two sums), the
+    # pool and the embedding's gradient
+    assert sss.segment_sum.launches - before == 2 * (4 * 3 + 2)
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
+
+
+# ---------------------------------------------------------------------------
+# The per-edge CG contraction (K7 forward and backward)
+# ---------------------------------------------------------------------------
+
+K7_SHAPES = [(70, 96, 16, 7, torch.float32), (64, 32, 8, 1, torch.float32),
+             (33, 64, 16, 5, torch.bfloat16),
+             (1400, 448, 64, 5, torch.float32),       # TFN hidden group
+             (1400, 256, 192, 1, torch.float32),      # the gates
+             (1400, 64, 192, 1, torch.bfloat16),      # layer 0's gates
+             (20, 40, 300, 15, torch.float32)]        # w > 256, m = 15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,w,m,wdtype", K7_SHAPES)
+def test_edge_contract_kernels_match_plain(cuda_device, E, K, w, m, wdtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(E + K)
+    T = torch.randn((E, K, m), generator=gen, device=cuda_device)
+    W = torch.randn((E, K, w), generator=gen, device=cuda_device).to(wdtype)
+    dO = torch.randn((E, w, m), generator=gen, device=cuda_device)
+    tol = 2e-5 if wdtype == torch.float32 else 3e-2
+    before = (ec.edge_weighted_contract.launches,
+              ec.edge_weighted_contract.bwd_launches)
+    with torch.no_grad():
+        got, again = (ec.edge_weighted_contract(T, W) for _ in range(2))
+    (dT, dW), (dT2, dW2) = (ec.edge_weighted_contract_bwd(T, W, dO)
+                            for _ in range(2))
+    want = ec.edge_weighted_contract_plain(T, W)
+    wdT, wdW = ec.edge_weighted_contract_bwd_plain(T, W, dO)
+    assert (ec.edge_weighted_contract.launches,
+            ec.edge_weighted_contract.bwd_launches) == (before[0] + 2,
+                                                        before[1] + 2)
+    assert torch.equal(got, again) and torch.equal(dT, dT2) and \
+        torch.equal(dW, dW2)
+    assert dW.dtype == wdtype and dT.dtype == torch.float32
+    for g, r in ((got, want), (dT, wdT), (dW.float(), wdW.float())):
+        scale = max(r.abs().max().item(), 1.0)
+        torch.testing.assert_close(g, r, atol=tol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_edge_contract_autograd_launches_bwd_kernel(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    T = torch.randn((50, 64, 3), generator=gen, device=cuda_device,
+                    requires_grad=True)
+    W = torch.randn((50, 64, 32), generator=gen, device=cuda_device,
+                    requires_grad=True)
+    before = (ec.edge_weighted_contract.launches,
+              ec.edge_weighted_contract.bwd_launches)
+    (ec.edge_weighted_contract(T, W) ** 2).sum().backward()
+    assert (ec.edge_weighted_contract.launches,
+            ec.edge_weighted_contract.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    Tc, Wc = (t.detach().cpu().requires_grad_(True) for t in (T, W))
+    (ec.edge_weighted_contract(Tc, Wc) ** 2).sum().backward()
+    torch.testing.assert_close(T.grad.cpu(), Tc.grad, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(W.grad.cpu(), Wc.grad, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_edge_contract_kernel_raises_on_bad_input(cuda_device):
+    T = torch.zeros((4, 6, 4), device=cuda_device)
+    W = torch.zeros((4, 6, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="odd"):
+        ec.edge_weighted_contract(T, W)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ec.edge_weighted_contract(T[..., :3], W.half())
+
+
+@pytest.mark.cuda
+def test_two_tfn_train_steps_on_card_match_cpu(cuda_device):
+    """A narrow TFN (2 layers, emb_dim 8, max_ell 3, batch norm): the first
+    step's gradients and two Adam steps' losses on the card (K7 both ways,
+    K4) against the CPU's plain path.  Parameters after the two steps within
+    2 lr: Adam's normalised step turns f32 rounding of a near-zero gradient
+    into up to lr per step."""
+    graphs = datasets.create_star_graphs(num=12, fold=(5, 6, 7), seed=0)
+    host = graph.batch_graphs(graphs, *graph.pad_sizes(graphs, 12))
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        batch = host.to(dev)
+        model = TFNModel(num_layers=2, emb_dim=8, max_ell=3, mlp_dim=32,
+                         batch_norm=True, device=dev,
+                         generator=torch.Generator().manual_seed(1))
+        step = bench_throughput.make_step(model, batch)
+        before = (ec.edge_weighted_contract.launches,
+                  ec.edge_weighted_contract.bwd_launches,
+                  sss.segment_sum.launches)
+        losses = [step().item()]
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        losses.append(step().item())
+        launched = (ec.edge_weighted_contract.launches - before[0],
+                    ec.edge_weighted_contract.bwd_launches - before[1],
+                    sss.segment_sum.launches - before[2])
+        results[dev.type] = (losses, launched, grads, {
+            k: v.cpu() for k, v in model.state_dict().items()})
+    # K4: 2 message sums and the embedding's gradient per step
+    assert results["cuda"][1] == (2 * 2 * 5, 2 * 2 * 5, 2 * 3)
+    assert results["cpu"][1] == (0, 0, 0)
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
+    for name, ref in results["cpu"][2].items():
+        torch.testing.assert_close(results["cuda"][2][name], ref, rtol=0,
+                                   atol=1e-4 * max(ref.abs().max().item(), 1))
+    for key, value in results["cpu"][3].items():
+        torch.testing.assert_close(results["cuda"][3][key], value, rtol=1e-4,
+                                   atol=2 * bench_throughput.LR)
+
+
+@pytest.mark.cuda
+def test_tfn_predictor_on_card_matches_cpu(cuda_device):
+    graphs = datasets.create_star_graphs(num=30, fold=(5, 6, 7), seed=1)
+    kw = dict(num_layers=2, emb_dim=16, max_ell=3,
+              generator=torch.Generator().manual_seed(2))
+    model = TFNModel(**kw, device=cuda_device)
+    cpu = TFNModel(**kw, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    before = (ec.edge_weighted_contract.launches,
+              ec.edge_weighted_contract.bwd_launches)
+    y = Predictor(model, batch_size=10).predict(graphs)
+    assert (ec.edge_weighted_contract.launches - before[0],
+            ec.edge_weighted_contract.bwd_launches - before[1]) == (3 * 2 * 5, 0)
+    np.testing.assert_allclose(
+        y, Predictor(cpu, batch_size=10, device="cpu").predict(graphs),
+        atol=1e-4, rtol=0)

@@ -19,6 +19,7 @@ from geometric_message_passing_tpu.models import gvpgnn as jgvpgnn
 from geometric_message_passing_tpu_torch import datasets as tds
 from geometric_message_passing_tpu_torch import graph as tgraph
 from geometric_message_passing_tpu_torch.experiments import bench_scale
+from geometric_message_passing_tpu_torch.experiments import train as ttrain
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.models import gvpgnn
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
@@ -334,3 +335,53 @@ def test_bench_scale_config_rule():
                                                              remat=True)
     assert bench_scale.config("egnn_sorted", 100_000) == \
         bench_scale.MODELS["egnn_sorted"]
+
+
+def test_dropout_follows_the_fit_seed():
+    """fit_regression reseeds the model's dropout generator from its seed:
+    from the same weights and the same epoch order, two seeds give different
+    per-step losses (dropout on) and one seed gives the same losses twice."""
+    graphs = _graphs(num=12, seed=5, in_dim=1)
+    split = tgraph.random_split(graphs, [0.5, 0.25, 0.25], seed=0)
+    pad = tgraph.pad_sizes(graphs, 3)
+    loaders = (tgraph.GraphLoader(split[0], 3, shuffle=True, seed=0, pad=pad),
+               tgraph.GraphLoader(split[1], 3, pad=pad),
+               tgraph.GraphLoader(split[2], 3, pad=pad))
+    model = gvpgnn.GVPGNNModel(**dict(KW, in_dim=1, out_dim=1), device="cpu")
+    order = torch.arange(len(split[0]))
+    runs = {seed: ttrain.fit_regression(
+        model, None, *loaders, n_epochs=2, lr=1e-3, seed=seed, device="cpu",
+        epoch_order=lambda e: order).train_losses for seed in (0, 1)}
+    again = ttrain.fit_regression(model, None, *loaders, n_epochs=2, lr=1e-3,
+                                  seed=0, device="cpu",
+                                  epoch_order=lambda e: order).train_losses
+    assert not np.array_equal(runs[0], runs[1])
+    assert np.array_equal(runs[0], again)
+    assert runs[0].shape == (2, len(loaders[0]))
+
+
+def test_drift_trial_runs_one_op_class_in_float32():
+    """experiments/trial_gvp_drift: a float64 model with one op class in
+    float32 (and a float32 model with one in float64) lies as far from the
+    float64 step as float32 rounding, and the modules' own forward comes
+    back afterwards."""
+    from geometric_message_passing_tpu_torch.experiments import (
+        trial_gvp_drift as drift)
+
+    graphs = _graphs(num=6, seed=2, in_dim=1)
+    model = gvpgnn.GVPGNNModel(**dict(KW, in_dim=1, out_dim=1), device="cpu")
+    row = torch.arange(4)
+    exact = drift.one_step(model, graphs, row, "cpu", torch.float64)
+    again = drift.one_step(model, graphs, row, "cpu", torch.float64)
+    assert drift.grad_error(again, exact)[0] == 0.0
+    f32 = drift.grad_error(drift.one_step(model, graphs, row, "cpu",
+                                          torch.float32), exact)[0]
+    for op_class in drift.CLASSES:
+        chosen = drift.select(model, op_class)
+        assert chosen and all("forward" not in vars(m) for m in chosen)
+        err, _ = drift.grad_error(drift.one_step(
+            model, graphs, row, "cpu", torch.float64, op_class), exact)
+        assert 0.0 < err < 1e-4, op_class
+        err, _ = drift.grad_error(drift.one_step(
+            model, graphs, row, "cpu", torch.float32, op_class), exact)
+        assert 0.0 < err < 1e-4 and err != f32, op_class

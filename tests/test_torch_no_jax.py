@@ -53,7 +53,16 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments.trial_gvp",
                    "geometric_message_passing_tpu_torch.experiments.profile_box",
                    "geometric_message_passing_tpu_torch.ops.egnn_stack",
-                   "geometric_message_passing_tpu_torch.experiments.bench_throughput"):
+                   "geometric_message_passing_tpu_torch.experiments.bench_throughput",
+                   "geometric_message_passing_tpu_torch.irreps",
+                   "geometric_message_passing_tpu_torch.ops.spherical",
+                   "geometric_message_passing_tpu_torch.ops.scatter",
+                   "geometric_message_passing_tpu_torch.ops.edge_contract",
+                   "geometric_message_passing_tpu_torch.nn.equivariant",
+                   "geometric_message_passing_tpu_torch.nn.tensor_product",
+                   "geometric_message_passing_tpu_torch.nn.conv",
+                   "geometric_message_passing_tpu_torch.models.tfn",
+                   "geometric_message_passing_tpu_torch.experiments.trial_gvp_drift"):
         assert module in res["imported"]
 
 

@@ -174,3 +174,14 @@ def test_cpu_launches_no_kernel():
                       torch.from_numpy(mask)).sum().backward()
     sss.sorted_segment_sum(*_t(data), plan, *_t(seg, mask))
     assert sss.sorted_segment_sum.launches == before
+
+
+def test_long_segments_take_the_chunked_path():
+    """The kernel's chunked path (few, long segments: a pool of a box) is
+    chosen from the row and segment counts alone, with enough chunks to
+    fill the card and at most MAX_CHUNKS."""
+    assert sss.segment_chunks(1_350_912, 100_008) == 0      # the box's edges
+    assert sss.segment_chunks(800, 100) == 0                # a star pool
+    assert sss.segment_chunks(100_008, 2) == sss.MAX_CHUNKS  # a box pool
+    assert sss.segment_chunks(200_000, 100) == 3
+    assert sss.segment_chunks(5, 0) == 0
