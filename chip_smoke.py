@@ -32,10 +32,12 @@ Phases; any failure raises and the script exits non-zero:
      plain version the library calls (one ``index_add_`` on the masked
      data, one ``torch.segment_reduce`` on the sorted rows);
   3b. K5 (``gvp_message``, forward and backward) against its plain versions
-     at three shapes: a small random case (N 40, E 150, 16/4 nodes, 8/1
+     at five shapes: a small random case (N 40, E 150, 16/4 nodes, 8/1
      edges), the star train bucket at full width (N 800, E 1400; 128/16
-     nodes, 32/1 edges, layer 0's weights of the phase-4b model) and the
-     unsorted 10k-atom box at full width (129,224 edges).  Forward: atol =
+     nodes, 32/1 edges, layer 0's weights of the phase-4b model), the
+     unsorted 10k-atom box at full width (129,224 edges) and two random
+     full-width cases where ``gvp_message.gvp_tile`` changes the edge tile
+     on 132 SMs (E 2097: 16; E 4193: 32 forward).  Forward: atol =
      rtol = 1e-4.  Backward (``check_gvp_bwd``): the edges with a ReLU
      pre-activation within 1e-5 of zero (a float64 run finds them; their
      mask may flip between two f32 runs) masked off and counted, then the
@@ -43,7 +45,8 @@ Phases; any failure raises and the script exits non-zero:
      of that weight's largest entry (at least 1), 1e-3 at the box (f32 sums
      of 129k edges in another order), with both f32 versions' distances from
      float64 printed at full width.  Two runs bitwise equal; kernels, whole
-     call and plain version timed beside the bound;
+     call and plain version timed beside the bound, with the edge tiles
+     taken and the backward's time by kernel (``torch.profiler``);
   3c. K6 (``egnn_stack``, forward and backward: all 4 EGNN layers, update
      MLP included, one launch per direction) against its plain versions at
      three shapes: a small random case (N 30, E 110, D 16, 3 layers), the
@@ -63,14 +66,22 @@ Phases; any failure raises and the script exits non-zero:
      from it than 2x the plain f32 version's distance plus 1e-3 of that
      layer's largest entry.  Two runs bitwise equal; kernel, whole call and
      plain version timed beside the bound (``stack_bound_ms``);
-  3d. K7 (``edge_weighted_contract``, forward and backward) against its
-     plain versions at the JAX test's three shapes (``tests/test_pallas.py``:
+  3d. K7's one-group entry (``edge_weighted_contract``, forward and
+     backward: the one-group kernels, a block per edge) against its plain
+     versions at the JAX test's three shapes (``tests/test_pallas.py``:
      bf16 W in the third), at the five groups of TFN's layer 0 and of a
-     hidden layer at the TFN train bucket (E 1408), f32 W, and at one hidden
-     group with bf16 W: within 2e-5 (bf16 W: 3e-2) of max(|ref|, 1), the
-     JAX test's tolerances and scaling; dW in W's type; two runs bitwise
-     equal; per group kernel, whole call, plain version and ``torch.bmm``
-     beside the bound (``k7_bound_ms``), and each layer's sums;
+     hidden layer at the TFN train bucket (E 1400), f32 W, each in a launch
+     of its own, and at one hidden group with bf16 W (then that group
+     alone through the grouped kernel, bf16 and f32 W): within 2e-5 (bf16 W:
+     3e-2) of max(|ref|, 1), the JAX test's tolerances and scaling; dW in
+     W's type; two runs bitwise equal; per group kernel, whole call, plain
+     version and ``torch.bmm`` beside the bound (``k7_bound_ms``).  Then the
+     main path's call, ``edge_weighted_contract_grouped`` (``check_k7_layer``,
+     the grouped kernel): layer 0, a hidden layer and a hidden layer with
+     bf16 W, all five groups in one launch per direction, held to the same
+     tolerances group by group, timed against the groups' plain versions
+     and ``torch.bmm`` calls summed and against the five one-group launches
+     back to back;
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
@@ -90,8 +101,8 @@ Phases; any failure raises and the script exits non-zero:
      (``bench.TFN_STAR``: 4 layers, max_ell 3, emb_dim 64, mlp_dim 256, gate,
      residual, pool "first") over 1400 star graphs with seven spokes (fold
      [7], seed 0), counters set to 0 just before and read just after: K7
-     5 x 4 x 14 = 280 forward launches, K4 4 x 14 = 56, no K7 backward,
-     nothing else; finite (1400, 1), within 1e-4 of the same weights on the
+     4 x 14 = 56 forward launches (one per layer: all its groups), K4 4 x
+     14 = 56, no K7 backward, nothing else; finite (1400, 1), within 1e-4 of the same weights on the
      CPU plain path; median of 7 calls;
   5. train, against the CPU: the bench configuration (split 50/20/30,
      batch 100, lr 5e-4) from the same weights and the same shuffle, run on
@@ -123,8 +134,9 @@ Phases; any failure raises and the script exits non-zero:
      planted fault, the update-MLP rows of the stacked weights cut off from
      K6's gradient (no ``upd_*`` parameter learns), must fail that check;
   5d. TFN one ``train_step`` (its split 50/20/30, batch 100, lr 5e-4): at
-     full width the card through K7/K4 (exactly 20 K7 launches each way and
-     5 K4: 4 message sums and the embedding's gradient) against the card
+     full width the card through K7/K4 (exactly 4 K7 launches each way, one
+     per layer, and 5 K4: 4 message sums and the embedding's gradient)
+     against the card
      through their plain twins (both f32: gradients
      within 1e-3 of each parameter's largest entry); at emb_dim 16 with 2
      layers (a float64 CPU step at full width is ~1 TFLOP) the card against
@@ -145,8 +157,8 @@ Phases; any failure raises and the script exits non-zero:
      test MAE finite and below 0.2; train_time and test MAE beside phase 6's;
   6g. TFN training, the main path: one 200-epoch ``fit_regression`` of the
      phase-4d model (lr 5e-4, shuffle seed 1), counters set to 0 just before
-     and read just after: K7 forward 20 x (train steps + validation batches
-     + test batches of the fired epochs), backward 20 x train steps, K4 4 x
+     and read just after: K7 forward 4 x (train steps + validation batches
+     + test batches of the fired epochs), backward 4 x train steps, K4 4 x
      the forward calls + 1 x train steps (the embedding's gradient), nothing
      else; test MAE finite and below 0.09,
      printed beside the JAX package's 0.0637 +- 0.0010 and the reference's
@@ -209,7 +221,10 @@ import time
 import numpy as np
 import torch
 
-from geometric_message_passing_tpu_torch.experiments import bench_scale
+from geometric_message_passing_tpu_torch.experiments import (bench_kernels,
+                                                             bench_scale)
+from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
+    cuda_time_ms)
 from geometric_message_passing_tpu_torch.experiments.bench import (
     LR, N_EPOCHS as EPOCHS, TFN_STAR, bench_data, card_line, tfn_data,
     tfn_model as _tfn_model)
@@ -244,21 +259,6 @@ N_GRAPHS, BATCH, LAYERS, WIDTH = 1400, 100, 4, 128
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def kernels_only_ms(args, iters: int = 50) -> float:
@@ -683,27 +683,6 @@ def gvp_random_case(n, e, seed, masked, dev, node=(16, 4), edge_dims=(8, 1),
     return (idx, [f(n, S)] + [f(n, V) for _ in range(3)],
             [f(e, SE)] + [f(e, VE) for _ in range(3)], ws,
             [f(n, S)] + [f(n, V) for _ in range(3)])
-
-
-def gvp_layer_case(batch, model: GVPGNNModel, seed: int):
-    """K5's inputs at layer 0 of ``model`` on ``batch`` (both on the card):
-    random node features and cotangents, the model's edge features
-    (``embed_edges``) and layer 0's chain weights."""
-    dev = batch.pos.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    n, S, V = batch.num_nodes, model.s_dim, model.v_dim
-
-    def draw():
-        return [torch.randn((n, S), generator=gen, device=dev)] + [
-            torch.randn((n, V), generator=gen, device=dev) for _ in range(3)]
-
-    with torch.no_grad():
-        es, ev = model.embed_edges(batch)
-        ws = [w.detach().contiguous()
-              for w in model.layers[0].conv.chain_weights()]
-    return ((batch.senders, batch.receivers, batch.edge_mask), draw(),
-            [es.contiguous()] + [ev[..., c].contiguous() for c in range(3)],
-            ws, draw())
 
 
 def check_gvp_fwd(label: str, case) -> float:
@@ -1151,7 +1130,8 @@ def check_k7(label: str, case, timed: bool = True, iters: int = 20) -> dict:
 
 
 def k7_layer_sum(readings) -> dict:
-    """A layer's K7 times: its five groups' readings summed, per direction."""
+    """A layer's K7 times group by group (one launch per group): its
+    groups' readings summed, per direction."""
     out = {}
     for direction in ("fwd", "bwd"):
         keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
@@ -1161,18 +1141,110 @@ def k7_layer_sum(readings) -> dict:
     return out
 
 
-def without_contract_dT(T, W):
+def check_k7_layer(label: str, cases, iters: int = 20) -> dict:
+    """A layer's groups in one grouped K7 launch per direction
+    (``edge_weighted_contract_grouped``) against the plain versions group
+    by group (``check_k7``'s tolerances, dW in W's type), two runs bitwise
+    equal, exactly one launch each way; then kernel, whole call, the groups'
+    plain versions and their ``torch.bmm`` calls (one per group forward, two
+    backward, f32 copies of W made outside the loop), all summed over the
+    groups, beside the summed bound; and the layer as one one-group kernel
+    launch per group back to back (``one_group_ms``)."""
+    Ts, Ws, dOs = (list(x) for x in zip(*cases))
+    tol = K7_TOL if Ws[0].dtype == torch.float32 else K7_TOL_BF16
+    before = (ec.edge_weighted_contract_grouped.launches,
+              ec.edge_weighted_contract_grouped.bwd_launches)
+    with torch.no_grad():
+        got, again = (ec.edge_weighted_contract_grouped(Ts, Ws)
+                      for _ in range(2))
+        grads, grads2 = (ec.edge_weighted_contract_grouped_bwd(Ts, Ws, dOs)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    launched = (ec.edge_weighted_contract_grouped.launches - before[0],
+                ec.edge_weighted_contract_grouped.bwd_launches - before[1])
+    if launched != (2, 2):
+        raise AssertionError(f"{label}: grouped K7 launched {launched}, not "
+                             "one kernel per call and direction")
+    err = 0.0
+    for g, (T, W, dO) in enumerate(cases):
+        want = ec.edge_weighted_contract_plain(T, W)
+        wdT, wdW = ec.edge_weighted_contract_bwd_plain(T, W, dO)
+        dT, dW = grads[0][g], grads[1][g]
+        if dW.dtype != W.dtype:
+            raise AssertionError(f"{label} group {g}: dW is {dW.dtype}")
+        for part, a, b, r in (("out", got[g], again[g], want),
+                              ("dT", dT, grads2[0][g], wdT),
+                              ("dW", dW.float(), grads2[1][g].float(),
+                               wdW.float())):
+            if not torch.isfinite(a).all() or not torch.equal(a, b):
+                raise AssertionError(f"{label} group {g}: K7 {part} is not "
+                                     "finite or not bitwise repeatable")
+            e = (a - r).abs().max().item()
+            if e > tol * max(r.abs().max().item(), 1.0):
+                raise AssertionError(f"{label} group {g}: grouped K7 {part} "
+                                     f"differs from the plain version by {e:.3e}")
+            err = max(err, e)
+    outs = [torch.empty_like(o) for o in got]
+    dTb = [torch.empty_like(T) for T in Ts]
+    dWb = [torch.empty_like(W) for W in Ws]
+    Wf = [W if W.dtype == torch.float32 else W.float() for W in Ws]
+    with torch.no_grad():
+        fwd = dict(
+            ms=cuda_time_ms(lambda: ec.launch_grouped_fwd(Ts, Ws, outs), iters),
+            one_group_ms=cuda_time_ms(lambda: [ec.launch_fwd(T, W, o) for T, W, o
+                                               in zip(Ts, Ws, outs)], iters),
+            call_ms=cuda_time_ms(lambda: ec.edge_weighted_contract_grouped(
+                Ts, Ws), iters),
+            plain_ms=cuda_time_ms(lambda: [ec.edge_weighted_contract_plain(
+                T, W) for T, W in zip(Ts, Ws)], iters),
+            library_ms=cuda_time_ms(lambda: [torch.bmm(W.transpose(1, 2), T)
+                                             for T, W in zip(Ts, Wf)], iters))
+        bwd = dict(
+            ms=cuda_time_ms(lambda: ec.launch_grouped_bwd(Ts, Ws, dOs, dTb, dWb),
+                            iters),
+            one_group_ms=cuda_time_ms(lambda: [
+                ec.launch_bwd(T, W, dO, a, b)
+                for T, W, dO, a, b in zip(Ts, Ws, dOs, dTb, dWb)], iters),
+            call_ms=cuda_time_ms(lambda: ec.edge_weighted_contract_grouped_bwd(
+                Ts, Ws, dOs), iters),
+            plain_ms=cuda_time_ms(lambda: [ec.edge_weighted_contract_bwd_plain(
+                T, W, dO) for T, W, dO in zip(Ts, Ws, dOs)], iters),
+            library_ms=cuda_time_ms(lambda: [
+                (torch.bmm(W, dO), torch.bmm(T, dO.transpose(1, 2)))
+                for T, W, dO in zip(Ts, Wf, dOs)], iters))
+    for d, back in ((fwd, False), (bwd, True)):
+        bounds = [k7_bound_ms(T, W, back) for T, W in zip(Ts, Ws)]
+        d["bound_ms"] = sum(b for b, _ in bounds)
+        bys = {by for _, by in bounds}
+        d["bound_by"] = bys.pop() if len(bys) == 1 else "mixed"
+    log(f"  {label}, {len(cases)} groups in one launch each way: errors "
+        f"{err:.2e} (tol {tol:g} of max(|ref|, 1)), bitwise repeatable; "
+        + "; ".join(
+            f"{name} kernel {d['ms']:.4f} ms, whole call {d['call_ms']:.4f}, "
+            f"plain {d['plain_ms']:.4f}, bmm {d['library_ms']:.4f}, bound "
+            f"{d['bound_ms']:.5f} ({d['bound_by']}, "
+            f"{d['bound_ms'] / d['ms']:.0%} of it)"
+            for name, d in (("forward", fwd), ("backward", bwd))))
+    return {"max_abs_err": err, "fwd": fwd, "bwd": bwd}
+
+
+def without_contract_dT(Ts, Ws):
     """The planted fault of phase 5d: K7 with its ``dT`` dropped (the CG
     intermediate cut off from the gradient), so nothing below a contraction
     learns through it: the embedding, and each layer's input."""
-    return ec.edge_weighted_contract(T.detach(), W)
+    return ec.edge_weighted_contract_grouped([T.detach() for T in Ts], Ws)
+
+
+def contract_grouped_plain(Ts, Ws):
+    """The plain twin of the grouped K7 call, group by group."""
+    return [ec.edge_weighted_contract_plain(T, W) for T, W in zip(Ts, Ws)]
 
 
 @contextlib.contextmanager
 def plain_tfn_twins():
     """The TFN path through the plain twins of K7 and K4 on the card."""
-    with patched(tensor_product, "edge_weighted_contract",
-                 ec.edge_weighted_contract_plain), \
+    with patched(tensor_product, "edge_weighted_contract_grouped",
+                 contract_grouped_plain), \
             patched(tfn_conv, "segment_sum", scatter.segment_sum_plain):
         yield
 
@@ -1182,8 +1254,9 @@ def reset_counts() -> None:
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
     gm.gvp_message.launches = gm.gvp_message.bwd_launches = 0
     es.egnn_stack.launches = es.egnn_stack.bwd_launches = 0
-    ec.edge_weighted_contract.launches = 0
-    ec.edge_weighted_contract.bwd_launches = 0
+    ec.edge_weighted_contract_grouped.launches = 0
+    ec.edge_weighted_contract_grouped.bwd_launches = 0
+    ec.edge_weighted_contract.launches = ec.edge_weighted_contract.bwd_launches = 0
 
 
 def counts() -> dict:
@@ -1195,8 +1268,10 @@ def counts() -> dict:
             "gvp_message_bwd": gm.gvp_message.bwd_launches,
             "egnn_stack": es.egnn_stack.launches,
             "egnn_stack_bwd": es.egnn_stack.bwd_launches,
-            "edge_contract": ec.edge_weighted_contract.launches,
-            "edge_contract_bwd": ec.edge_weighted_contract.bwd_launches}
+            "edge_contract": ec.edge_weighted_contract_grouped.launches,
+            "edge_contract_bwd": ec.edge_weighted_contract_grouped.bwd_launches,
+            "edge_contract_one": ec.edge_weighted_contract.launches,
+            "edge_contract_one_bwd": ec.edge_weighted_contract.bwd_launches}
 
 
 def main() -> int:
@@ -1339,23 +1414,32 @@ def main() -> int:
     gvp_cuda = gvp_model(dev)
     k5_small = gvp_random_case(40, 150, seed=21, masked=0.1, dev=dev)
     slot = build_slot_data(loaders[0].graphs, device=dev)
-    k5_train = gvp_layer_case(assemble_batch(slot, torch.arange(BATCH, device=dev)),
-                              gvp_cuda, seed=31)
+    k5_train = bench_kernels.gvp_layer_case(
+        assemble_batch(slot, torch.arange(BATCH, device=dev)), gvp_cuda,
+        seed=31)
     t = time.perf_counter()
     gvp_box = bench_scale.box_batch(GVP_BOX_ATOMS, sort=False).to(dev)
-    k5_box = gvp_layer_case(gvp_box, gvp_cuda, seed=32)
+    k5_box = bench_kernels.gvp_layer_case(gvp_box, gvp_cuda, seed=32)
     log(f"  unsorted box of {GVP_BOX_ATOMS} atoms: {int(gvp_box.edge_mask.sum())} "
         f"edges (bucket N {gvp_box.num_nodes}, E {gvp_box.num_edges}), built "
         f"in {time.perf_counter() - t:.2f} s")
+    # full width where gvp_tile changes its tile on 132 SMs: 16-edge tiles
+    # from 2097 edges, 32-edge forward tiles from 4193
+    k5_edges = {f"tile edge E {e}": gvp_random_case(
+        n, e, seed=s_, masked=0.1, dev=dev, node=(128, 16), edge_dims=(32, 1))
+        for n, e, s_ in ((900, 16 * 131 + 1, 24), (1500, 32 * 131 + 1, 25))}
     k5_err = max(check_gvp_fwd("small", k5_small),
                  check_gvp_fwd("train bucket", k5_train),
-                 check_gvp_fwd("10k box", k5_box))
+                 check_gvp_fwd("10k box", k5_box),
+                 *(check_gvp_fwd(k, c) for k, c in k5_edges.items()))
     k5_bwd_err = max(check_gvp_bwd("small", k5_small),
-                     check_gvp_bwd("train bucket", k5_train))
+                     check_gvp_bwd("train bucket", k5_train),
+                     *(check_gvp_bwd(k, c) for k, c in k5_edges.items()))
     k5_bwd_err_box = check_gvp_bwd("10k box", k5_box, w_tol=W_TOL_BOX)
     k5_times = {}
     for label, case, iters in (("train bucket", k5_train, 50),
-                               ("10k box", k5_box, 5)):
+                               ("10k box", k5_box, 5),
+                               *((k, c, 20) for k, c in k5_edges.items())):
         idx, nodes, edges, ws, cots = case
         chain = len(ws) // gm.N_W
         with torch.no_grad():
@@ -1370,17 +1454,26 @@ def main() -> int:
             bp = cuda_time_ms(lambda: gm.gvp_message_bwd_plain(
                 *idx, *nodes, *edges, ws, *cots), iters)
         (fb, fby), (bb, bby) = gvp_bound_ms(case, False), gvp_bound_ms(case, True)
+        tiles = gm.kernel_tiles(ws, idx[0].shape[0], dev)
+        with torch.no_grad():
+            split = bench_kernels.kernel_split(lambda: gm.gvp_message_bwd(
+                *idx, *nodes, *edges, ws, *cots), max(2, iters // 5))
+        split = {k: v for k, v in split.items() if k.startswith("gvp_")}
         k5_times[label] = {"E": idx[0].shape[0], "live": int(idx[2].sum()),
-                           "N": nodes[0].shape[0],
+                           "N": nodes[0].shape[0], "tiles": tiles,
                            "fwd": dict(ms=fk, call_ms=fc, plain_ms=fp,
                                        bound_ms=fb, bound_by=fby),
                            "bwd": dict(ms=bk, call_ms=bc, plain_ms=bp,
-                                       bound_ms=bb, bound_by=bby)}
-        log(f"  {label}: forward kernels {fk:.4f} ms, whole call {fc:.4f} ms, "
+                                       bound_ms=bb, bound_by=bby,
+                                       split_ms=split)}
+        log(f"  {label} (edge tiles {tiles[0]} forward, {tiles[1]} backward): "
+            f"forward kernels {fk:.4f} ms, whole call {fc:.4f} ms, "
             f"plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); backward kernels "
             f"{bk:.4f} ms, whole call {bc:.4f} ms, plain {bp:.4f} ms, bound "
-            f"{bb:.5f} ms ({bby}) [{card}]")
-    del k5_box
+            f"{bb:.5f} ms ({bby}); backward by kernel "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f" ms [{card}]")
+    del k5_box, k5_edges
 
     # 3c. K6 against its plain versions
     log("[kernels] egnn_stack (K6) vs egnn_stack_plain: forward atol = rtol = "
@@ -1451,15 +1544,49 @@ def main() -> int:
                        k7_case(tfn_e, k, w, m, torch.bfloat16, seed=70, dev=dev))
     k7_layer = {layer: k7_layer_sum(r) for layer, r in k7_groups.items()}
     for layer, t in k7_layer.items():
-        log(f"  {layer} at E {tfn_e}, 5 groups: forward kernels "
+        log(f"  {layer} at E {tfn_e}, 5 groups one launch each: forward kernels "
             f"{t['fwd']['ms']:.4f} ms, whole calls {t['fwd']['call_ms']:.4f}, "
             f"plain {t['fwd']['plain_ms']:.4f}, bmm {t['fwd']['library_ms']:.4f}, "
             f"bound {t['fwd']['bound_ms']:.5f}; backward kernels "
             f"{t['bwd']['ms']:.4f} ms, whole calls {t['bwd']['call_ms']:.4f}, "
             f"plain {t['bwd']['plain_ms']:.4f}, bmm {t['bwd']['library_ms']:.4f}, "
             f"bound {t['bwd']['bound_ms']:.5f} [{card}]")
+    log(f"  hidden group 3 with bf16 W: forward {k7_bf16['fwd']['ms']:.4f} ms, "
+        f"backward {k7_bf16['bwd']['ms']:.4f} ms; with f32 W "
+        f"{k7_groups['hidden'][3]['fwd']['ms']:.4f} / "
+        f"{k7_groups['hidden'][3]['bwd']['ms']:.4f} ms [{card}]")
+    # the same group alone through the grouped kernel, TFN's path
+    k7_g3 = {name: check_k7_layer(
+        f"hidden group 3 grouped, {name} W, at E {tfn_e}",
+        [k7_case(tfn_e, k, w, m, dt, seed=70, dev=dev)])
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    log(f"  hidden group 3 through the grouped kernel: bf16 W forward "
+        f"{k7_g3['bf16']['fwd']['ms']:.4f} ms, backward "
+        f"{k7_g3['bf16']['bwd']['ms']:.4f} ms; f32 W "
+        f"{k7_g3['f32']['fwd']['ms']:.4f} / {k7_g3['f32']['bwd']['ms']:.4f} ms "
+        f"[{card}]")
+    # the main path's call: a layer's groups in one launch per direction
+    k7_grouped = {}
+    for layer, conv in (("layer 0", tfn_cpu.convs[0]),
+                        ("hidden", tfn_cpu.convs[1])):
+        k7_grouped[layer] = check_k7_layer(
+            f"{layer} grouped at E {tfn_e}", [
+                k7_case(tfn_e, k, w, m, torch.float32, seed=60 + g, dev=dev)
+                for g, (k, m, w) in enumerate(conv.tp.group_shapes)])
+        torch.cuda.empty_cache()
+    k7_grouped["hidden bf16 W"] = check_k7_layer(
+        f"hidden grouped, bf16 W, at E {tfn_e}", [
+            k7_case(tfn_e, k, w, m, torch.bfloat16, seed=70 + g, dev=dev)
+            for g, (k, m, w) in enumerate(tfn_cpu.convs[1].tp.group_shapes)])
+    torch.cuda.empty_cache()
+    for layer, g in k7_grouped.items():
+        log(f"  {layer}: grouped launch against the five one-group launches "
+            f"back to back: forward {g['fwd']['ms']:.4f} / "
+            f"{g['fwd']['one_group_ms']:.4f} ms, backward {g['bwd']['ms']:.4f} / "
+            f"{g['bwd']['one_group_ms']:.4f} ms [{card}]")
     k7_err = max(r["max_abs_err"] for r in k7_small + [k7_bf16] + [
-        x for rs in k7_groups.values() for x in rs])
+        x for rs in k7_groups.values() for x in rs] + list(k7_grouped.values())
+        + list(k7_g3.values()))
     del tfn_slot
     torch.cuda.empty_cache()
 
@@ -1601,7 +1728,7 @@ def main() -> int:
     tfn_batches = -(-N_GRAPHS // BATCH)
     tfn_layers = TFN_STAR["num_layers"]
     tfn_serve_want = dict({k: 0 for k in tfn_serve},
-                          edge_contract=5 * tfn_layers * tfn_batches,
+                          edge_contract=tfn_layers * tfn_batches,
                           segment_sum=tfn_layers * tfn_batches)
     log(f"[serve] TFN {TFN_STAR} predict({N_GRAPHS} star graphs, fold [7]): "
         f"launches {tfn_serve} (want K7 {tfn_serve_want['edge_contract']} "
@@ -1776,8 +1903,8 @@ def main() -> int:
             tfn_step_launches[run] = counts()
     full = step_reading(tfn_step["card"], tfn_step["card, plain twins"])
     step_want = dict({k: 0 for k in tfn_step_launches["card"]},
-                     edge_contract=5 * tfn_layers,
-                     edge_contract_bwd=5 * tfn_layers,
+                     edge_contract=tfn_layers,
+                     edge_contract_bwd=tfn_layers,
                      segment_sum=tfn_layers + 1)   # and the embedding's
     log(f"[train] TFN one train_step at full width (graphs order[:{BATCH}]): "
         f"K7/K4 against the plain twins on the card, gradients within "
@@ -1796,11 +1923,12 @@ def main() -> int:
     narrow_cpu = tfn_model("cpu", **TFN_NARROW)
     narrow = {}
     for run, d_, dtype, fn in (
-            ("card", "cuda", torch.float32, ec.edge_weighted_contract),
+            ("card", "cuda", torch.float32, ec.edge_weighted_contract_grouped),
             ("card, planted fault", "cuda", torch.float32, without_contract_dT),
-            ("cpu f32", "cpu", torch.float32, ec.edge_weighted_contract),
-            ("cpu f64", "cpu", torch.float64, ec.edge_weighted_contract)):
-        with patched(tensor_product, "edge_weighted_contract", fn):
+            ("cpu f32", "cpu", torch.float32, ec.edge_weighted_contract_grouped),
+            ("cpu f64", "cpu", torch.float64,
+             ec.edge_weighted_contract_grouped)):
+        with patched(tensor_product, "edge_weighted_contract_grouped", fn):
             narrow[run] = first_step(narrow_cpu, d_, dtype, tfn_train_graphs,
                                      tfn_row, cast_data=True)
     tfn_check = {"full_width_vs_plain_twins": full[0]}
@@ -1879,8 +2007,8 @@ def main() -> int:
     tfired = fired_epochs(tres.perf_per_epoch)
     tfn_calls = TFN_EPOCHS * (tsteps + tval_b) + tfired * ttest_b
     tfn_train_want = dict({k: 0 for k in tfn_train},
-                          edge_contract=5 * tfn_layers * tfn_calls,
-                          edge_contract_bwd=5 * tfn_layers * TFN_EPOCHS * tsteps,
+                          edge_contract=tfn_layers * tfn_calls,
+                          edge_contract_bwd=tfn_layers * TFN_EPOCHS * tsteps,
                           segment_sum=tfn_layers * tfn_calls
                           + TFN_EPOCHS * tsteps)  # and the embedding's
     log(f"[train] TFN fit_regression {TFN_EPOCHS} epochs (fold [7], lr {LR}): "
@@ -2155,7 +2283,8 @@ def main() -> int:
                                    "bound_by", "library_ms",
                                    "segment_reduce_ms")},
             "shapes": readings})
-    # K7: one hidden layer's five group launches at the TFN train bucket
+    # K7: one hidden layer's five groups in one launch at the TFN train
+    # bucket; beside it layer 0, bf16 W and each group in a launch of its own
     for name, direction, replaces in (
             ("edge_contract", "fwd",
              "geometric_message_passing_tpu/ops/pallas_tp.py:62"),
@@ -2166,12 +2295,16 @@ def main() -> int:
             "source": "geometric_message_passing_tpu_torch/csrc/edge_contract.cu",
             "replaces": replaces, "launches": tfn_train[name],
             "serve_launches": tfn_serve[name], "max_abs_err": k7_err,
-            "shape": f"hidden layer, 5 groups, E {tfn_e}",
-            **k7_layer["hidden"][direction],
-            "layer_0": k7_layer["layer 0"][direction],
+            "shape": f"hidden layer, 5 groups in one launch, E {tfn_e}",
+            **k7_grouped["hidden"][direction],
+            "layer_0": k7_grouped["layer 0"][direction],
+            "hidden_bf16_W": k7_grouped["hidden bf16 W"][direction],
+            "per_group_launches": {"hidden": k7_layer["hidden"][direction],
+                                   "layer_0": k7_layer["layer 0"][direction]},
             "groups": [dict(r[direction], K=r["K"], m=r["m"], w=r["w"])
                        for r in k7_groups["hidden"]],
-            "bf16_group": k7_bf16[direction]})
+            "bf16_group": k7_bf16[direction],
+            "group_3_grouped": {name: r[direction] for name, r in k7_g3.items()}})
     log(json.dumps({"kernels": kernels, "card": card,
                     "predict_ms": ms, "predict_graphs_per_s": N_GRAPHS / ms * 1e3,
                     "host_batch_ms": host_ms, "train_time_s": res.train_time,

@@ -18,15 +18,18 @@
 // written, far above the card's f32 balance point; the products run in exact
 // f32 on the CUDA cores, so the ceiling is the f32 FMA rate.
 //
-// What the design does about it: a block of 256 threads takes a tile of 8
+// What the design does about it: a block of 256 threads takes a tile of TE
 // edges and keeps every activation of the chain in shared memory; the
-// weights stream through shared memory in 16-row K-tiles, each used by the
-// tile's 8 (scalar) or 24 (vector-plane) rows, with every thread owning one
-// output column and reading the rows' activations as warp broadcasts.  Layer
-// 0's Ws alone is 321 x 128 floats (164 KB), so it cannot stay resident
-// beside the tiles.  Tiles of 8 edges give 175 blocks at the star-graph
-// train bucket (1400 edges), more than the 132 SMs; 16-edge tiles would
-// leave 44 SMs idle there.
+// weights stream through shared memory in 16-row K-tiles, double buffered
+// with cp.async so the next K-tile's copy overlaps this one's products, and
+// each product is register blocked (gvp_common.cuh::mm: a thread owns up to
+// 4 rows x 4 columns of the output and reads one float4 of weights and the
+// rows' activations per k).  Layer 0's Ws alone is 321 x 128 floats
+// (164 KB), so it cannot stay resident beside the tiles.  TE (8, 16 or 32)
+// comes from ops/gvp_message.py::gvp_tile: the largest tile that still
+// gives every SM a block, so the star-graph train bucket (1400 edges) keeps
+// 8-edge tiles (175 blocks) and the 10k box reads each weight once per 32
+// edges.
 //
 // Kernel 1 (gvp_fwd_edge_kernel) writes per-edge rows [s' | vx' | vy' | vz']
 // for live edges.  Kernel 2 (gvp_reduce_kernel) sums them by receiver over a
@@ -40,14 +43,13 @@ namespace {
 
 using gvp::Dims;
 using gvp::kThreads;
-using gvp::kTile;
 
 struct FwdLayout {
-  int ldx, ldv, lds;
+  int ldx, ldv, lds, ldg;
   size_t x, v, vh, gi, vo, g, ws, total;  // offsets in floats
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(const Dims& d) {
+__host__ __device__ inline FwdLayout fwd_layout(const Dims& d, int TE) {
   FwdLayout l;
   l.ldx = 0;
   for (int k = 0; k < d.L; ++k)
@@ -56,19 +58,22 @@ __host__ __device__ inline FwdLayout fwd_layout(const Dims& d) {
   l.ldv = gvp::max_of(d.h, d.L) > l.ldv ? gvp::max_of(d.h, d.L) : l.ldv;
   l.ldv = gvp::max_of(d.vo, d.L) > l.ldv ? gvp::max_of(d.vo, d.L) : l.ldv;
   l.lds = gvp::max_of(d.so, d.L);
+  l.ldg = gvp::max_of(d.vo, d.L);
+  // odd row strides: the rows a warp reads at one k fall in distinct banks
+  l.ldx |= 1; l.ldv |= 1; l.lds |= 1; l.ldg |= 1;
   l.x = 0;
-  l.v = l.x + (size_t)kTile * l.ldx;
-  l.vh = l.v + (size_t)3 * kTile * l.ldv;
-  l.gi = l.vh + (size_t)3 * kTile * l.ldv;
-  l.vo = l.gi + (size_t)kTile * l.lds;
-  l.g = l.vo + (size_t)3 * kTile * l.ldv;
-  l.ws = l.g + (size_t)kTile * l.ldv;
-  l.total = l.ws + (size_t)gvp::kTileK * gvp::kMaxN;
+  l.v = l.x + (size_t)TE * l.ldx;
+  l.vh = l.v + (size_t)3 * TE * l.ldv;
+  l.gi = l.vh + (size_t)3 * TE * l.ldv;
+  l.vo = l.gi + (size_t)TE * l.lds;
+  l.g = l.vo + (size_t)3 * TE * l.ldv;
+  l.ws = (l.g + (size_t)TE * l.ldg + 3) & ~(size_t)3;   // float4 reads
+  l.total = l.ws + (size_t)gvp::fwd_stages(TE) * gvp::kStage;
   return l;
 }
 
-template <typename Idx>
-__global__ void __launch_bounds__(kThreads) gvp_fwd_edge_kernel(
+template <int TE, typename Idx>
+__global__ void __launch_bounds__(kThreads, 2) gvp_fwd_edge_kernel(
     Dims d, const Idx* __restrict__ send, const Idx* __restrict__ recv,
     const uint8_t* __restrict__ emask, const float* __restrict__ s,
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -76,9 +81,9 @@ __global__ void __launch_bounds__(kThreads) gvp_fwd_edge_kernel(
     const float* __restrict__ evx, const float* __restrict__ evy,
     const float* __restrict__ evz, const float* __restrict__ W,
     float* __restrict__ m_e, int E) {
-  extern __shared__ float smem[];
-  __shared__ bool live[kTile];
-  const FwdLayout l = fwd_layout(d);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool live[TE];
+  const FwdLayout l = fwd_layout(d, TE);
   float* X = smem + l.x;
   float* V = smem + l.v;
   float* VH = smem + l.vh;
@@ -86,18 +91,18 @@ __global__ void __launch_bounds__(kThreads) gvp_fwd_edge_kernel(
   float* VO = smem + l.vo;
   float* G = smem + l.g;
   float* ws = smem + l.ws;
-  const long long e0 = (long long)blockIdx.x * kTile;
+  const long long e0 = (long long)blockIdx.x * TE;
   const float* vp[3] = {vx, vy, vz};
   const float* evp[3] = {evx, evy, evz};
-  gvp::gather_tile(d, send, recv, emask, s, vp, es, evp, e0, E, X, l.ldx, V,
+  gvp::gather_tile<TE>(d, send, recv, emask, s, vp, es, evp, e0, E, X, l.ldx, V,
                    l.ldv, live);
   for (int k = 0; k < d.L; ++k)
-    gvp::layer_forward(d, k, W + gvp::weight_offset(d, k), X, l.ldx, V, l.ldv,
-                       VH, l.ldv, GI, l.lds, VO, l.ldv, G, l.ldv, X, l.ldx, V,
-                       l.ldv, ws);
+    gvp::layer_forward<TE, gvp::fwd_stages(TE)>(
+        d, k, W + gvp::weight_offset(d, k), X, l.ldx, V, l.ldv, VH, l.ldv, GI,
+        l.lds, VO, l.ldv, G, l.ldg, X, l.ldx, V, l.ldv, ws);
   // the last GVP left s' in GI and V' in V
   const int so = d.so[d.L - 1], vo = d.vo[d.L - 1], wm = so + 3 * vo;
-  for (int i = threadIdx.x; i < kTile * wm; i += kThreads) {
+  for (int i = threadIdx.x; i < TE * wm; i += kThreads) {
     const int r = i / wm, c = i - r * wm;
     if (!live[r]) continue;
     float val;
@@ -105,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) gvp_fwd_edge_kernel(
       val = GI[r * l.lds + c];
     } else {
       const int p = (c - so) / vo, j = c - so - p * vo;
-      val = V[(p * kTile + r) * l.ldv + j];
+      val = V[(p * TE + r) * l.ldv + j];
     }
     m_e[(size_t)(e0 + r) * wm + c] = val;
   }
@@ -151,19 +156,19 @@ __global__ void __launch_bounds__(kThreads) gvp_reduce_kernel(
   if (lane == 0) cnt[node] = (float)(end - beg);
 }
 
-template <typename Idx>
+template <int TE, typename Idx>
 int launch_edges(const Dims& d, const void* send, const void* recv,
                  const void* emask, const void* s, const void* vx,
                  const void* vy, const void* vz, const void* es,
                  const void* evx, const void* evy, const void* evz,
                  const void* w, void* m_e, int E, cudaStream_t stream) {
-  const size_t smem = fwd_layout(d).total * sizeof(float);
+  const size_t smem = fwd_layout(d, TE).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gvp_fwd_edge_kernel<Idx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gvp_fwd_edge_kernel<TE, Idx>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + kTile - 1) / kTile;
-  gvp_fwd_edge_kernel<Idx><<<blocks, kThreads, smem, stream>>>(
+  const int blocks = (E + TE - 1) / TE;
+  gvp_fwd_edge_kernel<TE, Idx><<<blocks, kThreads, smem, stream>>>(
       d, static_cast<const Idx*>(send), static_cast<const Idx*>(recv),
       static_cast<const uint8_t*>(emask), static_cast<const float*>(s),
       static_cast<const float*>(vx), static_cast<const float*>(vy),
@@ -180,10 +185,48 @@ int launch_edges(const Dims& d, const void* send, const void* recv,
 // the launches (0 = success).  Shapes, types and width limits are checked
 // and the receiver CSR built by the Python wrapper (ops/gvp_message.py);
 // dims holds (si, vi, h, so, vo) of each of the L GVPs; m_e is per-edge
-// scratch [E, so + 3 vo] of the last GVP's widths.
+// scratch [E, so + 3 vo] of the last GVP's widths; tile is the edge tile
+// (8, 16 or 32; ops/gvp_message.py::gvp_tile).
 
 extern "C" const char* gmp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+static int read_dims(const void* dims, int L, Dims* d) {
+  if (L < 1 || L > gvp::kMaxLayers) return 1;
+  d->L = L;
+  const int* dm = static_cast<const int*>(dims);
+  for (int k = 0; k < L; ++k) {
+    d->si[k] = dm[5 * k]; d->vi[k] = dm[5 * k + 1]; d->h[k] = dm[5 * k + 2];
+    d->so[k] = dm[5 * k + 3]; d->vo[k] = dm[5 * k + 4];
+  }
+  return 0;
+}
+
+// Bytes of dynamic shared memory the forward edge kernel needs at this
+// tile (host only; -1 for bad dims).
+extern "C" int gmp_gvp_fwd_smem(const void* dims, int L, int tile) {
+  Dims d;
+  if (read_dims(dims, L, &d)) return -1;
+  return (int)(fwd_layout(d, tile).total * sizeof(float));
+}
+
+template <typename Idx>
+static int launch_tile(int tile, const Dims& d, const void* send,
+                       const void* recv, const void* emask, const void* s,
+                       const void* vx, const void* vy, const void* vz,
+                       const void* es, const void* evx, const void* evy,
+                       const void* evz, const void* w, void* m_e, int E,
+                       cudaStream_t st) {
+#define GMP_TILE(T_)                                                      \
+  case T_:                                                                \
+    return launch_edges<T_, Idx>(d, send, recv, emask, s, vx, vy, vz, es, \
+                                 evx, evy, evz, w, m_e, E, st);
+  switch (tile) {
+    GMP_TILE(8) GMP_TILE(16) GMP_TILE(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GMP_TILE
 }
 
 extern "C" int gmp_gvp_fwd(
@@ -193,24 +236,19 @@ extern "C" int gmp_gvp_fwd(
     const void* evz, const void* w, const void* dims, int L, int S, int V,
     int SE, int VE, int E, int N, const void* order, const void* rowptr,
     void* m_e, void* out_s, void* out_vx, void* out_vy, void* out_vz,
-    void* out_cnt, void* stream) {
+    void* out_cnt, int tile, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (L < 1 || L > gvp::kMaxLayers) return (int)cudaErrorInvalidValue;
   Dims d;
-  d.L = L; d.S = S; d.V = V; d.SE = SE; d.VE = VE;
-  const int* dm = static_cast<const int*>(dims);
-  for (int k = 0; k < L; ++k) {
-    d.si[k] = dm[5 * k]; d.vi[k] = dm[5 * k + 1]; d.h[k] = dm[5 * k + 2];
-    d.so[k] = dm[5 * k + 3]; d.vo[k] = dm[5 * k + 4];
-  }
+  if (read_dims(dims, L, &d)) return (int)cudaErrorInvalidValue;
+  d.S = S; d.V = V; d.SE = SE; d.VE = VE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   if (E > 0) {
-    rc = idx64 ? launch_edges<long long>(d, send, recv, emask, s, vx, vy, vz,
-                                         es, evx, evy, evz, w, m_e, E, st)
-               : launch_edges<int>(d, send, recv, emask, s, vx, vy, vz, es,
-                                   evx, evy, evz, w, m_e, E, st);
+    rc = idx64 ? launch_tile<long long>(tile, d, send, recv, emask, s, vx, vy,
+                                        vz, es, evx, evy, evz, w, m_e, E, st)
+               : launch_tile<int>(tile, d, send, recv, emask, s, vx, vy, vz,
+                                  es, evx, evy, evz, w, m_e, E, st);
     if (rc) return rc;
   }
   if (N > 0) {

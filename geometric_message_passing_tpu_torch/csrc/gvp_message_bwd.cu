@@ -21,7 +21,9 @@
 // per edge at full width) costs far fewer byte-seconds than that.
 //
 // Kernels (launched in this order by gmp_gvp_bwd):
-//  1. gvp_bwd_edge_kernel: a block takes 8 edges (as in gvp_message.cu),
+//  1. gvp_bwd_edge_kernel: a block takes a tile of TE edges (8 or 16,
+//     ops/gvp_message.py::gvp_tile; the products as in gvp_message.cu:
+//     register blocked, weights double buffered through cp.async),
 //     recomputes the chain keeping every GVP's activations in shared memory,
 //     then walks the GVPs backwards: the gate (two sigmoids), the ReLU, the
 //     clipped norm (no gradient where |vh|^2 <= 1e-8), the three products
@@ -36,7 +38,8 @@
 //  3. gvp_bwd_wgrad_kernel: every weight gradient as a sum over edges of
 //     left^T right (the vector ones also over the 3 planes; a bias's left
 //     operand is 1), over one slice of `split` edges per blockIdx.z; a
-//     block owns a 32 x 32 output tile and walks its slice in order.
+//     block owns a 64 x 64 output tile (4 x 4 per thread) and walks its
+//     slice in order, its stages double buffered.
 //  4. gvp_bwd_wsum_kernel: dW = the sum of the slices' partial dW in slice
 //     order.  Slicing keeps every sequential sum short and gives the weight
 //     gradient enough blocks to fill the card.
@@ -48,7 +51,6 @@ namespace {
 using gvp::Dims;
 using gvp::kMaxLayers;
 using gvp::kThreads;
-using gvp::kTile;
 
 // Floats of one GVP's part of an `ops` row, and its pieces' offsets.
 struct OpsLayer {
@@ -77,28 +79,30 @@ __host__ __device__ inline int ops_offset(const Dims& d, int k) {
 }
 
 // Shared memory of the edge kernel, in floats: per GVP its stored
-// activations X (kTile x (si+h)), V (3 kTile x vi), VH (3 kTile x h),
-// GI (kTile x so), VO (3 kTile x vo), G (kTile x vo); then the working
+// activations X (TE x (si+h)), V (3 TE x vi), VH (3 TE x h),
+// GI (TE x so), VO (3 TE x vo), G (TE x vo); then the working
 // cotangents and the weight tile.
 struct BwdLayout {
   size_t x[kMaxLayers], v[kMaxLayers], vh[kMaxLayers], gi[kMaxLayers],
       vo[kMaxLayers], g[kMaxLayers];
+  int ldx[kMaxLayers];   // X's row stride: si + h, made odd
   int ld_ds, ld_dv, mso, mvo, mh, mvi, mx;
   size_t ds, dv, da, dgi, dz, dx, dvo, dvh, dvin, ws, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(const Dims& d) {
+__host__ __device__ inline BwdLayout bwd_layout(const Dims& d, int TE) {
   BwdLayout l;
   size_t off = 0;
   l.mx = 0;
   for (int k = 0; k < d.L; ++k) {
     const int si = d.si[k], vi = d.vi[k], h = d.h[k], so = d.so[k], vo = d.vo[k];
-    l.x[k] = off; off += (size_t)kTile * (si + h);
-    l.v[k] = off; off += (size_t)3 * kTile * vi;
-    l.vh[k] = off; off += (size_t)3 * kTile * h;
-    l.gi[k] = off; off += (size_t)kTile * so;
-    l.vo[k] = off; off += (size_t)3 * kTile * vo;
-    l.g[k] = off; off += (size_t)kTile * vo;
+    l.ldx[k] = (si + h) | 1;
+    l.x[k] = off; off += (size_t)TE * l.ldx[k];
+    l.v[k] = off; off += (size_t)3 * TE * vi;
+    l.vh[k] = off; off += (size_t)3 * TE * h;
+    l.gi[k] = off; off += (size_t)TE * so;
+    l.vo[k] = off; off += (size_t)3 * TE * vo;
+    l.g[k] = off; off += (size_t)TE * vo;
     l.mx = si + h > l.mx ? si + h : l.mx;
   }
   l.mso = gvp::max_of(d.so, d.L);
@@ -108,16 +112,20 @@ __host__ __device__ inline BwdLayout bwd_layout(const Dims& d) {
   const int msi = gvp::max_of(d.si, d.L);
   l.ld_ds = msi > l.mso ? msi : l.mso;
   l.ld_dv = l.mvi > l.mvo ? l.mvi : l.mvo;
-  l.ds = off; off += (size_t)kTile * l.ld_ds;
-  l.dv = off; off += (size_t)3 * kTile * l.ld_dv;
-  l.da = off; off += (size_t)kTile * l.mvo;
-  l.dgi = off; off += (size_t)kTile * l.mso;
-  l.dz = off; off += (size_t)kTile * l.mso;
-  l.dx = off; off += (size_t)kTile * l.mx;
-  l.dvo = off; off += (size_t)3 * kTile * l.mvo;
-  l.dvh = off; off += (size_t)3 * kTile * l.mh;
-  l.dvin = off; off += (size_t)3 * kTile * l.mvi;
-  l.ws = off; off += (size_t)gvp::kTileK * gvp::kMaxN;
+  // odd row strides: the rows a warp reads at one k fall in distinct banks
+  l.ld_ds |= 1; l.ld_dv |= 1; l.mso |= 1; l.mvo |= 1; l.mh |= 1; l.mvi |= 1;
+  l.mx |= 1;
+  l.ds = off; off += (size_t)TE * l.ld_ds;
+  l.dv = off; off += (size_t)3 * TE * l.ld_dv;
+  l.da = off; off += (size_t)TE * l.mvo;
+  l.dgi = off; off += (size_t)TE * l.mso;
+  l.dz = off; off += (size_t)TE * l.mso;
+  l.dx = off; off += (size_t)TE * l.mx;
+  l.dvo = off; off += (size_t)3 * TE * l.mvo;
+  l.dvh = off; off += (size_t)3 * TE * l.mh;
+  l.dvin = off; off += (size_t)3 * TE * l.mvi;
+  off = (off + 3) & ~(size_t)3;   // float4 reads of the staged weights
+  l.ws = off; off += (size_t)gvp::bwd_stages(TE) * gvp::kStage;
   l.total = off;
   return l;
 }
@@ -125,28 +133,30 @@ __host__ __device__ inline BwdLayout bwd_layout(const Dims& d) {
 // rows x cols of a tile buffer (row stride ld) into a per-edge buffer: row r
 // of the tile goes to out[(e0 + r) * ldo + c]; zeros for masked-off edges,
 // nothing for edges past E.
+template <int TE>
 __device__ void store_rows(const float* src, int ld, int cols, float* out,
                            size_t ldo, long long e0, int E, const bool* live) {
-  for (int i = threadIdx.x; i < kTile * cols; i += kThreads) {
+  for (int i = threadIdx.x; i < TE * cols; i += kThreads) {
     const int r = i / cols, c = i - r * cols;
     if (e0 + r < E) out[(size_t)(e0 + r) * ldo + c] = live[r] ? src[r * ld + c] : 0.f;
   }
 }
 
-// 3 kTile plane rows (row p * kTile + r, row stride ld) into a per-edge row
+// 3 TE plane rows (row p * TE + r, row stride ld) into a per-edge row
 // as [plane 0 | plane 1 | plane 2], cols each.
+template <int TE>
 __device__ void store_planes(const float* src, int ld, int cols, float* out,
                              size_t ldo, long long e0, int E, const bool* live) {
-  for (int i = threadIdx.x; i < 3 * kTile * cols; i += kThreads) {
+  for (int i = threadIdx.x; i < 3 * TE * cols; i += kThreads) {
     const int row = i / cols, c = i - row * cols;
-    const int p = row / kTile, r = row - p * kTile;
+    const int p = row / TE, r = row - p * TE;
     if (e0 + r < E)
       out[(size_t)(e0 + r) * ldo + p * cols + c] = live[r] ? src[row * ld + c] : 0.f;
   }
 }
 
-template <typename Idx>
-__global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
+template <int TE, typename Idx>
+__global__ void __launch_bounds__(kThreads, 2) gvp_bwd_edge_kernel(
     Dims d, const Idx* __restrict__ send, const Idx* __restrict__ recv,
     const uint8_t* __restrict__ emask, const float* __restrict__ s,
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -158,26 +168,27 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
     float* __restrict__ ops, float* __restrict__ dnj, float* __restrict__ dni,
     float* __restrict__ des, float* __restrict__ devx,
     float* __restrict__ devy, float* __restrict__ devz, int E) {
-  extern __shared__ float smem[];
-  __shared__ bool live[kTile];
-  const BwdLayout l = bwd_layout(d);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool live[TE];
+  const BwdLayout l = bwd_layout(d, TE);
   const int L = d.L;
-  const long long e0 = (long long)blockIdx.x * kTile;
+  constexpr int kS = gvp::bwd_stages(TE);   // K-tiles in flight
+  const long long e0 = (long long)blockIdx.x * TE;
   float* ws = smem + l.ws;
   const float* vp[3] = {vx, vy, vz};
   const float* evp[3] = {evx, evy, evz};
 
   // ---- forward recompute, every GVP's activations kept ----
-  gvp::gather_tile(d, send, recv, emask, s, vp, es, evp, e0, E, smem + l.x[0],
-                   d.si[0] + d.h[0], smem + l.v[0], d.vi[0], live);
+  gvp::gather_tile<TE>(d, send, recv, emask, s, vp, es, evp, e0, E, smem + l.x[0],
+                   l.ldx[0], smem + l.v[0], d.vi[0], live);
   for (int k = 0; k < L; ++k) {
     const bool last = k == L - 1;
-    gvp::layer_forward(
-        d, k, W + gvp::weight_offset(d, k), smem + l.x[k], d.si[k] + d.h[k],
+    gvp::layer_forward<TE, kS>(
+        d, k, W + gvp::weight_offset(d, k), smem + l.x[k], l.ldx[k],
         smem + l.v[k], d.vi[k], smem + l.vh[k], d.h[k], smem + l.gi[k],
         d.so[k], smem + l.vo[k], d.vo[k], smem + l.g[k], d.vo[k],
         last ? nullptr : smem + l.x[k + 1],
-        last ? 0 : d.si[k + 1] + d.h[k + 1],
+        last ? 0 : l.ldx[k + 1],
         last ? nullptr : smem + l.v[k + 1], last ? 0 : d.vi[k + 1], ws);
   }
 
@@ -186,14 +197,14 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
   float* dV = smem + l.dv;
   {
     const int so = d.so[L - 1], vo = d.vo[L - 1];
-    for (int i = threadIdx.x; i < kTile * so; i += kThreads) {
+    for (int i = threadIdx.x; i < TE * so; i += kThreads) {
       const int r = i / so, c = i - r * so;
       dS[r * l.ld_ds + c] = live[r] ? gs[(size_t)recv[e0 + r] * so + c] : 0.f;
     }
     const float* gvp_[3] = {gvx, gvy, gvz};
-    for (int i = threadIdx.x; i < 3 * kTile * vo; i += kThreads) {
+    for (int i = threadIdx.x; i < 3 * TE * vo; i += kThreads) {
       const int row = i / vo, c = i - row * vo;
-      const int p = row / kTile, r = row - p * kTile;
+      const int p = row / TE, r = row - p * TE;
       dV[row * l.ld_dv + c] =
           live[r] ? gvp_[p][(size_t)recv[e0 + r] * vo + c] : 0.f;
     }
@@ -223,16 +234,16 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
     const float* GI = smem + l.gi[k];
     const float* VO = smem + l.vo[k];
     const float* G = smem + l.g[k];
-    const int ldx = si + h;
+    const int ldx = l.ldx[k];
 
     // V' = VO * G: dVO = dV' * G; da = (sum over planes of dV' * VO) * G(1-G)
-    for (int i = threadIdx.x; i < kTile * vo; i += kThreads) {
+    for (int i = threadIdx.x; i < TE * vo; i += kThreads) {
       const int r = i / vo, c = i - r * vo;
       const float g = G[r * vo + c];
       float dg = 0.f;
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        const int row = p * kTile + r;
+        const int row = p * TE + r;
         const float dv = dV[row * l.ld_dv + c];
         dVO[row * l.mvo + c] = dv * g;
         dg = fmaf(dv, VO[row * vo + c], dg);
@@ -240,12 +251,12 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
       DA[r * l.mvo + c] = dg * g * (1.f - g);
     }
     // dgi = da Wsv^T
-    gvp::mm<true>(DA, l.mvo, kTile, vo, Wsv, so, ws, dGI, l.mso);
+    gvp::mm<true, kS>(DA, l.mvo, TE, vo, Wsv, so, ws, dGI, l.mso);
     // dz: through the ReLU (mask z > 0, read as relu(z) > 0 in the next
     // GVP's input) and the gate's sigmoid; the last GVP is linear
     const float* Xn = last ? nullptr : smem + l.x[k + 1];
-    const int ldxn = last ? 0 : d.si[k + 1] + d.h[k + 1];
-    for (int i = threadIdx.x; i < kTile * so; i += kThreads) {
+    const int ldxn = last ? 0 : l.ldx[k + 1];
+    for (int i = threadIdx.x; i < TE * so; i += kThreads) {
       const int r = i / so, c = i - r * so;
       const float dsv = dS[r * l.ld_ds + c], dgi = dGI[r * l.mso + c];
       float dz;
@@ -258,39 +269,39 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
       DZ[r * l.mso + c] = dz;
     }
     // d[s, vn] = dz Ws^T
-    gvp::mm<true>(DZ, l.mso, kTile, so, Ws, si + h, ws, dX, l.mx);
+    gvp::mm<true, kS>(DZ, l.mso, TE, so, Ws, si + h, ws, dX, l.mx);
     // dvh = dvo Wv^T + dvn * vh / vn where |vh|^2 > 1e-8
-    gvp::mm<true>(dVO, l.mvo, 3 * kTile, vo, Wv, h, ws, dVH, l.mh);
-    for (int i = threadIdx.x; i < 3 * kTile * h; i += kThreads) {
+    gvp::mm<true, kS>(dVO, l.mvo, 3 * TE, vo, Wv, h, ws, dVH, l.mh);
+    for (int i = threadIdx.x; i < 3 * TE * h; i += kThreads) {
       const int row = i / h, c = i - row * h;
-      const int r = row % kTile;
-      const float a = VH[r * h + c], b = VH[(kTile + r) * h + c],
-                  e = VH[(2 * kTile + r) * h + c];
+      const int r = row % TE;
+      const float a = VH[r * h + c], b = VH[(TE + r) * h + c],
+                  e = VH[(2 * TE + r) * h + c];
       if (a * a + b * b + e * e > gvp::kNormEps)
         dVH[row * l.mh + c] += dX[r * l.mx + si + c] * VH[row * h + c] /
                                X[r * ldx + si + c];
     }
     // dV = dvh Wh^T
-    gvp::mm<true>(dVH, l.mh, 3 * kTile, h, Wh, vi, ws, dVin, l.mvi);
+    gvp::mm<true, kS>(dVH, l.mh, 3 * TE, h, Wh, vi, ws, dVin, l.mvi);
 
     // this GVP's weight-gradient operands
     const OpsLayer o = ops_layer(d, k);
     float* orow = ops + ops_offset(d, k);
-    store_rows(X, ldx, si + h, orow + o.x, ld_ops, e0, E, live);
-    store_rows(DZ, l.mso, so, orow + o.dz, ld_ops, e0, E, live);
-    store_planes(Vk, vi, vi, orow + o.v, ld_ops, e0, E, live);
-    store_planes(dVH, l.mh, h, orow + o.dvh, ld_ops, e0, E, live);
-    store_planes(VH, h, h, orow + o.vh, ld_ops, e0, E, live);
-    store_planes(dVO, l.mvo, vo, orow + o.dvo, ld_ops, e0, E, live);
-    store_rows(GI, so, so, orow + o.gi, ld_ops, e0, E, live);
-    store_rows(DA, l.mvo, vo, orow + o.da, ld_ops, e0, E, live);
+    store_rows<TE>(X, ldx, si + h, orow + o.x, ld_ops, e0, E, live);
+    store_rows<TE>(DZ, l.mso, so, orow + o.dz, ld_ops, e0, E, live);
+    store_planes<TE>(Vk, vi, vi, orow + o.v, ld_ops, e0, E, live);
+    store_planes<TE>(dVH, l.mh, h, orow + o.dvh, ld_ops, e0, E, live);
+    store_planes<TE>(VH, h, h, orow + o.vh, ld_ops, e0, E, live);
+    store_planes<TE>(dVO, l.mvo, vo, orow + o.dvo, ld_ops, e0, E, live);
+    store_rows<TE>(GI, so, so, orow + o.gi, ld_ops, e0, E, live);
+    store_rows<TE>(DA, l.mvo, vo, orow + o.da, ld_ops, e0, E, live);
 
     // the input's cotangents become the previous GVP's output cotangents
-    for (int i = threadIdx.x; i < kTile * si; i += kThreads) {
+    for (int i = threadIdx.x; i < TE * si; i += kThreads) {
       const int r = i / si, c = i - r * si;
       dS[r * l.ld_ds + c] = dX[r * l.mx + c];
     }
-    for (int i = threadIdx.x; i < 3 * kTile * vi; i += kThreads) {
+    for (int i = threadIdx.x; i < 3 * TE * vi; i += kThreads) {
       const int row = i / vi, c = i - row * vi;
       dV[row * l.ld_dv + c] = dVin[row * l.mvi + c];
     }
@@ -299,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
 
   // ---- the chain input [s_j, es, s_i], [v_j, ev, v_i]: node and edge parts ----
   const int S = d.S, Vn = d.V, SE = d.SE, VE = d.VE, wn = S + 3 * Vn;
-  for (int i = threadIdx.x; i < kTile * wn; i += kThreads) {
+  for (int i = threadIdx.x; i < TE * wn; i += kThreads) {
     const int r = i / wn, c = i - r * wn;
     const long long e = e0 + r;
     if (e >= E) continue;
@@ -310,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
         vi_ = dS[r * l.ld_ds + S + SE + c];
       } else {
         const int p = (c - S) / Vn, j = c - S - p * Vn;
-        const float* row = dV + (p * kTile + r) * l.ld_dv;
+        const float* row = dV + (p * TE + r) * l.ld_dv;
         vj = row[j];
         vi_ = row[Vn + VE + j];
       }
@@ -318,15 +329,15 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_edge_kernel(
     dnj[(size_t)e * wn + c] = vj;
     dni[(size_t)e * wn + c] = vi_;
   }
-  for (int i = threadIdx.x; i < kTile * SE; i += kThreads) {
+  for (int i = threadIdx.x; i < TE * SE; i += kThreads) {
     const int r = i / SE, c = i - r * SE;
     if (e0 + r < E)
       des[(size_t)(e0 + r) * SE + c] = live[r] ? dS[r * l.ld_ds + S + c] : 0.f;
   }
   float* devp[3] = {devx, devy, devz};
-  for (int i = threadIdx.x; i < 3 * kTile * VE; i += kThreads) {
+  for (int i = threadIdx.x; i < 3 * TE * VE; i += kThreads) {
     const int row = i / VE, c = i - row * VE;
-    const int p = row / kTile, r = row - p * kTile;
+    const int p = row / TE, r = row - p * TE;
     if (e0 + r < E)
       devp[p][(size_t)(e0 + r) * VE + c] =
           live[r] ? dV[row * l.ld_dv + Vn + c] : 0.f;
@@ -392,13 +403,23 @@ struct Prods {
   Prod p[6 * kMaxLayers + 1];   // p[n].tile0: the number of tiles
 };
 
-constexpr int kWT = 32;   // dW tile: rows, columns and edges per stage
+constexpr int kWT = 64;   // dW tile: rows and columns
+constexpr int kWE = 32;   // edges per stage
+constexpr int kWLoads = kWE * kWT / kThreads;   // values per thread per stage
 
+// A block owns a 64 x 64 tile of one weight gradient over one slice of
+// edges; thread (ty, tx) = (t / 16, t % 16) sums the 4 x 4 outputs at rows
+// 4 ty.. and columns 4 tx.. in registers, reading a float4 of each operand
+// per edge.  The stages (32 edges of one plane) are double buffered in
+// shared memory: the next stage's values are loaded into registers while
+// this one's products run, so each stage costs one __syncthreads.  Every
+// output sums over the slice's edges in order, the planes of an edge in
+// order.
 __global__ void __launch_bounds__(kThreads) gvp_bwd_wgrad_kernel(
     Prods P, const float* __restrict__ ops, float* __restrict__ part, int E,
     int split) {
-  __shared__ float ls[kWT][kWT + 1];
-  __shared__ float rs[kWT][kWT + 1];
+  __shared__ __align__(16) float ls[2][kWE][kWT];
+  __shared__ __align__(16) float rs[2][kWE][kWT];
   int idx = 0;
   while (idx + 1 < P.n && P.p[idx + 1].tile0 <= (int)blockIdx.x) ++idx;
   const Prod pr = P.p[idx];
@@ -407,36 +428,70 @@ __global__ void __launch_bounds__(kThreads) gvp_bwd_wgrad_kernel(
   const int k0 = (local / tn) * kWT, c0 = (local % tn) * kWT;
   const long long e_beg = (long long)blockIdx.z * split;
   const long long e_end = min((long long)E, e_beg + split);
-  const int col = threadIdx.x & 31, grp = threadIdx.x >> 5;   // 4 rows each
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (long long base = e_beg; base < e_end; base += kWT) {
-    for (int p = 0; p < pr.planes; ++p) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kWT * kWT; i += kThreads) {
-        const int ee = i >> 5, kk = i & 31;
-        const long long e = base + ee;
-        const bool ok = e < e_end;
-        const float* row = ops + (size_t)e * P.ld;
-        ls[ee][kk] = (ok && k0 + kk < pr.K)
-                         ? (pr.lcol < 0 ? 1.f : row[pr.lcol + p * pr.K + k0 + kk])
-                         : 0.f;
-        rs[ee][kk] = (ok && c0 + kk < pr.N) ? row[pr.rcol + p * pr.N + c0 + kk]
-                                            : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int ee = 0; ee < kWT; ++ee) {
-        const float r = rs[ee][col];
+  const int stages =
+      (int)((e_end - e_beg + kWE - 1) / kWE) * pr.planes;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float lv[kWLoads], rv[kWLoads];
+  auto load = [&](int st) {
+    const long long base = e_beg + (long long)(st / pr.planes) * kWE;
+    const int p = st % pr.planes;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(ls[ee][grp * 4 + q], r, acc[q]);
-      }
+    for (int q = 0; q < kWLoads; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      const int ee = i / kWT, kk = i % kWT;
+      const long long e = base + ee;
+      const bool ok = e < e_end;
+      const float* row = ops + (size_t)(ok ? e : e_beg) * P.ld;
+      lv[q] = (ok && k0 + kk < pr.K)
+                  ? (pr.lcol < 0 ? 1.f : row[pr.lcol + p * pr.K + k0 + kk])
+                  : 0.f;
+      rv[q] = (ok && c0 + kk < pr.N) ? row[pr.rcol + p * pr.N + c0 + kk] : 0.f;
     }
+  };
+  auto store = [&](int b) {
+#pragma unroll
+    for (int q = 0; q < kWLoads; ++q) {
+      const int i = threadIdx.x + q * kThreads;
+      ls[b][i / kWT][i % kWT] = lv[q];
+      rs[b][i / kWT][i % kWT] = rv[q];
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (stages > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int st = 0; st < stages; ++st) {
+    const int b = st & 1;
+    if (st + 1 < stages) load(st + 1);
+#pragma unroll 8
+    for (int ee = 0; ee < kWE; ++ee) {
+      const float4 l4 = *reinterpret_cast<const float4*>(&ls[b][ee][ty * 4]);
+      const float4 r4 = *reinterpret_cast<const float4*>(&rs[b][ee][tx * 4]);
+      const float l[4] = {l4.x, l4.y, l4.z, l4.w};
+      const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(l[i], r[j], acc[i][j]);
+    }
+    if (st + 1 < stages) store(b ^ 1);
+    __syncthreads();
   }
   float* out = part + (size_t)blockIdx.z * P.size + pr.out_off;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int k = k0 + grp * 4 + q;
-    if (k < pr.K && c0 + col < pr.N) out[(size_t)k * pr.N + c0 + col] = acc[q];
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx * 4 + j;
+      if (k < pr.K && c < pr.N) out[(size_t)k * pr.N + c] = acc[i][j];
+    }
   }
 }
 
@@ -483,7 +538,7 @@ Prods make_prods(const Dims& d) {
 
 int total_tiles(const Prods& P) { return P.p[P.n].tile0; }
 
-template <typename Idx>
+template <int TE, typename Idx>
 int launch_edges(const Dims& d, const void* send, const void* recv,
                  const void* emask, const void* s, const void* vx,
                  const void* vy, const void* vz, const void* es,
@@ -492,13 +547,13 @@ int launch_edges(const Dims& d, const void* send, const void* recv,
                  const void* gvy, const void* gvz, void* ops, void* dnj,
                  void* dni, void* des, void* devx, void* devy, void* devz,
                  int E, cudaStream_t stream) {
-  const size_t smem = bwd_layout(d).total * sizeof(float);
+  const size_t smem = bwd_layout(d, TE).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gvp_bwd_edge_kernel<Idx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gvp_bwd_edge_kernel<TE, Idx>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + kTile - 1) / kTile;
-  gvp_bwd_edge_kernel<Idx><<<blocks, kThreads, smem, stream>>>(
+  const int blocks = (E + TE - 1) / TE;
+  gvp_bwd_edge_kernel<TE, Idx><<<blocks, kThreads, smem, stream>>>(
       d, static_cast<const Idx*>(send), static_cast<const Idx*>(recv),
       static_cast<const uint8_t*>(emask), static_cast<const float*>(s),
       static_cast<const float*>(vx), static_cast<const float*>(vy),
@@ -522,7 +577,8 @@ int launch_edges(const Dims& d, const void* send, const void* recv,
 // (ops/gvp_message.py): dims holds (si, vi, h, so, vo) of each GVP; ops
 // [E, gmp_gvp_ops_width], dnj and dni [E, S + 3V], part [max(1,
 // ceil(E / split)), size of dW], dw the flat weight gradient in the weights'
-// order; split is a positive multiple of 32.
+// order; split is a positive multiple of 32; tile the edge tile (8, 16 or
+// 32; ops/gvp_message.py::gvp_tile).
 
 extern "C" const char* gmp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -546,6 +602,35 @@ extern "C" int gmp_gvp_ops_width(const void* dims, int L) {
   return ops_offset(d, L);
 }
 
+// Bytes of dynamic shared memory the backward edge kernel needs at this
+// tile (host only; -1 for bad dims).
+extern "C" int gmp_gvp_bwd_smem(const void* dims, int L, int tile) {
+  Dims d;
+  if (read_dims(dims, L, 0, 0, 0, 0, &d)) return -1;
+  return (int)(bwd_layout(d, tile).total * sizeof(float));
+}
+
+template <typename Idx>
+static int launch_tile(int tile, const Dims& d, const void* send,
+                       const void* recv, const void* emask, const void* s,
+                       const void* vx, const void* vy, const void* vz,
+                       const void* es, const void* evx, const void* evy,
+                       const void* evz, const void* w, const void* gs,
+                       const void* gvx, const void* gvy, const void* gvz,
+                       void* ops, void* dnj, void* dni, void* des, void* devx,
+                       void* devy, void* devz, int E, cudaStream_t st) {
+#define GMP_TILE(T_)                                                        \
+  case T_:                                                                  \
+    return launch_edges<T_, Idx>(d, send, recv, emask, s, vx, vy, vz, es,   \
+                                 evx, evy, evz, w, gs, gvx, gvy, gvz, ops,  \
+                                 dnj, dni, des, devx, devy, devz, E, st);
+  switch (tile) {
+    GMP_TILE(8) GMP_TILE(16) GMP_TILE(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GMP_TILE
+}
+
 extern "C" int gmp_gvp_bwd(
     int device, const void* send, const void* recv, int idx64,
     const void* emask, const void* s, const void* vx, const void* vy,
@@ -556,7 +641,7 @@ extern "C" int gmp_gvp_bwd(
     const void* rowptr_r, const void* order_s, const void* rowptr_s,
     void* ops, void* dnj, void* dni, void* part, void* ds, void* dvx,
     void* dvy, void* dvz, void* des, void* devx, void* devy, void* devz,
-    void* dw, int split, void* stream) {
+    void* dw, int split, int tile, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Dims d;
@@ -564,13 +649,13 @@ extern "C" int gmp_gvp_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   if (E > 0) {
-    rc = idx64 ? launch_edges<long long>(d, send, recv, emask, s, vx, vy, vz,
-                                         es, evx, evy, evz, w, gs, gvx, gvy,
-                                         gvz, ops, dnj, dni, des, devx, devy,
-                                         devz, E, st)
-               : launch_edges<int>(d, send, recv, emask, s, vx, vy, vz, es,
-                                   evx, evy, evz, w, gs, gvx, gvy, gvz, ops,
-                                   dnj, dni, des, devx, devy, devz, E, st);
+    rc = idx64 ? launch_tile<long long>(tile, d, send, recv, emask, s, vx, vy,
+                                        vz, es, evx, evy, evz, w, gs, gvx, gvy,
+                                        gvz, ops, dnj, dni, des, devx, devy,
+                                        devz, E, st)
+               : launch_tile<int>(tile, d, send, recv, emask, s, vx, vy, vz,
+                                  es, evx, evy, evz, w, gs, gvx, gvy, gvz, ops,
+                                  dnj, dni, des, devx, devy, devz, E, st);
     if (rc) return rc;
   }
   if (N > 0) {

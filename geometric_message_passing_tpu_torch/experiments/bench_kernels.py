@@ -1,0 +1,321 @@
+"""Device time of K5 (the GVP message pass) and K7 (TFN's CG contraction) at
+the shapes of their main paths, split by CUDA kernel, on one CUDA card.
+
+    python -m geometric_message_passing_tpu_torch.experiments.bench_kernels \
+        [--only k5 | k5-box | k7 | k7-one-group]
+    PYTHONPATH=<another checkout> python3 <this file> --only k7-one-group
+
+The second form times another checkout's kernels (an older commit of the
+port, unpacked with ``git archive``) through the calls both have, so two
+designs can be compared in one call on one card: ``k5`` and
+``k7-one-group`` use only calls that older checkouts of the port have
+too.
+
+* ``k5``: K5 at layer 0 of ``GVPGNNModel`` (4 layers, its defaults, weights
+  from seed 0, ``use_pallas=True``): random node features and cotangents,
+  the model's edge features, on the star train bucket
+  (``bench.bench_data``'s first 100 train graphs) and on the unsorted
+  10k-atom box (``bench_scale.box_batch``).  Forward ``gvp_message`` under
+  ``no_grad``, backward ``gvp_message_bwd``.
+* ``k5-box``: why K5's backward is slow on the 10k box: the edge kernels'
+  registers, spills and shared memory (``cuobjdump --dump-resource-usage``
+  of the built libraries), the shared memory a block needs at each tile
+  (``gmp_gvp_{fwd,bwd}_smem``) and the blocks that fit an SM by it, and the
+  box forward and backward with every edge tile forced in turn.
+* ``k7``: K7 over one TFN layer's output-irrep groups at TFN's train bucket
+  (E 1400, ``bench.TFN_STAR``), layer 0 and a hidden layer, f32 W, and the
+  hidden layer with bf16 W: random T, W and cotangents, forward and
+  backward through ``edge_weighted_contract_grouped`` (one launch per layer
+  and direction); ``torch.bmm`` over the same groups is the library
+  reading; then ``k7-one-group``.
+* ``k7-one-group``: the same layers through the one-group entry
+  (``edge_weighted_contract``, ``edge_weighted_contract_bwd``): one call
+  per group back to back, then each group alone.
+
+Each reading: the whole call's mean time over ``--iters`` calls by CUDA
+events after warm-up (``cuda_time_ms``), and the device time per call of
+each CUDA kernel under ``torch.profiler`` over the same calls.  The last
+line is one JSON object of the readings with the card's ``nvidia-smi`` name
+and power limit.  It needs a card and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import re
+import subprocess
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from geometric_message_passing_tpu_torch.experiments import bench_scale
+from geometric_message_passing_tpu_torch.experiments.bench import (
+    BATCH_SIZE, bench_data, card_line, tfn_data, tfn_model)
+from geometric_message_passing_tpu_torch.graph import (
+    assemble_batch, build_slot_data)
+from geometric_message_passing_tpu_torch.models import GVPGNNModel
+from geometric_message_passing_tpu_torch.ops import _build
+from geometric_message_passing_tpu_torch.ops import edge_contract as ec
+from geometric_message_passing_tpu_torch.ops import gvp_message as gm
+
+BOX_ATOMS = 10_000
+
+
+def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` back-to-back calls (CUDA
+    events), after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def short_name(key: str) -> str:
+    """A profiler kernel name without its argument list and namespaces."""
+    key = re.sub(r"\(anonymous namespace\)::|^void ", "", key)
+    return re.sub(r"\(.*", "", key)[:80]
+
+
+def kernel_split(fn, iters: int) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches (profiler),
+    by ``short_name``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = defaultdict(float)
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)):
+            split[short_name(ev.key)] += (ev.self_device_time_total
+                                          / 1e3 / iters)
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def reading(fn, iters: int, kernel_names) -> dict:
+    """Whole-call ms, the per-kernel split and the named kernels' sum."""
+    split = kernel_split(fn, iters)
+    return {"call_ms": cuda_time_ms(fn, iters),
+            "kernel_ms": sum(v for k, v in split.items()
+                             if any(n in k for n in kernel_names)),
+            "split_ms": split}
+
+
+def gvp_layer_case(batch, model: GVPGNNModel, seed: int):
+    """K5's inputs at layer 0 of ``model`` on ``batch`` (both on the card):
+    random node features and cotangents, the model's edge features
+    (``embed_edges``) and layer 0's chain weights."""
+    dev = batch.pos.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, S, V = batch.num_nodes, model.s_dim, model.v_dim
+
+    def draw():
+        return [torch.randn((n, S), generator=gen, device=dev)] + [
+            torch.randn((n, V), generator=gen, device=dev) for _ in range(3)]
+
+    with torch.no_grad():
+        es, ev = model.embed_edges(batch)
+        ws = [w.detach().contiguous()
+              for w in model.layers[0].conv.chain_weights()]
+    return ((batch.senders, batch.receivers, batch.edge_mask), draw(),
+            [es.contiguous()] + [ev[..., c].contiguous() for c in range(3)],
+            ws, draw())
+
+
+def k5_readings(iters_train: int, iters_box: int) -> dict:
+    dev = torch.device("cuda")
+    model = GVPGNNModel(num_layers=4, in_dim=1, out_dim=1, use_pallas=True,
+                        device=dev, generator=torch.Generator().manual_seed(0))
+    _, loaders = bench_data()
+    slot = build_slot_data(loaders[0].graphs, device=dev)
+    cases = {
+        "train bucket": (gvp_layer_case(assemble_batch(
+            slot, torch.arange(BATCH_SIZE, device=dev)), model, 31),
+            iters_train),
+        "10k box": (gvp_layer_case(bench_scale.box_batch(
+            BOX_ATOMS, sort=False).to(dev), model, 32), iters_box)}
+    out = {}
+    for label, ((idx, nodes, edges, ws, cots), iters) in cases.items():
+        with torch.no_grad():
+            fwd = reading(lambda: gm.gvp_message(*idx, *nodes, *edges, *ws),
+                          iters, ("gvp_",))
+            bwd = reading(lambda: gm.gvp_message_bwd(*idx, *nodes, *edges, ws,
+                                                     *cots),
+                          iters, ("gvp_",))
+        out[label] = {"E": int(idx[0].shape[0]), "live": int(idx[2].sum()),
+                      "N": int(nodes[0].shape[0]), "fwd": fwd, "bwd": bwd}
+    return out
+
+
+def k7_layer(shapes, e: int, wdtype, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    Ts, Ws, dOs = [], [], []
+    for k, m, w in shapes:
+        Ts.append(torch.randn((e, k, m), generator=gen, device="cuda"))
+        Ws.append(torch.randn((e, k, w), generator=gen, device="cuda")
+                  .to(wdtype))
+        dOs.append(torch.randn((e, w, m), generator=gen, device="cuda"))
+    return Ts, Ws, dOs
+
+
+def k7_readings(iters: int, grouped: bool = True) -> dict:
+    """Per layer: the grouped launch each way (``grouped``) beside the
+    groups' ``torch.bmm`` calls; the layer as one one-group call per group
+    back to back; and each group alone through the one-group entry, with
+    those kernels' sum (a lone group's W may stay in L2 from call to call;
+    a hidden layer's W, 803 MB at E 1400, cannot)."""
+    _, loaders = tfn_data()
+    slot = build_slot_data(loaders[0].graphs, device="cuda")
+    e = assemble_batch(slot, torch.arange(BATCH_SIZE, device="cuda")).num_edges
+    tfn = tfn_model(torch.Generator().manual_seed(0), "cpu")
+    out = {"E": e}
+    for label, layer, wdtype in (("layer 0", 0, torch.float32),
+                                 ("hidden", 1, torch.float32),
+                                 ("hidden bf16 W", 1, torch.bfloat16)):
+        shapes = tfn.convs[layer].tp.group_shapes
+        Ts, Ws, dOs = k7_layer(shapes, e, wdtype, seed=60 + layer)
+        r = out[label] = {"groups": [list(s) for s in shapes]}
+        with torch.no_grad():
+            if grouped:
+                Wf = [W.float() for W in Ws]
+                r["fwd"] = reading(lambda: ec.edge_weighted_contract_grouped(
+                    Ts, Ws), iters, ("contract",))
+                r["bwd"] = reading(lambda: ec.edge_weighted_contract_grouped_bwd(
+                    Ts, Ws, dOs), iters, ("contract",))
+                r["bmm_fwd_ms"] = cuda_time_ms(lambda: [
+                    torch.bmm(W.transpose(1, 2), T) for T, W in zip(Ts, Wf)],
+                    iters)
+                r["bmm_bwd_ms"] = cuda_time_ms(lambda: [
+                    (torch.bmm(W, dO), torch.bmm(T, dO.transpose(1, 2)))
+                    for T, W, dO in zip(Ts, Wf, dOs)], iters)
+                del Wf
+            r["one_group_fwd"] = reading(lambda: [
+                ec.edge_weighted_contract(T, W) for T, W in zip(Ts, Ws)],
+                iters, ("contract",))
+            r["one_group_bwd"] = reading(lambda: [
+                ec.edge_weighted_contract_bwd(T, W, dO)
+                for T, W, dO in zip(Ts, Ws, dOs)], iters, ("contract",))
+            r["per_group"] = [{
+                "fwd_ms": reading(lambda: ec.edge_weighted_contract(T, W),
+                                  iters, ("contract",))["kernel_ms"],
+                "bwd_ms": reading(lambda: ec.edge_weighted_contract_bwd(
+                    T, W, dO), iters, ("contract",))["kernel_ms"]}
+                for T, W, dO in zip(Ts, Ws, dOs)]
+        r["one_group_sum"] = {d: sum(g[f"{d}_ms"] for g in r["per_group"])
+                              for d in ("fwd", "bwd")}
+        del Ts, Ws, dOs
+        torch.cuda.empty_cache()
+    return out
+
+
+def resource_usage(sources=("gvp_message", "gvp_message_bwd")) -> dict:
+    """Registers, stack, shared and local (spilled) bytes of each kernel of
+    the built ``sources`` (``cuobjdump --dump-resource-usage``), by kernel:
+    the raw line after each ``Function`` line."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    usage = {}
+    for source in sources:
+        _build.load(source)
+        text = subprocess.run(
+            [str(cuobjdump), "--dump-resource-usage", str(_build._target(source))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        name = None
+        for line in text.splitlines():
+            line = line.strip()
+            if line.startswith("Function "):
+                name = line[len("Function "):].rstrip(":")
+            elif name and line.startswith("REG:"):
+                usage[f"{source}:{name}"] = line
+                name = None
+    return usage
+
+
+@contextlib.contextmanager
+def forced_tile(tile: int):
+    """K5's edge tile forced to ``tile`` in both directions (in place of
+    ``gvp_tile``'s choice) while the block runs."""
+    saved = gm._tile_for
+    gm._tile_for = lambda source, dims, n_edges, device: tile
+    try:
+        yield
+    finally:
+        gm._tile_for = saved
+
+
+def k5_box_readings(iters: int) -> dict:
+    """K5 on the unsorted 10k box at every edge tile whose shared memory
+    fits, with the edge kernels' resources and the blocks per SM."""
+    dev = torch.device("cuda")
+    model = GVPGNNModel(num_layers=4, in_dim=1, out_dim=1, use_pallas=True,
+                        device=dev, generator=torch.Generator().manual_seed(0))
+    idx, nodes, edges, ws, cots = gvp_layer_case(bench_scale.box_batch(
+        BOX_ATOMS, sort=False).to(dev), model, 32)
+    dims = gm.chain_dims(ws)
+    arr = gm._dims_array(dims)
+    props = torch.cuda.get_device_properties(0)
+    sm_bytes = getattr(props, "shared_memory_per_multiprocessor", 228 * 1024)
+    out = {"E": int(idx[0].shape[0]), "live": int(idx[2].sum()),
+           "chosen_tiles": list(gm.kernel_tiles(ws, idx[0].shape[0], dev)),
+           "sm_shared_bytes": sm_bytes, "resources": resource_usage(),
+           "tiles": {}}
+    for tile in gm.TILES:
+        row = {}
+        for d, source, fn in (
+                ("fwd", "gvp_message",
+                 lambda: gm.gvp_message(*idx, *nodes, *edges, *ws)),
+                ("bwd", "gvp_message_bwd",
+                 lambda: gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots))):
+            lib = _build.load(source)
+            smem_fn = (lib.gmp_gvp_fwd_smem if d == "fwd"
+                       else lib.gmp_gvp_bwd_smem)
+            smem = smem_fn(ctypes.addressof(arr), len(dims), tile)
+            if not 0 < smem <= gm.SMEM_MAX:
+                row[d] = {"smem_bytes": smem, "fits": False}
+                continue
+            with forced_tile(tile), torch.no_grad():
+                r = reading(fn, iters, ("gvp_",))
+            row[d] = dict(r, smem_bytes=smem,
+                          blocks_per_sm_by_smem=sm_bytes // (smem + 1024))
+        out["tiles"][tile] = row
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("k5", "k5-box", "k7", "k7-one-group"),
+                    default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_kernels: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    result = {"card": card, "kind": torch.cuda.get_device_name(0)}
+    if args.only in (None, "k5"):
+        result["k5"] = k5_readings(args.iters, max(2, args.iters // 4))
+    if args.only in (None, "k5-box"):
+        result["k5_box"] = k5_box_readings(max(2, args.iters // 4))
+    if args.only in (None, "k7", "k7-one-group"):
+        result["k7"] = k7_readings(args.iters,
+                                   grouped=args.only != "k7-one-group")
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

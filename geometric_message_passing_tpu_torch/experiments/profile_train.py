@@ -51,7 +51,8 @@ GROUPS = (
     ("K6 egnn_stack", ("egnn_stack_",)),
     ("K1 egnn_message", ("egnn_edge_kernel", "egnn_reduce_kernel")),
     ("K2 egnn_message_bwd", ("egnn_bwd_",)),
-    ("K7 edge_contract", ("contract_fwd", "contract_bwd")),
+    ("K7 edge_contract", ("contract_ring_kernel", "contract_fwd",
+                          "contract_bwd")),
     ("K3/K4 segment sum", ("segsum_",)),
     ("CSR build", ("radixSort", "RadixSort", "searchsorted", "sort")),
     ("matmul outside kernels", ("gemm", "Gemm", "cutlass", "sm90_xmma")),

@@ -13,11 +13,12 @@ weight sqrt((2l3+1)/fan_in) is folded into the CG constant.
 
 Stage 1 is a plain product (one per-edge CG matrix ``sh @ C``, then one
 batched product with the input), as the JAX package leaves it to XLA.
-Stage 2 runs once per output-irrep group through
-``ops.edge_contract.edge_weighted_contract``: the hand-written kernel K7 on
-the card, its plain version on the CPU.  ``T [E, (p,u), m]`` is built
-contiguous; the group's weights, the head output ``[E, n_p*u*w]``, are
-passed as the free view ``[E, (p,u), w]`` and never copied.
+Stage 2 contracts every output-irrep group in one call of
+``ops.edge_contract.edge_weighted_contract_grouped``: one launch of the
+hand-written kernel K7 per layer and direction on the card, its plain
+version on the CPU.  Each group's ``T [E, (p,u), m]`` is built contiguous;
+its weights, the head output ``[E, n_p*u*w]`` (or a slice of the flat
+weights), are passed as the free view ``[E, (p,u), w]`` and never copied.
 
 ``precision`` (the JAX package's ``tp_precision``) is accepted and has no
 effect: on the card both stages are exact f32 (TF32 stays off and K7 uses
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ..irreps import Irreps, tp_paths, wigner_3j
-from ..ops.edge_contract import edge_weighted_contract
+from ..ops.edge_contract import edge_weighted_contract_grouped
 from .equivariant import merge_blocks, split_blocks
 
 
@@ -161,27 +162,32 @@ class EdgeTensorProduct:
         return merge_blocks(outs)
 
     def _apply_combined(self, x, sh, weights, ws=None) -> torch.Tensor:
-        """Stage 1 over the combined CG constant, then one K7 contraction
-        per output irrep over the contiguous k = (path, u) axis."""
+        """Stage 1 over the combined CG constant, then the contractions of
+        all output irreps over their contiguous k = (path, u) axes in one
+        grouped K7 call."""
         u = self._uniform_mul
         xr = _to_channel_layout(x, self.irreps_in)            # [E, u, L]
         C = torch.as_tensor(self._C, dtype=x.dtype, device=x.device)
         tmp = _stage1(xr, sh, C)                             # [E, u, M]
         e = x.shape[0]
-        outs = [None] * len(self.irreps_out)
+        Ts, Ws = [], []
         for g, (i_out, n_p, m0, w0, d3, _, mul_o) in enumerate(self._groups):
             T = tmp[..., m0:m0 + n_p * d3].reshape(e, u, n_p, d3)
-            T = T.transpose(1, 2).reshape(e, n_p * u, d3)    # [E, (p,u), m]
+            Ts.append(T.transpose(1, 2).reshape(e, n_p * u, d3))  # [E, (p,u), m]
             nW = n_p * u * mul_o
             W = ws[g] if ws is not None else weights[..., w0:w0 + nW]
-            W = W.reshape(e, n_p * u, mul_o)                  # [E, (p,u), w]
-            outs[i_out] = edge_weighted_contract(T, W)        # [E, w, m]
+            Ws.append(W.reshape(e, n_p * u, mul_o))           # [E, (p,u), w]
+        outs = [None] * len(self.irreps_out)
+        if Ts:
+            for g, out in zip(self._groups,
+                              edge_weighted_contract_grouped(Ts, Ws)):
+                outs[g[0]] = out                               # [E, w, m]
         return self._zeros_for_missing(outs, x)
 
     def _apply_per_path(self, x, sh, weights) -> torch.Tensor:
         """Non-uniform input multiplicities: per-path CG contractions, the
-        paths of one output irrep stacked along the input-mul axis into one
-        K7 contraction per output irrep."""
+        paths of one output irrep stacked along the input-mul axis, all
+        output irreps in one grouped K7 call."""
         xs = split_blocks(x, self.irreps_in)
         groups = {}   # i_out -> ([tmp...], [W...])
         w_off = 0
@@ -200,10 +206,12 @@ class EdgeTensorProduct:
             g[0].append(tmp)
             g[1].append(W)
         outs = [None] * len(self.irreps_out)
-        for i_out, (tmps, wss) in groups.items():
-            T = torch.cat(tmps, dim=-2)
-            W = torch.cat(wss, dim=-2)
-            outs[i_out] = edge_weighted_contract(T, W)
+        if groups:
+            got = edge_weighted_contract_grouped(
+                [torch.cat(tmps, dim=-2) for tmps, _ in groups.values()],
+                [torch.cat(wss, dim=-2) for _, wss in groups.values()])
+            for i_out, out in zip(groups, got):
+                outs[i_out] = out
         return self._zeros_for_missing(outs, x)
 
 

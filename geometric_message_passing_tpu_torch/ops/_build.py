@@ -48,16 +48,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_sorted_segsum_f64": [I, P, P, P, P, I, I, I, P, P],
     },
     "gvp_message": {
-        # features (8), weights, dims, 7 ints, CSR (2), scratch, outputs (5)
+        # features (8), weights, dims, 7 ints, CSR (2), scratch, outputs
+        # (5), tile, stream
         "gmp_gvp_fwd": [I, P, P, I, P, *[P] * 8, P, P, *[I] * 7, P, P, P,
-                        *[P] * 5, P],
+                        *[P] * 5, I, P],
+        "gmp_gvp_fwd_smem": [P, I, I],   # dims, L, tile
     },
     "gvp_message_bwd": {
         # features (8), weights, dims, 7 ints, cotangents (4), CSRs (4),
-        # scratch (4), node and edge cotangents (4 + 4), dW, split, stream
+        # scratch (4), node and edge cotangents (4 + 4), dW, split, tile,
+        # stream
         "gmp_gvp_bwd": [I, P, P, I, P, *[P] * 8, P, P, *[I] * 7, *[P] * 4,
-                        *[P] * 4, *[P] * 4, *[P] * 4, *[P] * 4, P, I, P],
+                        *[P] * 4, *[P] * 4, *[P] * 4, *[P] * 4, P, I, I, P],
         "gmp_gvp_ops_width": [P, I],
+        "gmp_gvp_bwd_smem": [P, I, I],   # dims, L, tile
     },
     "egnn_stack": {
         # indices, features, weights, CSR (2), scratch (2), outputs (2),
@@ -71,12 +75,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_egnn_stack_bwd": [I, P, P, I, *[P] * 10, *[P] * 19, *[I] * 5, P],
     },
     "edge_contract": {
-        # T, W, out, E, K, m, w, stream
+        # one group: T, W, out, E, K, m, w, stream
         "gmp_contract_fwd": [I, P, P, P, I, I, I, I, P],
         "gmp_contract_fwd_bf16": [I, P, P, P, I, I, I, I, P],
         # T, W, dO, dT, dW, E, K, m, w, stream
         "gmp_contract_bwd": [I, P, P, P, P, P, I, I, I, I, P],
         "gmp_contract_bwd_bf16": [I, P, P, P, P, P, I, I, I, I, P],
+        # all groups in one launch: backward?, groups, pointer table, shape table, items, shared
+        # bytes, ring slot bytes, float offset, T and dO buffer floats, bf16
+        # W, W values per load, largest m, stream
+        "gmp_contract_grouped": [I, I, I, P, P, I, I, I, I, I, I, I, I, I, P],
     },
 }
 

@@ -24,6 +24,7 @@ caller.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -215,6 +216,38 @@ MAX_VECTOR = 128        # each GVP's vector widths vi, h, vo
 MAX_ROW = 256           # node row S + 3V and the message row so + 3 vo
 # edges per slice of the backward's weight-gradient sums (a multiple of 32)
 BWD_SPLIT_EDGES = 512
+TILES = (8, 16, 32)     # edge tiles of the edge kernels (csrc/gvp_common.cuh)
+SMEM_MAX = 227 * 1024   # dynamic shared memory a block can use
+
+
+def gvp_tile(n_edges: int, sms: int, fits=lambda tile: True) -> int:
+    """K5's edge tile for ``n_edges`` edges on a card of ``sms`` SMs: the
+    largest of ``TILES`` that still gives every SM a block (``ceil(n_edges /
+    tile) >= sms``) and whose shared memory ``fits``; the smallest, 8, when
+    no larger one does.  A larger tile reads each staged weight for more
+    edges; a smaller one keeps every SM busy on a small batch (the star train
+    bucket, 1400 edges, keeps 8: 175 blocks on 132 SMs; the 10k box takes
+    the largest that fits)."""
+    tile = TILES[0]
+    for t in TILES[1:]:
+        if -(-n_edges // t) >= sms and fits(t):
+            tile = t
+    return tile
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_for(source: str, dims: tuple, n_edges: int, device: int) -> int:
+    """``gvp_tile`` on card ``device`` with the shared memory the kernel of
+    ``source`` (``gvp_message`` or ``gvp_message_bwd``) needs at each tile
+    (its ``gmp_gvp_{fwd,bwd}_smem``).  Cached: a model calls the same
+    shapes again and again."""
+    lib = _build.load(source)
+    smem_fn = (lib.gmp_gvp_fwd_smem if source == "gvp_message"
+               else lib.gmp_gvp_bwd_smem)
+    arr = _dims_array(dims)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return gvp_tile(n_edges, sms, lambda t: 0 < smem_fn(
+        ctypes.addressof(arr), len(dims), t) <= SMEM_MAX)
 
 
 def chain_dims(weights: Sequence[torch.Tensor]) -> list:
@@ -300,6 +333,18 @@ def _check_cuda_inputs(send, recv, emask, nodes, edges, weights,
     return dims
 
 
+def kernel_tiles(weights: Sequence[torch.Tensor], n_edges: int,
+                 device) -> Tuple[int, int]:
+    """The edge tiles (forward, backward) K5 takes for ``n_edges`` edges of
+    this chain on ``device`` (``gvp_tile`` with the kernels' shared
+    memory)."""
+    dims = tuple(chain_dims(weights))
+    dev = torch.device(device)
+    dev = dev.index if dev.index is not None else torch.cuda.current_device()
+    return (_tile_for("gvp_message", dims, n_edges, dev),
+            _tile_for("gvp_message_bwd", dims, n_edges, dev))
+
+
 def _flat(weights) -> torch.Tensor:
     return torch.cat([w.reshape(-1) for w in weights])
 
@@ -327,13 +372,14 @@ def launch_fwd(send, recv, emask, nodes, edges, w_flat, dims, csr,
     m_e = torch.empty((e, so + 3 * vo), dtype=torch.float32, device=s.device)
     arr = _dims_array(dims)
     dev, stream = _device_and_stream(s)
+    tile = _tile_for("gvp_message", tuple(dims), e, dev)
     _build.check(lib, lib.gmp_gvp_fwd(
         dev, send.data_ptr(), recv.data_ptr(), int(send.dtype == torch.int64),
         emask.data_ptr(), *(t.data_ptr() for t in nodes),
         *(t.data_ptr() for t in edges), w_flat.data_ptr(), ctypes.addressof(arr),
         len(dims), s.shape[1], vx.shape[1], es.shape[1], evx.shape[1], e,
         s.shape[0], *(t.data_ptr() for t in csr), m_e.data_ptr(),
-        *(t.data_ptr() for t in outs), stream), "gvp forward kernels")
+        *(t.data_ptr() for t in outs), tile, stream), "gvp forward kernels")
     return m_e
 
 
@@ -387,6 +433,7 @@ def launch_bwd(send, recv, emask, nodes, edges, w_flat, dims, cots,
     es, evx = edges[0], edges[1]
     arr = _dims_array(dims)
     dev, stream = _device_and_stream(s)
+    tile = _tile_for("gvp_message_bwd", tuple(dims), send.shape[0], dev)
     _build.check(lib, lib.gmp_gvp_bwd(
         dev, send.data_ptr(), recv.data_ptr(), int(send.dtype == torch.int64),
         emask.data_ptr(), *(t.data_ptr() for t in nodes),
@@ -397,7 +444,7 @@ def launch_bwd(send, recv, emask, nodes, edges, w_flat, dims, cots,
         bufs["ops"].data_ptr(), bufs["dnj"].data_ptr(), bufs["dni"].data_ptr(),
         bufs["part"].data_ptr(), *(t.data_ptr() for t in bufs["dnodes"]),
         *(t.data_ptr() for t in bufs["dedges"]), bufs["dw"].data_ptr(),
-        BWD_SPLIT_EDGES, stream), "gvp backward kernels")
+        BWD_SPLIT_EDGES, tile, stream), "gvp backward kernels")
 
 
 def _gvp_message_bwd_cuda(send, recv, emask, nodes, edges, weights, cots,

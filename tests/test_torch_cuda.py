@@ -403,6 +403,49 @@ def test_gvp_bwd_kernel_matches_plain(cuda_device, n, e, node, edge_dims,
             a, w, atol=W_REL * max(w.abs().max().item(), 1.0), rtol=0)
 
 
+# K5's edge tile (``gvp_message.gvp_tile``) at its edges on 132 SMs: 8 up
+# to 2096 edges, 16 from 2097, 32 from 4193 where its shared memory fits
+# (the backward's does not at full width: 16 there)
+GVP_TILE_CASES = [(600, 2096, (16, 4), (8, 1)), (600, 2097, (16, 4), (8, 1)),
+                  (900, 4241, (16, 4), (8, 1)),
+                  (2000, 4300, (128, 16), (32, 1))]   # full width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,node,edge_dims", GVP_TILE_CASES)
+def test_gvp_kernels_at_tile_edges(cuda_device, n, e, node, edge_dims):
+    """K5 forward and backward against the plain versions where the tile
+    rule changes its tile, bitwise repeatable.  Edges within 1e-5 of a ReLU
+    flip are masked off (``relu_margins``), as ``chip_smoke.py`` does; the
+    weight gradients, sums over up to 4300 edges in another order, within
+    1e-4 of their largest entry."""
+    idx, nodes, edges, ws = _gvp_inputs(n, e, node, edge_dims, 3, 24, 0.1,
+                                        torch.int32, cuda_device,
+                                        node[0] == 128)
+    margins = gm.relu_margins(*idx, nodes, edges, ws)
+    idx = (idx[0], idx[1], idx[2] & (margins > 1e-5))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cots = [torch.randn((n, w), generator=gen, device=cuda_device)
+            for w in (node[0],) + (node[1],) * 3]
+    with torch.no_grad():
+        got = [gm.gvp_message(*idx, *nodes, *edges, *ws) for _ in range(2)]
+        want = gm.gvp_message_plain(*idx, *nodes, *edges, ws, 3)
+    grads = [gm.gvp_message_bwd(*idx, *nodes, *edges, ws, *cots)
+             for _ in range(2)]
+    wgrads = gm.gvp_message_bwd_plain(*idx, *nodes, *edges, ws, *cots)
+    torch.cuda.synchronize()
+    for a, b, w in zip(*got, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    for a, b, w in zip(grads[0][:8], grads[1][:8], wgrads[:8]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+    for a, b, w in zip(grads[0][8], grads[1][8], wgrads[8]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(
+            a, w, atol=1e-4 * max(w.abs().max().item(), 1.0), rtol=0)
+
+
 @pytest.mark.cuda
 def test_gvp_autograd_on_card_launches_bwd_kernel(cuda_device):
     idx, nodes, edges, ws = _gvp_inputs(30, 90, (16, 4), (8, 1), 3, 22, 0.1,
@@ -711,6 +754,108 @@ def test_edge_contract_kernels_match_plain(cuda_device, E, K, w, m, wdtype):
         torch.testing.assert_close(g, r, atol=tol * scale, rtol=0)
 
 
+# one launch over groups (m, K, w) of every m up to 15, W in 16-byte
+# vectors (4 f32 or 8 bf16 values per load); with ``odd_w`` one group's w is
+# odd and every group takes the one-group kernel, one launch each
+K7_GROUPS = [(1, 96, 64), (3, 40, 16), (5, 448, 64), (7, 384, 64),
+             (9, 24, 32), (11, 8, 8), (13, 16, 192), (15, 33, 24)]
+
+
+def _k7_groups(E, wdtype, device, seed, strided=False, odd_w=False):
+    """Ts, Ws, dOs of ``K7_GROUPS`` at E edges; ``strided``: every W a
+    slice of one wider tensor (the flat per-edge weights), read in place."""
+    groups = [(m, k, w - (odd_w and i == 1)) for i, (m, k, w)
+              in enumerate(K7_GROUPS)]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Ts = [torch.randn((E, k, m), generator=gen, device=device)
+          for m, k, _ in groups]
+    sizes = [k * w for _, k, w in groups]
+    flat = torch.randn((E, sum(sizes) + 8), generator=gen,
+                       device=device).to(wdtype)
+    Ws, off = [], 0
+    for (m, k, w), n in zip(groups, sizes):
+        W = flat[:, off:off + n].reshape(E, k, w)
+        Ws.append(W if strided else W.contiguous())
+        off += n
+    dOs = [torch.randn((E, w, m), generator=gen, device=device)
+           for m, _, w in groups]
+    return Ts, Ws, dOs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 37, 1400])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided,odd_w", [(False, False), (True, False),
+                                           (False, True)])
+def test_grouped_contract_matches_plain(cuda_device, E, wdtype, strided,
+                                        odd_w):
+    """All groups in one launch each way (with ``odd_w`` one launch of the
+    one-group kernel per group), within the JAX test's tolerances of the
+    plain version group by group, dW in W's type, two runs bitwise equal."""
+    Ts, Ws, dOs = _k7_groups(E, wdtype, cuda_device, E, strided, odd_w)
+    tol = 2e-5 if wdtype == torch.float32 else 3e-2
+
+    def count():
+        return (ec.edge_weighted_contract_grouped.launches,
+                ec.edge_weighted_contract_grouped.bwd_launches,
+                ec.edge_weighted_contract.launches,
+                ec.edge_weighted_contract.bwd_launches)
+
+    before = count()
+    with torch.no_grad():
+        got, again = (ec.edge_weighted_contract_grouped(Ts, Ws)
+                      for _ in range(2))
+    grads, grads2 = (ec.edge_weighted_contract_grouped_bwd(Ts, Ws, dOs)
+                     for _ in range(2))
+    n = 2 * len(K7_GROUPS)
+    want_counts = (0, 0, n, n) if odd_w else (2, 2, 0, 0)
+    assert tuple(a - b for a, b in zip(count(), before)) == want_counts
+    for g in range(len(K7_GROUPS)):
+        want = ec.edge_weighted_contract_plain(Ts[g], Ws[g])
+        wdT, wdW = ec.edge_weighted_contract_bwd_plain(Ts[g], Ws[g], dOs[g])
+        dT, dW = grads[0][g], grads[1][g]
+        assert torch.equal(got[g], again[g])
+        assert torch.equal(dT, grads2[0][g]) and torch.equal(dW, grads2[1][g])
+        assert dW.dtype == wdtype and dW.shape == Ws[g].shape
+        for a, r in ((got[g], want), (dT, wdT), (dW.float(), wdW.float())):
+            scale = max(r.abs().max().item(), 1.0)
+            torch.testing.assert_close(a, r, atol=tol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_grouped_contract_autograd_reaches_strided_weights(cuda_device):
+    """Through autograd with the weights as slices of one tensor: one launch
+    each way, the flat tensor's and the Ts' gradients as on the CPU within
+    the JAX test's 2e-5 of each one's largest entry (f32 sums in another
+    order)."""
+    Ts, _, _ = _k7_groups(29, torch.float32, cuda_device, 5)
+    flat = torch.randn((29, sum(k * w for _, k, w in K7_GROUPS)),
+                       device=cuda_device, requires_grad=True)
+    Tl = [T.clone().requires_grad_(True) for T in Ts]
+
+    def run(T_list, F):
+        Ws, off = [], 0
+        for (m, k, w) in K7_GROUPS:
+            Ws.append(F[:, off:off + k * w].reshape(-1, k, w))
+            off += k * w
+        outs = ec.edge_weighted_contract_grouped(T_list, Ws)
+        return sum((o * (i + 1)).square().sum() for i, o in enumerate(outs))
+
+    before = (ec.edge_weighted_contract_grouped.launches,
+              ec.edge_weighted_contract_grouped.bwd_launches)
+    run(Tl, flat).backward()
+    assert (ec.edge_weighted_contract_grouped.launches,
+            ec.edge_weighted_contract_grouped.bwd_launches) == (
+                before[0] + 1, before[1] + 1)
+    Tc = [T.detach().cpu().requires_grad_(True) for T in Ts]
+    Fc = flat.detach().cpu().requires_grad_(True)
+    run(Tc, Fc).backward()
+    for a, b in [(flat, Fc)] + list(zip(Tl, Tc)):
+        scale = max(b.grad.abs().max().item(), 1.0)
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=2e-5 * scale,
+                                   rtol=0)
+
+
 @pytest.mark.cuda
 def test_edge_contract_autograd_launches_bwd_kernel(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -756,19 +901,19 @@ def test_two_tfn_train_steps_on_card_match_cpu(cuda_device):
                          batch_norm=True, device=dev,
                          generator=torch.Generator().manual_seed(1))
         step = bench_throughput.make_step(model, batch)
-        before = (ec.edge_weighted_contract.launches,
-                  ec.edge_weighted_contract.bwd_launches,
+        before = (ec.edge_weighted_contract_grouped.launches,
+                  ec.edge_weighted_contract_grouped.bwd_launches,
                   sss.segment_sum.launches)
         losses = [step().item()]
         grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
         losses.append(step().item())
-        launched = (ec.edge_weighted_contract.launches - before[0],
-                    ec.edge_weighted_contract.bwd_launches - before[1],
+        launched = (ec.edge_weighted_contract_grouped.launches - before[0],
+                    ec.edge_weighted_contract_grouped.bwd_launches - before[1],
                     sss.segment_sum.launches - before[2])
         results[dev.type] = (losses, launched, grads, {
             k: v.cpu() for k, v in model.state_dict().items()})
     # K4: 2 message sums and the embedding's gradient per step
-    assert results["cuda"][1] == (2 * 2 * 5, 2 * 2 * 5, 2 * 3)
+    assert results["cuda"][1] == (2 * 2, 2 * 2, 2 * 3)
     assert results["cpu"][1] == (0, 0, 0)
     np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
     for name, ref in results["cpu"][2].items():
@@ -787,11 +932,11 @@ def test_tfn_predictor_on_card_matches_cpu(cuda_device):
     model = TFNModel(**kw, device=cuda_device)
     cpu = TFNModel(**kw, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    before = (ec.edge_weighted_contract.launches,
-              ec.edge_weighted_contract.bwd_launches)
+    before = (ec.edge_weighted_contract_grouped.launches,
+              ec.edge_weighted_contract_grouped.bwd_launches)
     y = Predictor(model, batch_size=10).predict(graphs)
-    assert (ec.edge_weighted_contract.launches - before[0],
-            ec.edge_weighted_contract.bwd_launches - before[1]) == (3 * 2 * 5, 0)
+    assert (ec.edge_weighted_contract_grouped.launches - before[0],
+            ec.edge_weighted_contract_grouped.bwd_launches - before[1]) == (3 * 2, 0)
     np.testing.assert_allclose(
         y, Predictor(cpu, batch_size=10, device="cpu").predict(graphs),
         atol=1e-4, rtol=0)

@@ -230,3 +230,26 @@ def test_int32_and_int64_indices_agree():
                              _torch(ws), 2)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n_edges,tile", [
+    (0, 8), (1, 8), (5, 8),              # no edges, below one tile
+    (1400, 8),                           # the star train bucket: 175 blocks
+    (16 * 131, 8), (16 * 131 + 1, 16),   # where 16-edge tiles cover the SMs
+    (32 * 131, 16), (32 * 131 + 1, 32),  # where 32-edge tiles do
+    (4241, 32),                          # not a multiple of the tile
+    (129_224, 32)])                      # the unsorted 10k box
+def test_tile_rule(n_edges, tile):
+    """K5's edge tile on 132 SMs: the largest of 8, 16 and 32 that still
+    gives every SM a block."""
+    assert gm.gvp_tile(n_edges, 132) == tile
+    assert -(-n_edges // tile) >= 132 or tile == 8
+
+
+def test_tile_rule_takes_only_tiles_that_fit():
+    """A tile whose shared memory does not fit is skipped (the backward's
+    32-edge tile at full width); with none fitting the tile is 8."""
+    assert gm.gvp_tile(129_224, 132, fits=lambda t: t <= 16) == 16
+    assert gm.gvp_tile(129_224, 132, fits=lambda t: False) == 8
+    assert gm.gvp_tile(129_224, 114) == 32      # fewer SMs
+    assert gm.gvp_tile(2000, 114) == 16

@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.nn.tensor_product",
                    "geometric_message_passing_tpu_torch.nn.conv",
                    "geometric_message_passing_tpu_torch.models.tfn",
-                   "geometric_message_passing_tpu_torch.experiments.trial_gvp_drift"):
+                   "geometric_message_passing_tpu_torch.experiments.trial_gvp_drift",
+                   "geometric_message_passing_tpu_torch.experiments.bench_kernels"):
         assert module in res["imported"]
 
 

@@ -175,4 +175,4 @@ def test_fit_regression_tracks_jax_for_3_epochs():
         np.testing.assert_allclose(tres.variables[name].numpy(), w, rtol=0,
                                    atol=max(2e-4, 1e-6 * np.abs(w).max()),
                                    err_msg=name)
-    assert ec.edge_weighted_contract.launches == 0
+    assert ec.edge_weighted_contract_grouped.launches == 0
