@@ -12,7 +12,10 @@ Phases; any failure raises and the script exits non-zero:
      kernel, whole call and plain version.  K1 (``egnn_message``): atol =
      rtol = 1e-4 (f32 sums in another order).  K2 (``egnn_message_bwd``):
      the same for dh and dpos, and dW within 1e-5 of its largest entry, at
-     the small and train-bucket shapes; at N 10k / E 129k, where a few of
+     the small and train-bucket shapes and at two random full-width cases
+     where ``edge.egnn_tile`` changes the tile on 132 SMs (E 2097: 16-row
+     tiles; E 4193: 32), with the tile taken and K2's time by CUDA kernel
+     (``torch.profiler``) printed; at N 10k / E 129k, where a few of
      the 50M ReLU pre-activations lie within f32 rounding of zero and flip
      (the plain f32 version differs from a float64 run just as much), at
      most 1% of node rows beyond 1e-4, no entry beyond 0.1, and dW within
@@ -49,10 +52,16 @@ Phases; any failure raises and the script exits non-zero:
      taken and the backward's time by kernel (``torch.profiler``);
   3c. K6 (``egnn_stack``, forward and backward: all 4 EGNN layers, update
      MLP included, one launch per direction) against its plain versions at
-     three shapes: a small random case (N 30, E 110, D 16, 3 layers), the
+     five shapes: a small random case (N 30, E 110, D 16, 3 layers), the
      star train bucket at full width (N 800, E 1400, 4 x 128, the phase-4
-     model's weights) and the unsorted 10k-atom box (129,224 edges, 4 x 128,
-     the same weights).  Forward: atol = rtol = 1e-4.  Backward
+     model's weights), the unsorted 10k-atom box (129,224 edges, 4 x 128,
+     the same weights) and two random full-width cases where
+     ``edge.egnn_tile`` changes the tile (E 2097: 16; E 4193: 32; one layer
+     of width 128 with the random case's weights, LayerNorm scales 1, so a
+     ReLU flip cannot spread through the layers below; the train bucket
+     takes 8, the box 32); the tile rule's shared-memory mirror
+     (``edge.tile_smem_bytes``) equal to the kernels' own count
+     (``gmp_egnn_tile_smem``).  Forward: atol = rtol = 1e-4.  Backward
      (``check_stack_bwd``): dh0 and dpos0 atol = rtol = 1e-4 and each
      layer's dW within 1e-5 of its largest entry (at least 1).  On the box
      some of the 10^8 ReLU pre-activations lie within f32 rounding of zero
@@ -65,7 +74,8 @@ Phases; any failure raises and the script exits non-zero:
      of that output's largest float64 entry, and each layer's dW no further
      from it than 2x the plain f32 version's distance plus 1e-3 of that
      layer's largest entry.  Two runs bitwise equal; kernel, whole call and
-     plain version timed beside the bound (``stack_bound_ms``);
+     plain version timed beside the bound (``stack_bound_ms``), with the
+     tile taken and the device time by CUDA kernel;
   3d. K7's one-group entry (``edge_weighted_contract``, forward and
      backward: the one-group kernels, a block per edge) against its plain
      versions at the JAX test's three shapes (``tests/test_pallas.py``:
@@ -1335,8 +1345,14 @@ def main() -> int:
     small_b = with_cotangents(small, seed=4)
     train_b = train_bucket_case(loaders, cpu_model, seed=5, dev=dev)
     large_b = with_cotangents(large, seed=6)
+    # full width where egnn_tile changes its tile on 132 SMs: 16-row tiles
+    # from 2097 edges, 32-row tiles from 4193
+    k2_tiles = {f"tile edge E {e}": with_cotangents(random_case(
+        n, e, WIDTH, seed=s_, masked=0.1, dev=dev), s_ + 1)
+        for n, e, s_ in ((900, 16 * 131 + 1, 7), (1500, 32 * 131 + 1, 9))}
     bwd_err = max(check_bwd_case("small", small_b),
-                  check_bwd_case("train bucket", train_b))
+                  check_bwd_case("train bucket", train_b),
+                  *(check_bwd_case(k, c) for k, c in k2_tiles.items()))
     bwd_err_large = check_bwd_case("N=10k", large_b, large=True)
     for label, case in (("train bucket", train_b), ("N=10k", large_b)):
         first, second = egnn_message_bwd(*case), egnn_message_bwd(*case)
@@ -1354,12 +1370,20 @@ def main() -> int:
                                iters=10)
     bb_ms, bb_by = bwd_bound_ms(train_b)
     bb_ms_large, bb_by_large = bwd_bound_ms(large_b)
-    for label, k, c, p, b, by in (
-            ("train bucket", bk_ms, bcall_ms, bp_ms, bb_ms, bb_by),
-            ("N=10k", bk_ms_large, bcall_ms_large, bp_ms_large, bb_ms_large,
-             bb_by_large)):
-        log(f"  {label}: K2 kernels {k:.4f} ms, whole call {c:.4f} ms, plain "
-            f"{p:.4f} ms, bound {b:.5f} ms ({by}) [{card}]")
+    k2_split = {}
+    for label, case, k, c, p, b, by in (
+            ("train bucket", train_b, bk_ms, bcall_ms, bp_ms, bb_ms, bb_by),
+            ("N=10k", large_b, bk_ms_large, bcall_ms_large, bp_ms_large,
+             bb_ms_large, bb_by_large)):
+        split = bench_kernels.kernel_split(lambda: egnn_message_bwd(*case), 10)
+        k2_split[label] = {n: v for n, v in split.items()
+                           if n.startswith("egnn_bwd_")}
+        log(f"  {label} (tile {edge.kernel_tile(case[0].shape[0], WIDTH, dev)})"
+            f": K2 kernels {k:.4f} ms, whole call {c:.4f} ms, plain {p:.4f} ms, "
+            f"bound {b:.5f} ms ({by}); by kernel "
+            + ", ".join(f"{n} {v:.4f}" for n, v in k2_split[label].items())
+            + f" ms [{card}]")
+    del k2_tiles
 
     log("[kernels] sorted_segment_sum (K3) and segment_sum (K4) vs "
         f"sorted_segment_sum_plain (atol=rtol={SEG_TOL}) [{card}]")
@@ -1478,20 +1502,41 @@ def main() -> int:
     # 3c. K6 against its plain versions
     log("[kernels] egnn_stack (K6) vs egnn_stack_plain: forward atol = rtol = "
         f"{ATOL}; backward as chip_smoke.check_stack_bwd states [{card}]")
+    # the tile rule sizes shared memory by a Python mirror of the kernels'
+    # layout: it must match the kernels' own count
+    smem_lib = _build.load("egnn_message_bwd")
+    for tile in edge.TILES:
+        for d in (16, 128, 256):
+            if smem_lib.gmp_egnn_tile_smem(tile, d) != edge.tile_smem_bytes(tile, d):
+                raise AssertionError(f"tile {tile}, D {d}: shared memory "
+                                     f"{smem_lib.gmp_egnn_tile_smem(tile, d)} in "
+                                     "the kernels, "
+                                     f"{edge.tile_smem_bytes(tile, d)} mirrored")
+    log(f"  shared memory of a tile: the mirror matches the kernels' at tiles "
+        f"{edge.TILES}, D 16/128/256")
     wall = model_wall(cpu_model, dev)
     k6_small = stack_random_case(30, 110, 16, 3, seed=41, dev=dev)
     k6_train = stack_case(assemble_batch(slot, torch.arange(BATCH, device=dev)),
                           wall, seed=42)
     k6_box = stack_case(gvp_box, wall, seed=43)
+    # full width where egnn_tile changes its tile on 132 SMs (as phase 3),
+    # one layer: a tile runs the same code at any depth, and one layer keeps
+    # a ReLU flip from spreading through the layers below (held strictly)
+    k6_tiles = {f"tile edge E {e}": stack_random_case(n, e, WIDTH, 1,
+                                                      seed=s_, dev=dev)
+                for n, e, s_ in ((900, 16 * 131 + 1, 44), (1500, 32 * 131 + 1, 45))}
     k6_err = max(check_stack_fwd("small", k6_small),
                  check_stack_fwd("train bucket", k6_train),
-                 check_stack_fwd("10k box", k6_box))
+                 check_stack_fwd("10k box", k6_box),
+                 *(check_stack_fwd(k, c) for k, c in k6_tiles.items()))
     k6_bwd_err = max(check_stack_bwd("small", k6_small),
-                     check_stack_bwd("train bucket", k6_train))
+                     check_stack_bwd("train bucket", k6_train),
+                     *(check_stack_bwd(k, c) for k, c in k6_tiles.items()))
     k6_bwd_err_box = check_stack_bwd("10k box", k6_box, large=True)
     k6_times = {}
     for label, case, iters in (("train bucket", k6_train, 50),
-                               ("10k box", k6_box, 5)):
+                               ("10k box", k6_box, 5),
+                               *((k, c, 20) for k, c in k6_tiles.items())):
         args, cot = case
         layers = args[5].shape[0]
         with torch.no_grad():
@@ -1505,17 +1550,28 @@ def main() -> int:
                                                               *cot), iters)
         (fb, fby), (bb, bby) = (stack_bound_ms(case, False),
                                 stack_bound_ms(case, True))
+        tile = edge.kernel_tile(args[0].shape[0], args[3].shape[1], dev)
+        with torch.no_grad():
+            split = {d_: {n: v for n, v in bench_kernels.kernel_split(
+                fn, max(2, iters // 5)).items() if n.startswith("egnn_stack_")}
+                for d_, fn in (
+                    ("fwd", lambda: es.egnn_stack(*args, layers)),
+                    ("bwd", lambda: es.egnn_stack_bwd(*args, layers, *cot)))}
         k6_times[label] = {"E": args[0].shape[0], "live": int(args[2].sum()),
-                           "N": args[3].shape[0], "L": layers,
+                           "N": args[3].shape[0], "L": layers, "tile": tile,
                            "fwd": dict(ms=fk, call_ms=fc, plain_ms=fp,
-                                       bound_ms=fb, bound_by=fby),
+                                       bound_ms=fb, bound_by=fby,
+                                       split_ms=split["fwd"]),
                            "bwd": dict(ms=bk, call_ms=bc, plain_ms=bp,
-                                       bound_ms=bb, bound_by=bby)}
-        log(f"  {label}: forward kernel {fk:.4f} ms, whole call {fc:.4f} ms, "
-            f"plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); backward kernel "
-            f"{bk:.4f} ms, whole call {bc:.4f} ms, plain {bp:.4f} ms, bound "
-            f"{bb:.5f} ms ({bby}) [{card}]")
-    del k6_box, gvp_box, slot
+                                       bound_ms=bb, bound_by=bby,
+                                       split_ms=split["bwd"])}
+        log(f"  {label} (tile {tile}): forward kernel {fk:.4f} ms, whole call "
+            f"{fc:.4f} ms, plain {fp:.4f} ms, bound {fb:.5f} ms ({fby}); "
+            f"backward kernel {bk:.4f} ms, whole call {bc:.4f} ms, plain "
+            f"{bp:.4f} ms, bound {bb:.5f} ms ({bby}); by CUDA kernel "
+            + ", ".join(f"{d_} {n} {v:.4f}" for d_, sp in split.items()
+                        for n, v in sp.items()) + f" ms [{card}]")
+    del k6_box, gvp_box, slot, k6_tiles
     torch.cuda.empty_cache()
 
     # 3d. K7 against its plain versions: the JAX test's shapes, then every
@@ -2232,7 +2288,10 @@ def main() -> int:
         "launches": train_launches[1], "max_abs_err": bwd_err,
         "max_abs_err_n10k": bwd_err_large, "ms": bk_ms, "call_ms": bcall_ms,
         "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
-        "library_ms": None,
+        "library_ms": None, "split_ms": k2_split["train bucket"],
+        "n10k": dict(ms=bk_ms_large, call_ms=bcall_ms_large,
+                     plain_ms=bp_ms_large, bound_ms=bb_ms_large,
+                     split_ms=k2_split["N=10k"]),
     }]
     k5 = k5_times["train bucket"]
     for name, direction, replaces, launched, errs in (
@@ -2263,7 +2322,12 @@ def main() -> int:
             "source": f"geometric_message_passing_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": stack_train[name],
             "serve_launches": stack_serve[name], **errs, **k6[direction],
-            "library_ms": None, "box_10k": k6_times["10k box"][direction]})
+            "library_ms": None, "tile": k6["tile"],
+            "box_10k": dict(k6_times["10k box"][direction],
+                            tile=k6_times["10k box"]["tile"]),
+            "tile_cases": {label: dict(r[direction], tile=r["tile"])
+                           for label, r in k6_times.items()
+                           if label.startswith("tile")}})
     # K3 at the box's receiver plan, D 128 (messages, h gathers); K4 at the
     # shuffled box, D 128; its launches are the TFN run's (phase 6g)
     for name, readings, main_shape, replaces, launched in (

@@ -18,19 +18,17 @@
 // host dominate.
 //
 // What the design does about it: one block of 8 warps takes a tile of 16
-// edges; each warp owns 2 edge rows and each lane 1/32 of the columns, so an
-// activation row stays in registers through its LayerNorm (warp-shuffle
-// sums) and every FMA reads one broadcast activation and one conflict-free
-// weight from shared memory.  The weights do not fit in shared memory
-// together (W1 alone is 131 KB at D = 128), so they stream through it in
-// K-tiles of 32 rows, each used by all 16 edges of the tile.
+// edges and runs egnn_common.cuh's edge_fwd_tile: the tile's rows stay in
+// shared memory, the weights (W1 alone is 131 KB at D = 128) stream through
+// a ring of 32-row K-tiles filled by bulk copies (the TMA), each product is
+// register blocked (2 rows x 4 columns a thread), and the LayerNorms run a
+// warp per row with shuffle sums.  The grid keeps one 16-edge tile per block.
 //
 // Kernel 1 (egnn_edge_kernel) writes per-edge msg [E, D] and pos_msg [E, 3]
 // for live (masked-in) edges.  Kernel 2 (egnn_reduce_kernel) sums them by
 // receiver over a CSR (edge order sorted stably by receiver, row pointers),
 // one warp per node, in ascending edge order: no atomics, so two runs give
-// bitwise-equal outputs.  The count is the row's length.  The warp sum and
-// the K-tiled product are egnn_common.cuh's.
+// bitwise-equal outputs.  The count is the row's length.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,55 +39,7 @@ namespace {
 
 using namespace egnn;
 
-// acc <- relu(LayerNorm(acc + bias) * gamma + beta), biased variance.
-__device__ __forceinline__ void bias_ln_relu(
-    float (&acc)[kRowsPerWarp][kMaxCols], const float* __restrict__ bias,
-    const float* __restrict__ gamma, const float* __restrict__ beta, int D) {
-  const int lane = threadIdx.x & 31;
-  const float inv_d = 1.f / (float)D;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) {
-        acc[r][c] += bias[col];
-        s += acc[r][c];
-      }
-    }
-    const float mu = warp_sum(s) * inv_d;
-    float q = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) {
-        const float t = acc[r][c] - mu;
-        q += t * t;
-      }
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(q) * inv_d + kEps);
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D)
-        acc[r][c] = fmaxf((acc[r][c] - mu) * rstd * gamma[col] + beta[col], 0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_rows(
-    const float (&acc)[kRowsPerWarp][kMaxCols], float* __restrict__ out,
-    int ldo, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) out[(warp * kRowsPerWarp + r) * ldo + col] = acc[r][c];
-    }
-}
+constexpr int kTE = 16;   // edges per block
 
 template <typename Idx>
 __global__ void __launch_bounds__(kThreads) egnn_edge_kernel(
@@ -97,102 +47,10 @@ __global__ void __launch_bounds__(kThreads) egnn_edge_kernel(
     const uint8_t* __restrict__ emask, const float* __restrict__ h,
     const float* __restrict__ pos, const float* __restrict__ W,
     float* __restrict__ msg_e, float* __restrict__ pos_e, int E, int D) {
-  extern __shared__ float smem[];
-  __shared__ float pd_s[kTileRows][3];
-  const int K1 = 2 * D + 1;
-  float* xs = smem;                       // [kTileRows, K1]: [h_i, h_j, d], later msg
-  float* ys = xs + kTileRows * K1;       // [kTileRows, D]: first hidden layer
-  float* ws = ys + kTileRows * D;        // [kTileK, D]: weight K-tile
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long e0 = (long long)blockIdx.x * kTileRows;
-
-  // ---- gather (each warp fills its own rows) ----
-  bool live[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp * kRowsPerWarp + r;
-    const long long e = e0 + row;
-    live[r] = e < E && emask[e] != 0;
-    float* x = xs + row * K1;
-    if (live[r]) {
-      const long long i = (long long)recv[e], j = (long long)send[e];
-      const float* hi = h + i * D;
-      const float* hj = h + j * D;
-      for (int c = lane; c < D; c += 32) {
-        x[c] = hi[c];
-        x[D + c] = hj[c];
-      }
-      if (lane == 0) {
-        const float dx = pos[3 * i] - pos[3 * j];
-        const float dy = pos[3 * i + 1] - pos[3 * j + 1];
-        const float dz = pos[3 * i + 2] - pos[3 * j + 2];
-        const float sq = dx * dx + dy * dy + dz * dz;
-        x[2 * D] = sq > 1e-24f ? sqrtf(sq) : 0.f;
-        pd_s[row][0] = dx;
-        pd_s[row][1] = dy;
-        pd_s[row][2] = dz;
-      }
-    } else {
-      for (int c = lane; c < K1; c += 32) x[c] = 0.f;
-      if (lane < 3) pd_s[row][lane] = 0.f;
-    }
-  }
-
-  // ---- packed weight rows (see pack_egnn_weights) ----
-  const float* W1 = W;
-  const float* b1 = W1 + (size_t)K1 * D;
-  const float* g1 = b1 + D;
-  const float* B1 = g1 + D;
-  const float* W2 = B1 + D;
-  const float* b2 = W2 + (size_t)D * D;
-  const float* g2 = b2 + D;
-  const float* B2 = g2 + D;
-  const float* P1 = B2 + D;
-  const float* pb1 = P1 + (size_t)D * D;
-  const float* pg1 = pb1 + D;
-  const float* pB1 = pg1 + D;
-  const float* P2 = pB1 + D;
-  const float pb2 = P2[D];  // column 0 of the last row
-
-  float acc[kRowsPerWarp][kMaxCols];
-
-  // m = relu(LN(x W1 + b1))
-  matmul_rows(xs, K1, K1, W1, D, ws, acc);
-  bias_ln_relu(acc, b1, g1, B1, D);
-  store_rows(acc, ys, D, D);
-
-  // msg = relu(LN(m W2 + b2)); xs is free once every warp is past stage 1
-  matmul_rows(ys, D, D, W2, D, ws, acc);
-  bias_ln_relu(acc, b2, g2, B2, D);
-  store_rows(acc, xs, D, D);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (!live[r]) continue;
-    float* out = msg_e + (size_t)(e0 + warp * kRowsPerWarp + r) * D;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) out[col] = acc[r][c];
-    }
-  }
-
-  // p = relu(LN(msg P1 + pb1)); scale = p . P2 + pb2; pos_msg = pos_diff * scale
-  matmul_rows(xs, D, D, P1, D, ws, acc);
-  bias_ln_relu(acc, pb1, pg1, pB1, D);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) s = fmaf(acc[r][c], P2[col], s);
-    }
-    const float scale = warp_sum(s) + pb2;
-    const int row = warp * kRowsPerWarp + r;
-    if (live[r] && lane < 3)
-      pos_e[(size_t)(e0 + row) * 3 + lane] = pd_s[row][lane] * scale;
-  }
+  extern __shared__ __align__(16) float smem[];
+  ring_init(smem);
+  edge_fwd_tile<kTE, Idx>(blockIdx.x, send, recv, emask, h, pos, W, msg_e,
+                          pos_e, nullptr, E, D, smem);
 }
 
 // One warp per node: sum its CSR row of per-edge messages in ascending order.
@@ -228,11 +86,7 @@ __global__ void __launch_bounds__(kThreads) egnn_reduce_kernel(
   if (lane == 0) cnt_out[node] = (float)(end - beg);
 }
 
-size_t edge_smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)kTileRows * (2 * D + 1) + (size_t)kTileRows * D +
-          (size_t)kTileK * D);
-}
+size_t edge_smem_bytes(int D) { return sizeof(float) * tile_smem_floats(kTE, D); }
 
 template <typename Idx>
 int launch_edges(const void* send, const void* recv, const void* emask,
@@ -243,7 +97,7 @@ int launch_edges(const void* send, const void* recv, const void* emask,
       egnn_edge_kernel<Idx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + kTileRows - 1) / kTileRows;
+  const int blocks = (E + kTE - 1) / kTE;
   egnn_edge_kernel<Idx><<<blocks, kThreads, smem, stream>>>(
       static_cast<const Idx*>(send), static_cast<const Idx*>(recv),
       static_cast<const uint8_t*>(emask), static_cast<const float*>(h),

@@ -14,29 +14,39 @@
 // rows instead of one-hot [E, N] matmuls, and N and E are not limited.
 //
 // What bounds it: latency, as the forward (egnn_stack.cu).  Per layer the
-// recomputed forward and the backward need about three times the forward's
-// products (the input cotangents dz W^T and the weight gradients x^T dz),
-// some 1 GFLOP for 4 layers at a star batch, 15 us at the f32 rate.  One
-// persistent cooperative launch takes the per-layer launches away; grid
-// barriers separate the phases:
-//   forward, l = 0 .. L-1 (as egnn_stack.cu, layer inputs kept):
-//     edges (edge_fwd_tile) | barrier | nodes (node_fwd_tile: the message
-//     sums msg_acc kept per layer, h and pos of layer l+1 written) | barrier
+// backward needs about twice the forward's products (the input cotangents
+// dz W^T and the weight gradients x^T dz), some 0.7 GFLOP for 4 layers at a
+// star batch, 10 us at the f32 rate.  One persistent cooperative launch
+// takes the per-layer launches away; grid barriers separate the phases:
+//   forward, l = 0 .. L-1 (as egnn_stack.cu): edges (edge_fwd_tile) |
+//     barrier | nodes (node_fwd_tile) | barrier, keeping each layer's input
+//     (h, pos), message sums msg_acc and every LayerNorm's xhat and rstd
+//     (and each edge's scale) in device memory, so the backward recomputes
+//     nothing;
 //   backward, l = L-1 .. 0, the cotangent (dh, dpos) carried in dh0/dpos0:
-//     1. nodes (node_bwd_tile): the update MLP recomputed from (h, msg_acc)
-//        and differentiated: dh + d(upd)/dh, the message sum's cotangent
-//        gmsg, the position sum's gpos = dpos / max(cnt, 1), and per node
-//        the operands of the update MLP's weight gradients; with the sum of
+//     1. nodes (node_bwd_tile): the update MLP differentiated from its kept
+//        activations: dh + d(upd)/dh, the message sum's cotangent gmsg, the
+//        position sum's gpos = dpos / max(cnt, 1), and per node the
+//        operands of the update MLP's weight gradients; with the sum of
 //        layer l+1's weight-gradient slices;
-//     2. barrier; edges (egnn_common.cuh's edge_bwd_tile, K2's edge kernel)
-//        given gmsg and gpos; barrier;
+//     2. barrier; edges (egnn_common.cuh's edge_bwd_tile, K2's) given gmsg
+//        and gpos; barrier;
 //     3. work items: the node sums of the edge cotangents (receiver then
 //        sender CSR rows, ascending edge order) into the carry; the weight
-//        gradients of the message rows over slices of 512 edges and of the
-//        update rows over slices of 512 nodes (32 x 32 tiles and column
+//        gradients of the message rows over slices of edges and of the
+//        update rows over slices of nodes (`split` rows a slice, from
+//        ops/edge.py::bwd_split; tiles of 32 rows x 128 columns and column
 //        sums, rows summed in order); barrier;
 //   and the last layer's slice sum.  No atomics in any sum: two runs are
-//   bitwise equal.
+//   bitwise equal.  The tiles, their products (a ring of weight K-tiles
+//   filled by bulk copies, register blocking) and the tile rule are the
+//   forward's (egnn_stack.cu); the products by transposed weight blocks
+//   read transposed copies that every block writes for its share before
+//   the forward sweep.  Keeping the activations costs L (3D + 4) floats per
+//   edge and L (2D + 4) per node (0.8 GB at 4 x 128 on the 10k-atom box's
+//   129k edges) and takes the forward's products out of every backward
+//   layer; the kernel runs two blocks an SM (at most 128 registers a
+//   thread).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,107 +72,109 @@ __device__ __forceinline__ int upd_vec_row(int v, int D) {
 
 constexpr int kUpdVecRows = 6;
 
-// The update MLP's backward on nodes [16 tile, 16 tile + 16) of one layer,
-// given the layer's input h, its message sums macc and the carried
-// cotangents gh [N, D], gpos [N, 3] of the layer's outputs.  Writes per node:
-// dhn = gh + d(upd)/dh, gmsg = d(upd)/d(msg_acc), gps = gpos / max(cnt, 1)
-// and one row of `ops` [N, 9D] (layout above).
+// The update MLP's backward on nodes [TE tile, TE tile + TE) of one layer,
+// given the layer's input h, its message sums macc, the update MLP's kept
+// activations act [N, act_node_ld(D)] (node_fwd_tile's), its transposed
+// weights wtu (U2^T, U1[:D]^T, U1[D:]^T; transpose_weights) and the carried
+// cotangents gh [N, D], gpos [N, 3] of the layer's outputs.  Writes per
+// node: dhn = gh + d(upd)/dh, gmsg = d(upd)/d(msg_acc), gps = gpos /
+// max(cnt, 1) and one row of `ops` [N, 9D] (layout above).
+template <int TE>
 __device__ void node_bwd_tile(
     long long tile, const int64_t* __restrict__ rowptr, const float* h,
-    const float* macc, const float* __restrict__ Wu, const float* gh,
-    const float* gpos, float* ops, float* dhn, float* gmsg, float* gps,
-    long long N, int D, float* smem) {
-  float* uin = smem;                       // [kTileRows, 2D]: [h, msg_acc]
-  float* ys = uin + kTileRows * 2 * D;     // [kTileRows, D]: u, later dz
-  float* ws = ys + kTileRows * D;          // weight tile, [kTileK, D] or [D, kTStride]
-  const size_t ld = (size_t)9 * D;
+    const float* macc, const float* __restrict__ Wu, const float* wtu,
+    const float* act, const float* gh, const float* gpos, float* ops,
+    float* dhn, float* gmsg, float* gps, long long N, int D, float* smem) {
+  constexpr int TR = TE / 8;
+  const Tile t = carve(smem, TE, D);
+  const size_t ld = (size_t)9 * D, lda = act_node_ld(D), dd = (size_t)D * D;
   const int lane = lane_id();
-  const long long n0 = tile * kTileRows;
-  __syncthreads();
-
-  bool live[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp_row(r);
-    const long long node = n0 + row;
-    live[r] = node < N;
-    float* u = uin + row * 2 * D;
-    if (live[r]) {
-      for (int c = lane; c < D; c += 32) {
-        u[c] = __ldcg(h + (size_t)node * D + c);
-        u[D + c] = __ldcg(macc + (size_t)node * D + c);
-      }
-      if (lane < 3)
-        gps[(size_t)node * 3 + lane] =
-            __ldcg(gpos + (size_t)node * 3 + lane) /
-            fmaxf((float)(rowptr[node + 1] - rowptr[node]), 1.f);
-    } else {
-      for (int c = lane; c < 2 * D; c += 32) u[c] = 0.f;
-    }
-    __syncwarp();
-    if (live[r])
-      for (int c = lane; c < 2 * D; c += 32) ops[(size_t)node * ld + c] = u[c];
-  }
-
+  const long long n0 = tile * TE;
   const UpdWeights w = upd_weights(Wu, D);
-  Rows acc, xh1, xh2, t;
-  float rstd1[kRowsPerWarp], rstd2[kRowsPerWarp];
+  const Weights u2t{wtu, D, D}, u1ht{wtu + dd, D, D}, u1mt{wtu + 2 * dd, D, D};
+  Row v, xh;
+  __syncthreads();
+  prefetch<TR>(t, u2t);
 
-  // ---- forward recompute ----
-  matmul_rows(uin, 2 * D, 2 * D, w.U1, D, ws, acc);   // u = relu(LN(u_in U1 + ub1))
-  bias_normalise(acc, w.ub1, D, rstd1);
-  copy_rows(acc, xh1);
-  affine_relu(xh1, w.ug1, w.uB1, D, t);
-  store_smem(t, ys, D, D);
-  store_edges(t, ops + 2 * D, ld, n0, N, live, D);
-  matmul_rows(ys, D, D, w.U2, D, ws, acc);            // upd = relu(LN(u U2 + ub2))
-  bias_normalise(acc, w.ub2, D, rstd2);
-  copy_rows(acc, xh2);
-  affine_relu(xh2, w.ug2, w.uB2, D, t);
-
-  // ---- dy2 = gh where upd > 0; LN backward -> dz2; du = dz2 U2^T ----
+  // ---- dy2 = gh where upd > 0; LN backward -> dz2 ----
+  for (int row = warp_id(); row < TE; row += kWarps) {
+    const long long node = n0 + row;
+    float* y = t.Y + row * t.ldd;
+    if (node >= N) {
+      for (int c = lane; c < D; c += 32) y[c] = 0.f;
+      continue;
+    }
+    const float* a = act + (size_t)node * lda;
+    float* o = ops + (size_t)node * ld;
+    // every load of the row first: the stores below may alias them
+    Row hv, mv, g;
+    get_row_cg(h + (size_t)node * D, D, hv);
+    get_row_cg(macc + (size_t)node * D, D, mv);
+    get_row_cg(gh + (size_t)node * D, D, g);
+    get_row_cg(a, D, xh);
+    get_row_cg(a + D, D, v);
+    const float rstd2 = __ldcg(a + 2 * D + 1);
+    const float gp = lane < 3 ? __ldcg(gpos + (size_t)node * 3 + lane) : 0.f;
+    put_row(hv, o, D);
+    put_row(mv, o + D, D);
+    if (lane < 3)
+      gps[(size_t)node * 3 + lane] =
+          gp / fmaxf((float)(rowptr[node + 1] - rowptr[node]), 1.f);
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const long long node = n0 + warp_row(r);
+    for (int c = 0; c < kMaxCols; ++c)
+      hv[c] = lane + 32 * c < D ? affine_relu(xh[c], w.ug1, w.uB1, lane + 32 * c) : 0.f;
+    put_row(hv, o + 2 * D, D);                                // u
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       const int col = lane + 32 * c;
-      acc[r][c] = (live[r] && col < D && t[r][c] > 0.f)
-                      ? __ldcg(gh + (size_t)node * D + col) : 0.f;
+      xh[c] = v[c];                                           // xhat2
+      v[c] = (col < D && affine_relu(xh[c], w.ug2, w.uB2, col) > 0.f) ? g[c] : 0.f;
     }
+    put_row(v, xh, o + 7 * D, D);                             // dy2 * xhat2
+    put_row(v, o + 8 * D, D);                                 // dy2
+    row_ln_bwd(v, xh, rstd2, w.ug2, D);
+    put_row(v, o + 6 * D, D);                                 // dz2
+    put_row(v, y, D);
   }
-  store_edges(acc, xh2, ops + 7 * D, ld, n0, N, live, D);   // dy2 * xhat2
-  store_edges(acc, ops + 8 * D, ld, n0, N, live, D);        // dy2
-  ln_backward(acc, xh2, rstd2, w.ug2, D);
-  store_edges(acc, ops + 6 * D, ld, n0, N, live, D);        // dz2
-  store_smem(acc, ys, D, D);
-  matmul_rows_t(ys, D, w.U2, D, ws, acc);
 
-  // ---- dy1 = du where u > 0; LN backward -> dz1; du_in = dz1 U1^T ----
-  affine_relu(xh1, w.ug1, w.uB1, D, t);                     // u
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) acc[r][c] = t[r][c] > 0.f ? acc[r][c] : 0.f;
-  store_edges(acc, xh1, ops + 4 * D, ld, n0, N, live, D);   // dy1 * xhat1
-  store_edges(acc, ops + 5 * D, ld, n0, N, live, D);        // dy1
-  ln_backward(acc, xh1, rstd1, w.ug1, D);
-  store_edges(acc, ops + 3 * D, ld, n0, N, live, D);        // dz1
-  store_smem(acc, ys, D, D);
-  matmul_rows_t(ys, D, w.U1, D, ws, acc);                   // d/dh
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (!live[r]) continue;
-    const long long node = n0 + warp_row(r);
+  // ---- du = dz2 U2^T; dy1 = du where u > 0; LN backward -> dz1 ----
+  mm<TR>(t.Y, t.ldd, u2t, t, t.C, t.ldd, &u1ht);
+  for (int row = warp_id(); row < TE; row += kWarps) {
+    const long long node = n0 + row;
+    if (node >= N) continue;
+    const float* a = act + (size_t)node * lda;
+    float* o = ops + (size_t)node * ld;
+    const float rstd1 = __ldcg(a + 2 * D);
+    get_row_cg(a, D, xh);
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       const int col = lane + 32 * c;
-      if (col < D)
-        dhn[(size_t)node * D + col] = __ldcg(gh + (size_t)node * D + col) + acc[r][c];
+      v[c] = (col < D && affine_relu(xh[c], w.ug1, w.uB1, col) > 0.f)
+                 ? t.C[row * t.ldd + col] : 0.f;
+    }
+    put_row(v, xh, o + 4 * D, D);                             // dy1 * xhat1
+    put_row(v, o + 5 * D, D);                                 // dy1
+    row_ln_bwd(v, xh, rstd1, w.ug1, D);
+    put_row(v, o + 3 * D, D);                                 // dz1
+    put_row(v, t.Y + row * t.ldd, D);
+  }
+
+  // ---- d/dh = dz1 U1[:D]^T, d/dmsg_acc = dz1 U1[D:]^T ----
+  for (int part = 0; part < 2; ++part) {
+    mm<TR>(t.Y, t.ldd, part == 0 ? u1ht : u1mt, t, t.C, t.ldd,
+           part == 0 ? &u1mt : nullptr);
+    for (int row = warp_id(); row < TE; row += kWarps) {
+      const long long node = n0 + row;
+      if (node >= N) continue;
+      for (int c = lane; c < D; c += 32) {
+        const float g = t.C[row * t.ldd + c];
+        if (part == 0)
+          dhn[(size_t)node * D + c] = __ldcg(gh + (size_t)node * D + c) + g;
+        else
+          gmsg[(size_t)node * D + c] = g;
+      }
     }
   }
-  matmul_rows_t(ys, D, w.U1 + (size_t)D * D, D, ws, acc);   // d/dmsg_acc
-  store_edges(acc, gmsg, D, n0, N, live, D);
 }
 
 }  // namespace
@@ -173,19 +185,21 @@ struct BwdArgs {
   const uint8_t* emask;
   const float *h0, *pos0, *w, *gh, *gpos;
   const int64_t *order_r, *rowptr_r, *order_s, *rowptr_s;
-  float *h_ck, *pos_ck, *macc, *msg_e, *pos_e, *nops, *dhn, *gmsg, *gps,
-      *eops, *dhi, *dhj, *dpd, *part_e, *part_n, *dh, *dpos, *dw;
+  float *h_ck, *pos_ck, *macc, *msg_e, *pos_e, *act_e, *act_n, *wt, *nops,
+      *dhn, *gmsg, *gps, *eops, *dhi, *dhj, *dpd, *part_e, *part_n, *dh, *dpos,
+      *dw;
   unsigned int* bar;
+  unsigned long long* stamps;   // phase clock readings, or null
   long long N, E;
   int D, L, split;
 };
 
 // Work items of the reduction phase, in this order: node sums (8 nodes
-// each), message dW tiles, message vector-row columns, update dW tiles,
-// update vector-row columns.
+// each), message dW tiles (32 rows x 128 columns), message vector-row
+// columns, update dW tiles, update vector-row columns.
 struct ReduceItems {
   long long node, ew, ec, nw, nc;
-  int t_w1, t_u1, t_d, se, sn;
+  int t_w1, t_u1, t_d, ct, se, sn;
 };
 
 __host__ __device__ inline ReduceItems reduce_items(long long N, long long E,
@@ -194,12 +208,13 @@ __host__ __device__ inline ReduceItems reduce_items(long long N, long long E,
   it.t_w1 = (2 * D + 1 + kTile - 1) / kTile;
   it.t_u1 = (2 * D + kTile - 1) / kTile;
   it.t_d = (D + kTile - 1) / kTile;
+  it.ct = (D + kWgradCols - 1) / kWgradCols;
   it.se = E > 0 ? (int)((E + split - 1) / split) : 1;
   it.sn = N > 0 ? (int)((N + split - 1) / split) : 1;
   it.node = (N + kWarps - 1) / kWarps;
-  it.ew = (long long)(it.t_w1 + 2 * it.t_d) * it.t_d * it.se;
+  it.ew = (long long)(it.t_w1 + 2 * it.t_d) * it.ct * it.se;
   it.ec = (long long)kVecRows * it.t_d * it.se;
-  it.nw = (long long)(it.t_u1 + it.t_d) * it.t_d * it.sn;
+  it.nw = (long long)(it.t_u1 + it.t_d) * it.ct * it.sn;
   it.nc = (long long)kUpdVecRows * it.t_d * it.sn;
   return it;
 }
@@ -216,15 +231,15 @@ __device__ void reduce_item(const BwdArgs<Idx>& a, const ReduceItems& it,
     return;
   }
   k -= it.node;
-  const size_t ld_e = (size_t)15 * D + 1, ld_n = (size_t)9 * D;
+  const size_t ld_e = ops_edge_ld(D), ld_n = (size_t)9 * D;
   const size_t part_e = (size_t)(4 * D + 12) * D, part_n = (size_t)(3 * D + 6) * D;
   if (k < it.ew) {
     const int tx = it.t_w1 + 2 * it.t_d;
     int x = (int)(k % tx);
-    const int y = (int)((k / tx) % it.t_d), z = (int)(k / ((long long)tx * it.t_d));
+    const int y = (int)((k / tx) % it.ct), z = (int)(k / ((long long)tx * it.ct));
     const Stage st = stage_of_tile(x, 3, D, msg_stage);
     const long long beg = (long long)z * a.split, end = min(a.E, beg + a.split);
-    wgrad_tile(a.eops, ld_e, st, x * kTile, y * kTile, beg, end,
+    wgrad_tile(a.eops, ld_e, st, x * kTile, y * kWgradCols, beg, end,
                a.part_e + z * part_e, D, smem);
     return;
   }
@@ -233,7 +248,7 @@ __device__ void reduce_item(const BwdArgs<Idx>& a, const ReduceItems& it,
     const int v = (int)(k % kVecRows), y = (int)((k / kVecRows) % it.t_d);
     const int z = (int)(k / ((long long)kVecRows * it.t_d));
     const long long beg = (long long)z * a.split, end = min(a.E, beg + a.split);
-    colsum_cols(a.eops, ld_e, 4 * D + 1 + v * D, msg_vec_row(v, D), y * 32, beg,
+    colsum_cols(a.eops, ld_e, ops_vec(D) + v * D, msg_vec_row(v, D), y * 32, beg,
                 end, a.part_e + z * part_e, D, smem);
     return;
   }
@@ -241,10 +256,10 @@ __device__ void reduce_item(const BwdArgs<Idx>& a, const ReduceItems& it,
   if (k < it.nw) {
     const int tx = it.t_u1 + it.t_d;
     int x = (int)(k % tx);
-    const int y = (int)((k / tx) % it.t_d), z = (int)(k / ((long long)tx * it.t_d));
+    const int y = (int)((k / tx) % it.ct), z = (int)(k / ((long long)tx * it.ct));
     const Stage st = stage_of_tile(x, 2, D, upd_stage);
     const long long beg = (long long)z * a.split, end = min(a.N, beg + a.split);
-    wgrad_tile(a.nops, ld_n, st, x * kTile, y * kTile, beg, end,
+    wgrad_tile(a.nops, ld_n, st, x * kTile, y * kWgradCols, beg, end,
                a.part_n + z * part_n, D, smem);
     return;
   }
@@ -274,40 +289,55 @@ __device__ void slice_sum(const BwdArgs<Idx>& a, const ReduceItems& it, int l) {
   }
 }
 
-template <typename Idx>
-__global__ void __launch_bounds__(kThreads) egnn_stack_bwd_kernel(const BwdArgs<Idx> a) {
-  extern __shared__ float smem[];
+template <int TE, typename Idx>
+__global__ void __launch_bounds__(kThreads, 2) egnn_stack_bwd_kernel(const BwdArgs<Idx> a) {
+  extern __shared__ __align__(16) float smem[];
+  ring_init(smem);
   const int D = a.D;
   const long long N = a.N, E = a.E;
-  const long long edge_tiles = (E + kTileRows - 1) / kTileRows;
-  const long long node_tiles = (N + kTileRows - 1) / kTileRows;
+  const long long edge_tiles = (E + TE - 1) / TE;
+  const long long node_tiles = (N + TE - 1) / TE;
   const size_t rows = (size_t)(7 * D + 18) * D;        // floats per layer
   const size_t msg_floats = (size_t)(4 * D + 12) * D;
+  // kept activations per layer (floats)
+  const size_t layer_ae = (size_t)E * act_edge_ld(D), layer_an = (size_t)N * act_node_ld(D);
   const ReduceItems it = reduce_items(N, E, D, a.split);
   const long long items = it.node + it.ew + it.ec + it.nw + it.nc;
   const size_t tid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * kThreads;
 
-  // the carried cotangent starts at the outputs' cotangents
+  int ph = 0;
+  phase_stamp(a.stamps, ph);
+  // the carried cotangent starts at the outputs' cotangents; each layer's
+  // transposed weight blocks for the backward's products (read by bulk
+  // copies after the forward sweep's barriers: the proxy fence orders these
+  // writes before those reads)
   for (size_t i = tid; i < (size_t)N * D; i += stride) a.dh[i] = a.gh[i];
   for (size_t i = tid; i < (size_t)N * 3; i += stride) a.dpos[i] = a.gpos[i];
+  for (int l = 0; l < a.L; ++l)
+    transpose_weights(a.w + (size_t)l * rows, a.wt + (size_t)l * 7 * D * D, D,
+                      true, tid, stride);
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 
-  // ---- forward, keeping each layer's input and message sums ----
+  // ---- forward, keeping each layer's input, message sums and activations ----
   for (int l = 0; l < a.L; ++l) {
     const float* W = a.w + (size_t)l * rows;
     const float* h = l == 0 ? a.h0 : a.h_ck + (size_t)(l - 1) * N * D;
     const float* pos = l == 0 ? a.pos0 : a.pos_ck + (size_t)(l - 1) * N * 3;
     const bool last = l + 1 == a.L;
     for (long long t = blockIdx.x; t < edge_tiles; t += gridDim.x)
-      edge_fwd_tile<Idx>(t, a.send, a.recv, a.emask, h, pos, W, a.msg_e,
-                         a.pos_e, E, D, smem);
+      edge_fwd_tile<TE, Idx>(t, a.send, a.recv, a.emask, h, pos, W, a.msg_e,
+                             a.pos_e, a.act_e + l * layer_ae, E, D, smem);
     grid_sync(a.bar);
+    phase_stamp(a.stamps, ph);
     for (long long t = blockIdx.x; t < node_tiles; t += gridDim.x)
-      node_fwd_tile(t, a.order_r, a.rowptr_r, a.msg_e, a.pos_e, h, pos,
-                    last ? nullptr : W + msg_floats, a.macc + (size_t)l * N * D,
-                    last ? nullptr : a.h_ck + (size_t)l * N * D,
-                    last ? nullptr : a.pos_ck + (size_t)l * N * 3, N, D, smem);
+      node_fwd_tile<TE>(t, a.order_r, a.rowptr_r, a.msg_e, a.pos_e, h, pos,
+                        W + msg_floats, a.macc + (size_t)l * N * D,
+                        last ? nullptr : a.h_ck + (size_t)l * N * D,
+                        last ? nullptr : a.pos_ck + (size_t)l * N * 3,
+                        a.act_n + l * layer_an, N, D, smem);
     grid_sync(a.bar);
+    phase_stamp(a.stamps, ph);
   }
 
   // ---- backward, layer by layer ----
@@ -316,25 +346,33 @@ __global__ void __launch_bounds__(kThreads) egnn_stack_bwd_kernel(const BwdArgs<
     const float* h = l == 0 ? a.h0 : a.h_ck + (size_t)(l - 1) * N * D;
     const float* pos = l == 0 ? a.pos0 : a.pos_ck + (size_t)(l - 1) * N * 3;
     for (long long t = blockIdx.x; t < node_tiles; t += gridDim.x)
-      node_bwd_tile(t, a.rowptr_r, h, a.macc + (size_t)l * N * D,
-                    W + msg_floats, a.dh, a.dpos, a.nops, a.dhn, a.gmsg, a.gps,
-                    N, D, smem);
+      node_bwd_tile<TE>(t, a.rowptr_r, h, a.macc + (size_t)l * N * D,
+                        W + msg_floats, a.wt + ((size_t)l * 7 + 4) * D * D,
+                        a.act_n + l * layer_an, a.dh, a.dpos, a.nops, a.dhn,
+                        a.gmsg, a.gps, N, D, smem);
     if (l + 1 < a.L) slice_sum(a, it, l + 1);
     grid_sync(a.bar);
+    phase_stamp(a.stamps, ph);
     for (long long t = blockIdx.x; t < edge_tiles; t += gridDim.x)
-      edge_bwd_tile<Idx>(t, a.send, a.recv, a.emask, h, pos, W, a.gmsg, a.gps,
-                         a.eops, a.dhi, a.dhj, a.dpd, E, D, smem);
+      edge_bwd_tile<TE, Idx>(t, a.send, a.recv, a.emask, h, pos, W,
+                             a.wt + (size_t)l * 7 * D * D,
+                             a.act_e + l * layer_ae, a.gmsg, a.gps, a.eops, a.dhi,
+                             a.dhj, a.dpd, E, D, smem);
     grid_sync(a.bar);
+    phase_stamp(a.stamps, ph);
     for (long long k = blockIdx.x; k < items; k += gridDim.x)
-      reduce_item(a, it, k, smem);
+      reduce_item(a, it, k, smem + kHead);   // the ring's head stays
     grid_sync(a.bar);
+    phase_stamp(a.stamps, ph);
   }
   slice_sum(a, it, 0);
+  __syncthreads();
+  phase_stamp(a.stamps, ph);
 }
 
 namespace {
 
-template <typename Idx>
+template <int TE, typename Idx>
 int launch(const BwdArgs<Idx>& a, cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -344,38 +382,40 @@ int launch(const BwdArgs<Idx>& a, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  const size_t smem = sizeof(float) * stack_smem_floats(a.D);
-  err = cudaFuncSetAttribute(egnn_stack_bwd_kernel<Idx>,
+  const size_t smem = sizeof(float) * stack_bwd_smem_floats(TE, a.D);
+  err = cudaFuncSetAttribute(egnn_stack_bwd_kernel<TE, Idx>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, egnn_stack_bwd_kernel<Idx>, kThreads, smem);
+        &per_sm, egnn_stack_bwd_kernel<TE, Idx>, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // as many blocks as the card holds at once, but no more than the largest
   // phase has tiles or items
   const ReduceItems it = reduce_items(a.N, a.E, a.D, a.split);
   long long work = it.node + it.ew + it.ec + it.nw + it.nc;
-  const long long tiles = ((a.E > a.N ? a.E : a.N) + kTileRows - 1) / kTileRows;
+  const long long tiles = ((a.E > a.N ? a.E : a.N) + TE - 1) / TE;
   if (tiles > work) work = tiles;
   const long long cap = (long long)per_sm * sms;
   const int grid = (int)(work < cap ? work : cap);
   void* args[] = {const_cast<BwdArgs<Idx>*>(&a)};
-  err = cudaLaunchCooperativeKernel(egnn_stack_bwd_kernel<Idx>, dim3(grid),
+  err = cudaLaunchCooperativeKernel(egnn_stack_bwd_kernel<TE, Idx>, dim3(grid),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+constexpr int kBufs = 21;   // float buffers, then the barrier
 
 template <typename Idx>
 int run(const void* send, const void* recv, const void* emask, const void* h0,
         const void* pos0, const void* w, const void* gh, const void* gpos,
         const void* order_r, const void* rowptr_r, const void* order_s,
         const void* rowptr_s, void* const* bufs, int N, int E, int D, int L,
-        int split, cudaStream_t stream) {
-  float* f[18];
-  for (int i = 0; i < 18; ++i) f[i] = static_cast<float*>(bufs[i]);
+        int split, int tile, void* stamps, cudaStream_t stream) {
+  float* f[kBufs];
+  for (int i = 0; i < kBufs; ++i) f[i] = static_cast<float*>(bufs[i]);
   const BwdArgs<Idx> a{
       static_cast<const Idx*>(send), static_cast<const Idx*>(recv),
       static_cast<const uint8_t*>(emask), static_cast<const float*>(h0),
@@ -384,9 +424,13 @@ int run(const void* send, const void* recv, const void* emask, const void* h0,
       static_cast<const int64_t*>(order_r), static_cast<const int64_t*>(rowptr_r),
       static_cast<const int64_t*>(order_s), static_cast<const int64_t*>(rowptr_s),
       f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10], f[11],
-      f[12], f[13], f[14], f[15], f[16], f[17],
-      static_cast<unsigned int*>(bufs[18]), N, E, D, L, split};
-  return launch(a, stream);
+      f[12], f[13], f[14], f[15], f[16], f[17], f[18], f[19], f[20],
+      static_cast<unsigned int*>(bufs[kBufs]),
+      static_cast<unsigned long long*>(stamps), N, E, D, L, split};
+  if (tile == 8) return launch<8, Idx>(a, stream);
+  if (tile == 16) return launch<16, Idx>(a, stream);
+  if (tile == 32) return launch<32, Idx>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -395,11 +439,13 @@ int run(const void* send, const void* recv, const void* emask, const void* h0,
 // (0 = success).  Shapes and types are checked, the CSRs built and the
 // buffers allocated by the Python wrapper (ops/egnn_stack.py::bwd_buffers,
 // in this order): h_ck [L-1, N, D], pos_ck [L-1, N, 3], macc [L, N, D],
-// msg_e [E, D], pos_e [E, 3], nops [N, 9D], dhn [N, D], gmsg [N, D],
-// gps [N, 3], eops [E, 15D+1], dhi and dhj [E, D], dpd [E, 3],
-// part_e [max(1, ceil(E/split)), 4D+12, D], part_n [max(1, ceil(N/split)),
-// 3D+6, D], the outputs dh0 [N, D], dpos0 [N, 3], dw [L, 7D+18, D], and bar,
-// two zeroed 32-bit counters; split is a positive multiple of 32.
+// msg_e [E, D], pos_e [E, 3], act_e [L, E, 3D+4], act_n [L, N, 2D+4], wt
+// [L, 7, D, D] (transposed weight blocks), nops [N, 9D], dhn [N, D], gmsg [N, D], gps [N, 3], eops [E, 15D+4], dhi
+// and dhj [E, D], dpd [E, 3], part_e [max(1, ceil(E/split)), 4D+12, D],
+// part_n [max(1, ceil(N/split)), 3D+6, D], the outputs dh0 [N, D], dpos0
+// [N, 3], dw [L, 7D+18, D], and bar, two zeroed 32-bit counters; stamps
+// null, or 5L + 2 64-bit slots for the clock at the start and after each
+// phase; split is a positive multiple of 32, tile one of 8, 16 and 32.
 
 extern "C" const char* gmp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -410,21 +456,23 @@ extern "C" int gmp_egnn_stack_bwd(
     const void* emask, const void* h0, const void* pos0, const void* w,
     const void* gh, const void* gpos, const void* order_r,
     const void* rowptr_r, const void* order_s, const void* rowptr_s,
-    void* h_ck, void* pos_ck, void* macc, void* msg_e, void* pos_e, void* nops,
-    void* dhn, void* gmsg, void* gps, void* eops, void* dhi, void* dhj,
-    void* dpd, void* part_e, void* part_n, void* dh0, void* dpos0, void* dw,
-    void* bar, int N, int E, int D, int L, int split, void* stream) {
+    void* h_ck, void* pos_ck, void* macc, void* msg_e, void* pos_e,
+    void* act_e, void* act_n, void* wt, void* nops, void* dhn, void* gmsg,
+    void* gps,
+    void* eops, void* dhi, void* dhj, void* dpd, void* part_e, void* part_n,
+    void* dh0, void* dpos0, void* dw, void* bar, void* stamps, int N, int E,
+    int D, int L, int split, int tile, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N == 0) return 0;
-  void* const bufs[] = {h_ck, pos_ck, macc, msg_e, pos_e, nops, dhn, gmsg, gps,
-                        eops, dhi, dhj, dpd, part_e, part_n, dh0, dpos0, dw,
-                        bar};
+  void* const bufs[] = {h_ck, pos_ck, macc, msg_e, pos_e, act_e, act_n, wt,
+                        nops, dhn, gmsg, gps, eops, dhi, dhj, dpd, part_e,
+                        part_n, dh0, dpos0, dw, bar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return idx64 ? run<long long>(send, recv, emask, h0, pos0, w, gh, gpos,
                                 order_r, rowptr_r, order_s, rowptr_s, bufs, N,
-                                E, D, L, split, s)
+                                E, D, L, split, tile, stamps, s)
                : run<int>(send, recv, emask, h0, pos0, w, gh, gpos, order_r,
                           rowptr_r, order_s, rowptr_s, bufs, N, E, D, L, split,
-                          s);
+                          tile, stamps, s);
 }

@@ -1,15 +1,32 @@
-"""Device time of K5 (the GVP message pass) and K7 (TFN's CG contraction) at
-the shapes of their main paths, split by CUDA kernel, on one CUDA card.
+"""Device time of the EGNN kernels (K1, K2, K6), K5 (the GVP message pass)
+and K7 (TFN's CG contraction) at the shapes of their main paths, split by
+CUDA kernel, on one CUDA card.
 
     python -m geometric_message_passing_tpu_torch.experiments.bench_kernels \
-        [--only k5 | k5-box | k7 | k7-one-group]
-    PYTHONPATH=<another checkout> python3 <this file> --only k7-one-group
+        [--only k6 | k2 | k1 | k5 | k5-box | k7 | k7-one-group]
+    PYTHONPATH=<another checkout> python3 <this file> --only k6
 
 The second form times another checkout's kernels (an older commit of the
 port, unpacked with ``git archive``) through the calls both have, so two
-designs can be compared in one call on one card: ``k5`` and
-``k7-one-group`` use only calls that older checkouts of the port have
-too.
+designs can be compared in one call on one card: ``k6``, ``k2``, ``k1``,
+``k5`` and ``k7-one-group`` use only calls that older checkouts of the port
+have too.
+
+* ``k6``: K6 (``egnn_stack`` under ``no_grad``, ``egnn_stack_bwd``) with the
+  weights of ``EGNNFusedModel(4 layers, 128 wide, pool "first")`` from seed
+  0, random node features and cotangents, on the star train bucket
+  (``bench.bench_data``'s first 100 train graphs: N 800, E 1400) and on the
+  unsorted 10k-atom box (``bench_scale.box_batch``); the plain versions
+  timed beside them, the time of each phase between K6's grid barriers
+  from the kernel's clock stamps (``k6_phases``) and, at the train bucket,
+  the kernel at each tile (``forced_egnn_tile``) beside the rule's choice.
+* ``k2``: K2 (``egnn_message_bwd``) with that model's layer-0 message rows
+  at the same two shapes, plain version beside it, and at the train bucket
+  each tile.
+* ``k1``: K1 (``egnn_message`` under ``no_grad``) on the first serving
+  batch of the 1400 star graphs (E 1408) and on the box, plain beside it.
+* each of the three adds the registers, spills and stack frame of every
+  kernel of the ``egnn_*`` sources (``resource_usage``).
 
 * ``k5``: K5 at layer 0 of ``GVPGNNModel`` (4 layers, its defaults, weights
   from seed 0, ``use_pallas=True``): random node features and cotangents,
@@ -44,6 +61,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import inspect
 import json
 import re
 import subprocess
@@ -58,13 +76,21 @@ from geometric_message_passing_tpu_torch.experiments import bench_scale
 from geometric_message_passing_tpu_torch.experiments.bench import (
     BATCH_SIZE, bench_data, card_line, tfn_data, tfn_model)
 from geometric_message_passing_tpu_torch.graph import (
-    assemble_batch, build_slot_data)
-from geometric_message_passing_tpu_torch.models import GVPGNNModel
+    GraphLoader, assemble_batch, build_slot_data, pad_sizes)
+from geometric_message_passing_tpu_torch.models import (EGNNFusedModel,
+                                                        GVPGNNModel)
 from geometric_message_passing_tpu_torch.ops import _build
+from geometric_message_passing_tpu_torch.ops import edge
+from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import edge_contract as ec
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 
 BOX_ATOMS = 10_000
+EGNN_SOURCES = ("egnn_message", "egnn_message_bwd", "egnn_stack",
+                "egnn_stack_bwd")
+# kernel-name fragments of each EGNN kernel's CUDA kernels
+K1_NAMES, K2_NAMES, K6_NAMES = (("egnn_edge_kernel", "egnn_reduce_kernel"),
+                                ("egnn_bwd_",), ("egnn_stack_",))
 
 
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -159,6 +185,141 @@ def k5_readings(iters_train: int, iters_box: int) -> dict:
                           iters, ("gvp_",))
         out[label] = {"E": int(idx[0].shape[0]), "live": int(idx[2].sum()),
                       "N": int(nodes[0].shape[0]), "fwd": fwd, "bwd": bwd}
+    return out
+
+
+def egnn_cases(dev, box: bool = True) -> dict:
+    """The EGNN kernels' inputs on the card, by label: the star train bucket
+    and (``box``) the unsorted 10k box, each ``(send, recv, emask, h, pos)``
+    with random ``h``; the serving bucket (E 1408) the same; the stacked
+    rows ``wall [4, 7D+18, D]`` of ``EGNNFusedModel(4, 128)`` from seed 0."""
+    model = EGNNFusedModel(4, 128, 1, 1, pool="first", device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        wall = torch.stack([c.stack_packed() for c in model.convs]).to(dev)
+    graphs, loaders = bench_data()
+    slot = build_slot_data(loaders[0].graphs, device=dev)
+    batches = {"train bucket": assemble_batch(
+        slot, torch.arange(BATCH_SIZE, device=dev))}
+    serve = next(iter(GraphLoader(graphs, BATCH_SIZE,
+                                  pad=pad_sizes(graphs, BATCH_SIZE))))
+    batches["serve bucket"] = serve.to(dev)
+    if box:
+        batches["10k box"] = bench_scale.box_batch(BOX_ATOMS, sort=False).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    cases = {}
+    for label, b in batches.items():
+        h = torch.randn((b.num_nodes, wall.shape[2]), generator=gen, device=dev)
+        cases[label] = (b.senders, b.receivers, b.edge_mask, h, b.pos)
+    return {"wall": wall, "cases": cases}
+
+
+def k6_phases(args, wall, gh, gpos, reps: int = 5) -> dict:
+    """K6's time by phase (us, the median of ``reps`` launches), from the
+    kernels' clock stamps: forward edges and nodes per layer; backward the
+    forward sweep's edges and nodes per layer, then per layer (L-1 first)
+    the update MLP's backward, the edges' backward and the sums and weight
+    gradients, and the last slice sum.  Each phase includes its grid
+    barrier.  Empty for a checkout whose K6 takes no stamps."""
+    if "stamps" not in inspect.signature(es._launch_fwd).parameters:
+        return {}
+    send, recv, emask, h = args[:4]
+    (n, d), e, layers = h.shape, send.shape[0], wall.shape[0]
+    rcsr = edge.receiver_csr(recv, emask, n)
+    scsr = edge.sender_csr(send, emask, n)
+    out = {}
+    for direction, slots in (("fwd", 2 * layers + 1), ("bwd", 5 * layers + 2)):
+        names = [f"{p} {l}" for l in range(layers) for p in ("edges", "nodes")]
+        if direction == "bwd":
+            names += [f"{p} {l}" for l in reversed(range(layers))
+                      for p in ("node bwd", "edge bwd", "sums+dW")] + ["slice sum"]
+        runs = []
+        for _ in range(reps + 1):
+            stamps = torch.zeros(slots, dtype=torch.int64, device=h.device)
+            if direction == "fwd":
+                es._launch_fwd(*args, wall, *rcsr,
+                               es.fwd_buffers(n, e, d, h.device), stamps)
+            else:
+                es._launch_bwd(*args, wall, gh, gpos, rcsr, scsr,
+                               es.bwd_buffers(n, e, d, layers, h.device), stamps)
+            torch.cuda.synchronize()
+            runs.append((stamps[1:] - stamps[:-1]).double().cpu() / 1e3)
+        med = torch.stack(runs[1:]).median(dim=0).values
+        out[direction] = dict(zip(names, [round(float(x), 3) for x in med]))
+    return out
+
+
+@contextlib.contextmanager
+def forced_egnn_tile(tile: int):
+    """K2's and K6's tile forced to ``tile`` (in place of ``egnn_tile``'s
+    choice) while the block runs."""
+    saved = edge._tile_for
+    edge._tile_for = lambda n_edges, d, device: tile
+    try:
+        yield
+    finally:
+        edge._tile_for = saved
+
+
+def egnn_readings(which: str, iters_small: int, iters_box: int) -> dict:
+    """``which`` (k6, k2 or k1) at its two shapes: whole call, device time by
+    CUDA kernel, the plain version's call, with the shape's live edges."""
+    dev = torch.device("cuda")
+    made = egnn_cases(dev)
+    wall, cases = made["wall"], made["cases"]
+    labels = ("serve bucket", "10k box") if which == "k1" else (
+        "train bucket", "10k box")
+    out = {}
+    for label in labels:
+        args = cases[label]
+        n, d = args[3].shape
+        iters = iters_box if label == "10k box" else iters_small
+        gen = torch.Generator(device=dev).manual_seed(71)
+        gh = torch.randn((n, d), generator=gen, device=dev)
+        gpos = torch.randn((n, 3), generator=gen, device=dev)
+        w0 = wall[0, : edge.msg_rows(d)].contiguous()
+        layers = wall.shape[0]
+        with torch.no_grad():
+            if which == "k6":
+                r = {"fwd": reading(lambda: es.egnn_stack(*args, wall, layers),
+                                    iters, K6_NAMES),
+                     "bwd": reading(lambda: es.egnn_stack_bwd(
+                         *args, wall, layers, gh, gpos), iters, K6_NAMES),
+                     "fwd_plain_ms": cuda_time_ms(lambda: es.egnn_stack_plain(
+                         *args, wall, layers), iters),
+                     "bwd_plain_ms": cuda_time_ms(
+                         lambda: es.egnn_stack_bwd_plain(*args, wall, layers,
+                                                         gh, gpos), iters),
+                     "phases_us": k6_phases(args, wall, gh, gpos)}
+            elif which == "k2":
+                r = {"bwd": reading(lambda: edge.egnn_message_bwd(
+                         *args, w0, gh, gpos), iters, K2_NAMES),
+                     "bwd_plain_ms": cuda_time_ms(
+                         lambda: edge.egnn_message_bwd_plain(*args, w0, gh,
+                                                             gpos), iters)}
+            else:
+                r = {"fwd": reading(lambda: edge.egnn_message(*args, w0),
+                                    iters, K1_NAMES),
+                     "fwd_plain_ms": cuda_time_ms(
+                         lambda: edge.egnn_message_plain(*args, w0), iters)}
+        if which != "k1" and label != "10k box" and hasattr(edge, "egnn_tile"):
+            # the train bucket at every tile, the rule's choice among them
+            r["tile"] = edge.kernel_tile(args[0].shape[0], d, dev)
+            r["by_tile_ms"] = {}
+            for tile in edge.TILES:
+                with forced_egnn_tile(tile), torch.no_grad():
+                    fns = ({"fwd": lambda: es.egnn_stack(*args, wall, layers),
+                            "bwd": lambda: es.egnn_stack_bwd(*args, wall, layers,
+                                                             gh, gpos)}
+                           if which == "k6" else
+                           {"bwd": lambda: edge.egnn_message_bwd(*args, w0, gh,
+                                                                 gpos)})
+                    r["by_tile_ms"][tile] = {
+                        k: reading(fn, iters, K6_NAMES if which == "k6"
+                                   else K2_NAMES)["kernel_ms"]
+                        for k, fn in fns.items()}
+        out[label] = dict(r, N=n, E=int(args[0].shape[0]),
+                          live=int(args[2].sum()))
     return out
 
 
@@ -298,14 +459,20 @@ def k5_box_readings(iters: int) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("k5", "k5-box", "k7", "k7-one-group"),
-                    default=None)
+    ap.add_argument("--only", choices=("k6", "k2", "k1", "k5", "k5-box", "k7",
+                                       "k7-one-group"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     result = {"card": card, "kind": torch.cuda.get_device_name(0)}
+    for which in ("k6", "k2", "k1"):
+        if args.only in (None, which):
+            result[which] = egnn_readings(which, args.iters,
+                                          max(2, args.iters // 4))
+    if args.only in (None, "k6", "k2", "k1"):
+        result["egnn_resources"] = resource_usage(EGNN_SOURCES)
     if args.only in (None, "k5"):
         result["k5"] = k5_readings(args.iters, max(2, args.iters // 4))
     if args.only in (None, "k5-box"):

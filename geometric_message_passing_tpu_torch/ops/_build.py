@@ -39,8 +39,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_egnn_reduce": [I, P, P, P, P, P, P, P, I, I, P],
     },
     "egnn_message_bwd": {
-        "gmp_egnn_bwd": [I, P, P, I, P, P, P, P, P, P, P, P, P, P,
-                         P, P, P, P, P, P, P, P, I, I, I, I, P],
+        # indices, features, weights, cotangents (2), CSRs (4), scratch and
+        # outputs (10), N, E, D, split, tile, stream
+        "gmp_egnn_bwd": [I, P, P, I, *[P] * 10, *[P] * 10, *[I] * 5, P],
+        "gmp_egnn_tile_smem": [I, I],   # tile, D
     },
     "sorted_segsum": {
         # data, perm, rowptr, out, N, D, G, scratch, stream
@@ -65,14 +67,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "egnn_stack": {
         # indices, features, weights, CSR (2), scratch (2), outputs (2),
-        # barrier, N, E, D, L, stream
-        "gmp_egnn_stack_fwd": [I, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
-                               I, I, I, I, P],
+        # barrier, phase stamps, N, E, D, L, tile, stream
+        "gmp_egnn_stack_fwd": [I, P, P, I, *[P] * 12, *[I] * 5, P],
     },
     "egnn_stack_bwd": {
         # indices, features, weights, cotangents (2), CSRs (4), scratch and
-        # outputs (18), barrier, N, E, D, L, split, stream
-        "gmp_egnn_stack_bwd": [I, P, P, I, *[P] * 10, *[P] * 19, *[I] * 5, P],
+        # outputs (21), barrier, phase stamps, N, E, D, L, split, tile, stream
+        "gmp_egnn_stack_bwd": [I, P, P, I, *[P] * 10, *[P] * 23, *[I] * 6, P],
     },
     "edge_contract": {
         # one group: T, W, out, E, K, m, w, stream

@@ -20,6 +20,7 @@ and, over masked-in edges, per receiver: sum of msg [N, D], sum of
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Tuple
 
 import torch
@@ -220,6 +221,9 @@ def _check_cuda_inputs(send, recv, emask, h, pos, packed_w,
     if packed_w.shape != (msg_rows(d), d):
         raise ValueError(f"egnn_message: packed_w shape {tuple(packed_w.shape)} "
                          f"!= ({msg_rows(d)}, {d})")
+    if packed_w.data_ptr() % 16:
+        raise ValueError("egnn_message: packed_w must be 16-byte aligned (the "
+                         "kernels copy it in 16-byte pieces)")
     e = send.shape[0]
     if send.dtype not in (torch.int32, torch.int64) or recv.dtype != send.dtype:
         raise ValueError("egnn_message: send/recv must both be int32 or int64")
@@ -229,6 +233,64 @@ def _check_cuda_inputs(send, recv, emask, h, pos, packed_w,
         raise ValueError(f"egnn_message: emask must be bool, got {emask.dtype}")
     if n >= 2**31 or e >= 2**31:
         raise ValueError("egnn_message: N and E must be below 2**31")
+
+
+TILES = (8, 16, 32)     # rows of an edge or node tile (csrc/egnn_common.cuh)
+SMEM_MAX = 227 * 1024   # dynamic shared memory a block can use
+
+
+def _row_ld(n: int) -> int:
+    """``egnn_common.cuh::row_ld``: a tile's row stride, 4 mod 32 floats."""
+    return (n + 27) // 32 * 32 + 4
+
+
+_HEAD = 16    # the ring's mbarriers and K-tile counts
+_SMALL = 12   # per-row scalars
+
+
+def _ring_floats(tile: int) -> int:
+    """``egnn_common.cuh::ring_floats``: 4 K-tiles of 128 columns and 32
+    weight rows (16 at tile 32)."""
+    return 4 * 128 * (16 if tile >= 32 else 32)
+
+
+def tile_smem_bytes(tile: int, d: int) -> int:
+    """Shared memory of one EGNN tile of ``tile`` rows at width ``d``
+    (``egnn_common.cuh::tile_layout``; its C twin is
+    ``gmp_egnn_tile_smem``): the head, x rows [tile, row_ld(2d+1)], two rows
+    [tile, row_ld(d)], the per-row scalars and the K-tile ring."""
+    return 4 * (_HEAD + tile * (_row_ld(2 * d + 1) + 2 * _row_ld(d) + _SMALL)
+                + _ring_floats(tile))
+
+
+def egnn_tile(n_edges: int, sms: int, fits=lambda tile: True) -> int:
+    """The tile of K2's edge kernel and of K6 (edges and nodes alike) for
+    ``n_edges`` edges on a card of ``sms`` SMs: the largest of ``TILES``
+    that still gives every SM an edge tile (``ceil(n_edges / tile) >=
+    sms``) and whose shared memory ``fits``; the smallest, 8, when no larger
+    one does.  A larger tile reads each staged weight for more rows; a
+    smaller one keeps every SM busy on a small batch (the star train bucket,
+    1400 edges, keeps 8: 175 edge tiles on 132 SMs; the 10k box takes
+    32)."""
+    tile = TILES[0]
+    for t in TILES[1:]:
+        if -(-n_edges // t) >= sms and fits(t):
+            tile = t
+    return tile
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_for(n_edges: int, d: int, device: int) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return egnn_tile(n_edges, sms, lambda t: tile_smem_bytes(t, d) <= SMEM_MAX)
+
+
+def kernel_tile(n_edges: int, d: int, device) -> int:
+    """The tile K2 and K6 take for ``n_edges`` edges of width ``d`` on
+    ``device`` (``egnn_tile`` with the card's SM count)."""
+    dev = torch.device(device)
+    return _tile_for(n_edges, d, dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 def _launch_kernels(send, recv, emask, h, pos, packed_w, order, rowptr,
@@ -268,26 +330,46 @@ def _egnn_message_cuda(send, recv, emask, h, pos, packed_w):
     return (msg_out, pos_out, cnt_out), (order, rowptr)
 
 
-# edges per slice of the backward's weight-gradient sums (a multiple of 32)
-BWD_SPLIT_EDGES = 512
+# the weight gradients' sums run over slices of rows, each summed in order
+# by one block: at most BWD_MAX_SLICES slices of a multiple of 128 rows
+BWD_MAX_SLICES = 64
+
+
+def bwd_split(rows: int) -> int:
+    """Rows per slice of K2's and K6's weight-gradient sums over ``rows``
+    edges (or nodes): 128, or the next multiple of 128 that keeps the
+    slices at most ``BWD_MAX_SLICES`` (the star train bucket's 1400 edges:
+    11 slices of 128; the 10k box's 129,280: 64 of 2048).  Short slices
+    give a small batch's sums enough blocks; the cap bounds the partial
+    sums a large one keeps and adds."""
+    return 128 * max(1, -(-rows // (128 * BWD_MAX_SLICES)))
+
+
+def act_edge_ld(d: int) -> int:
+    """Floats of one edge's kept forward activations (xhat of the three
+    LayerNorms, their rstd, the scale head's value)."""
+    return 3 * d + 4
 
 
 def bwd_scratch(n: int, e: int, d: int, device) -> Tuple[torch.Tensor, ...]:
-    """The backward kernels' scratch: per edge ``ops [E, 15D+1]``, ``dh_i``,
-    ``dh_j [E, D]``, ``dpd [E, 3]``; per slice of ``BWD_SPLIT_EDGES`` edges a
-    partial ``dW`` (``[slices, 4D+12, D]``); and the outputs ``dh [N, D]``,
-    ``dpos [N, 3]``, ``dW [4D+12, D]``."""
+    """The backward kernels' scratch: the transposed weight blocks ``[4, D,
+    D]`` (P1, W2, W1's two halves); per edge the forward's kept activations
+    ``[E, 3D+4]``, ``ops [E, 15D+4]``, ``dh_i``, ``dh_j [E, D]``, ``dpd [E,
+    3]``; per slice of ``bwd_split(E)`` edges a partial ``dW`` (``[slices,
+    4D+12, D]``); and the outputs ``dh [N, D]``, ``dpos [N, 3]``, ``dW
+    [4D+12, D]``."""
     f32 = dict(dtype=torch.float32, device=device)
-    slices = max(1, -(-e // BWD_SPLIT_EDGES))
+    slices = max(1, -(-e // bwd_split(e)))
     return tuple(torch.empty(shape, **f32) for shape in (
-        (e, 15 * d + 1), (e, d), (e, d), (e, 3), (slices, msg_rows(d), d),
-        (n, d), (n, 3), (msg_rows(d), d)))
+        (4, d, d), (e, act_edge_ld(d)), (e, 15 * d + 4), (e, d), (e, d), (e, 3),
+        (slices, msg_rows(d), d), (n, d), (n, 3), (msg_rows(d), d)))
 
 
 def _launch_bwd_kernels(send, recv, emask, h, pos, packed_w, gmsg, gpos,
                         recv_csr, send_csr, scratch) -> None:
-    """Launch K2's four kernels on the current stream (``scratch`` from
-    ``bwd_scratch``; its last three tensors receive dh, dpos and dW)."""
+    """Launch K2's five kernels on the current stream (``scratch`` from
+    ``bwd_scratch``; its last three tensors receive dh, dpos and dW) at the
+    tile ``kernel_tile`` picks."""
     lib = _build.load("egnn_message_bwd")
     n, d = h.shape
     e = send.shape[0]
@@ -298,7 +380,8 @@ def _launch_bwd_kernels(send, recv, emask, h, pos, packed_w, gmsg, gpos,
         emask.data_ptr(), h.data_ptr(), pos.data_ptr(), packed_w.data_ptr(),
         gmsg.data_ptr(), gpos.data_ptr(), *(t.data_ptr() for t in recv_csr),
         *(t.data_ptr() for t in send_csr), *(t.data_ptr() for t in scratch),
-        n, e, d, BWD_SPLIT_EDGES, stream), "egnn backward kernels")
+        n, e, d, bwd_split(e), kernel_tile(e, d, h.device), stream),
+        "egnn backward kernels")
 
 
 def _egnn_message_bwd_cuda(send, recv, emask, h, pos, packed_w, gmsg, gpos,

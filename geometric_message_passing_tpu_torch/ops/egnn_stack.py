@@ -29,12 +29,9 @@ import torch
 
 from . import _build
 from .edge import (_check_cuda_inputs, _layernorm_cache, _layernorm_bwd,
-                   egnn_message_bwd_plain, egnn_message_plain, layernorm,
-                   msg_rows, receiver_csr, sender_csr)
-
-# rows and slices of the backward's weight-gradient sums over edges and over
-# nodes (a multiple of 32), as in ops/edge.py
-BWD_SPLIT = 512
+                   act_edge_ld, bwd_split, egnn_message_bwd_plain,
+                   egnn_message_plain, kernel_tile, layernorm, msg_rows,
+                   receiver_csr, sender_csr)
 
 
 def stack_rows(d: int) -> int:
@@ -140,10 +137,13 @@ def _check_stack_inputs(send, recv, emask, h0, pos0, Wall, n_layers,
                        gh, gpos)
 
 
-def _launch_fwd(send, recv, emask, h0, pos0, Wall, order, rowptr, bufs
-                ) -> None:
+def _launch_fwd(send, recv, emask, h0, pos0, Wall, order, rowptr, bufs,
+                stamps=None) -> None:
     """Launch the forward kernel on the current stream; ``bufs`` are
-    ``fwd_buffers``' (``h [N, D]`` and ``pos [N, 3]`` receive the result)."""
+    ``fwd_buffers``' (``h [N, D]`` and ``pos [N, 3]`` receive the result).
+    ``stamps`` (int64 ``[2L+1]`` on the card, optional) receives the device
+    clock in ns at the start and after each phase (edges, nodes per
+    layer)."""
     lib = _build.load("egnn_stack")
     n, d = h0.shape
     dev = h0.device.index if h0.device.index is not None else torch.cuda.current_device()
@@ -152,7 +152,9 @@ def _launch_fwd(send, recv, emask, h0, pos0, Wall, order, rowptr, bufs
         dev, send.data_ptr(), recv.data_ptr(), int(send.dtype == torch.int64),
         emask.data_ptr(), h0.data_ptr(), pos0.data_ptr(), Wall.data_ptr(),
         order.data_ptr(), rowptr.data_ptr(), *(t.data_ptr() for t in bufs),
-        n, send.shape[0], d, Wall.shape[0], stream), "egnn stack kernel")
+        None if stamps is None else stamps.data_ptr(),
+        n, send.shape[0], d, Wall.shape[0],
+        kernel_tile(send.shape[0], d, h0.device), stream), "egnn stack kernel")
 
 
 def fwd_buffers(n: int, e: int, d: int, device) -> Tuple[torch.Tensor, ...]:
@@ -176,25 +178,37 @@ def _egnn_stack_cuda(send, recv, emask, h0, pos0, Wall, n_layers):
     return (bufs[2], bufs[3]), csr
 
 
+def act_node_ld(d: int) -> int:
+    """Floats of one node's kept update-MLP activations (xhat of its two
+    LayerNorms, their rstd, padding to a multiple of 4)."""
+    return 2 * d + 4
+
+
 def bwd_buffers(n: int, e: int, d: int, n_layers: int, device
                 ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's scratch and outputs, in the order of its C
     entry point: the layer inputs ``h [L-1, N, D]``, ``pos [L-1, N, 3]``
     (layers 1 .. L-1) and message sums ``[L, N, D]`` of the recomputed
-    forward; per edge ``msg [E, D]``, ``pos_msg [E, 3]``; per node the
+    forward; per edge ``msg [E, D]``, ``pos_msg [E, 3]``; the forward's
+    kept activations per layer and edge ``[L, E, 3D+4]`` and per layer and
+    node ``[L, N, 2D+4]``; each layer's transposed weight blocks ``[L, 7,
+    D, D]``; per node the
     update MLP's weight-gradient operands ``[N, 9D]``, the node cotangent
     ``[N, D]`` and the cotangents of the message and position sums ``[N, D]``,
-    ``[N, 3]``; the message backward's per-edge operands ``[E, 15D+1]``,
+    ``[N, 3]``; the message backward's per-edge operands ``[E, 15D+4]``,
     ``dh_i``, ``dh_j [E, D]``, ``dpd [E, 3]``; the partial weight gradients
-    per slice of ``BWD_SPLIT`` edges ``[se, 4D+12, D]`` and nodes
+    per slice of ``bwd_split(E)`` edges ``[se, 4D+12, D]`` and nodes
     ``[sn, 3D+6, D]``; the outputs ``dh0 [N, D]``, ``dpos0 [N, 3]``,
     ``dW [L, 7D+18, D]``; the grid barrier's two counters (zeroed)."""
     f32 = dict(dtype=torch.float32, device=device)
-    se = max(1, -(-e // BWD_SPLIT))
-    sn = max(1, -(-n // BWD_SPLIT))
+    split = bwd_split(e)
+    se = max(1, -(-e // split))
+    sn = max(1, -(-n // split))
     shapes = ((n_layers - 1, n, d), (n_layers - 1, n, 3), (n_layers, n, d),
-              (e, d), (e, 3), (n, 9 * d), (n, d), (n, d), (n, 3),
-              (e, 15 * d + 1), (e, d), (e, d), (e, 3),
+              (e, d), (e, 3), (n_layers, e, act_edge_ld(d)),
+              (n_layers, n, act_node_ld(d)), (n_layers, 7, d, d),
+              (n, 9 * d), (n, d), (n, d), (n, 3),
+              (e, 15 * d + 4), (e, d), (e, d), (e, 3),
               (se, msg_rows(d), d), (sn, 3 * d + 6, d),
               (n, d), (n, 3), (n_layers, stack_rows(d), d))
     return (tuple(torch.empty(s, **f32) for s in shapes)
@@ -202,9 +216,13 @@ def bwd_buffers(n: int, e: int, d: int, n_layers: int, device
 
 
 def _launch_bwd(send, recv, emask, h0, pos0, Wall, gh, gpos, recv_csr,
-                send_csr, bufs) -> None:
+                send_csr, bufs, stamps=None) -> None:
     """Launch the backward kernel on the current stream; ``bufs`` are
-    ``bwd_buffers``' (its ``dh0``, ``dpos0`` and ``dW`` receive the result)."""
+    ``bwd_buffers``' (its ``dh0``, ``dpos0`` and ``dW`` receive the result).
+    ``stamps`` (int64 ``[5L+2]`` on the card, optional) receives the device
+    clock in ns at the start, after each forward phase (edges, nodes per
+    layer), after each backward phase (nodes, edges, sums and weight
+    gradients per layer) and at the end."""
     lib = _build.load("egnn_stack_bwd")
     n, d = h0.shape
     dev = h0.device.index if h0.device.index is not None else torch.cuda.current_device()
@@ -214,7 +232,9 @@ def _launch_bwd(send, recv, emask, h0, pos0, Wall, gh, gpos, recv_csr,
         emask.data_ptr(), h0.data_ptr(), pos0.data_ptr(), Wall.data_ptr(),
         gh.data_ptr(), gpos.data_ptr(), *(t.data_ptr() for t in recv_csr),
         *(t.data_ptr() for t in send_csr), *(t.data_ptr() for t in bufs),
-        n, send.shape[0], d, Wall.shape[0], BWD_SPLIT, stream),
+        None if stamps is None else stamps.data_ptr(),
+        n, send.shape[0], d, Wall.shape[0], bwd_split(send.shape[0]),
+        kernel_tile(send.shape[0], d, h0.device), stream),
         "egnn stack backward kernel")
 
 

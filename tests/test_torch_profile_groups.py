@@ -34,6 +34,9 @@ def test_every_kernel_of_a_source_lands_in_its_group(source, group):
     for name in names:
         for shown in (f"void (anonymous namespace)::{name}<float, 4, 7, "
                       f"false>((anonymous namespace)::Table)",
+                      f"void (anonymous namespace)::{name}<32, long long>"
+                      f"(long long const*, float*, int, int)",
+                      f"void {name}<8, int>(BwdArgs<int>)",
                       f"void (anonymous namespace)::{name}<__nv_bfloat16, 7>"
                       f"(float const*, __nv_bfloat16 const*, float*, int)",
                       f"{name}(float const*, int)"):
@@ -44,3 +47,17 @@ def test_the_k7_kernels_are_the_ones_tfn_runs():
     """The grouped kernel (TFN's layers) and the one-group kernels."""
     assert set(_kernels("edge_contract")) == {
         "contract_ring_kernel", "contract_fwd", "contract_bwd"}
+
+
+@pytest.mark.parametrize("source,kernels", [
+    ("egnn_message", {"egnn_edge_kernel", "egnn_reduce_kernel"}),
+    ("egnn_message_bwd", {"egnn_bwd_transpose_kernel", "egnn_bwd_edge_kernel",
+                          "egnn_bwd_node_kernel", "egnn_bwd_wgrad_kernel",
+                          "egnn_bwd_wsum_kernel"}),
+    ("egnn_stack", {"egnn_stack_fwd_kernel"}),
+    ("egnn_stack_bwd", {"egnn_stack_bwd_kernel"})])
+def test_the_egnn_kernels_are_the_ones_the_groups_name(source, kernels):
+    """K1's two kernels, K2's five (the transposed weight blocks; the weight
+    gradient and its column sums one launch), K6's one per direction
+    (templated on the tile)."""
+    assert set(_kernels(source)) == kernels
