@@ -10,7 +10,14 @@ Phases; any failure raises and the script exits non-zero:
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at three shapes, check that two runs are bitwise equal, and time
      kernel, whole call and plain version.  K1 (``egnn_message``): atol =
-     rtol = 1e-4 (f32 sums in another order).  K2 (``egnn_message_bwd``):
+     rtol = 1e-4 (f32 sums in another order) at a small random case, the
+     serving bucket (E 1408), the star train bucket (E 1400), an N 10k / E
+     129k random case and the unsorted 10k-atom box, and at D 16, 64, 128
+     and 256 (clusters of 1, 1, 2 and 8 blocks) with 10% of the edges
+     masked, int32 and int64 ids, E 0 and E below one tile; two runs of
+     every case bitwise equal; the edge kernel's plan in C
+     (``gmp_egnn_resident_plan``) equal to ``edge.resident_plan`` at every
+     width.  K2 (``egnn_message_bwd``):
      the same for dh and dpos, and dW within 1e-5 of its largest entry, at
      the small and train-bucket shapes and at two random full-width cases
      where ``edge.egnn_tile`` changes the tile on 132 SMs (E 2097: 16-row
@@ -223,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import json
 import statistics
 import sys
@@ -301,12 +309,13 @@ def bound_ms(args) -> tuple:
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
-def random_case(n: int, e: int, d: int, seed: int, masked: float, dev):
+def random_case(n: int, e: int, d: int, seed: int, masked: float, dev,
+                index_dtype=np.int32):
     rng = np.random.default_rng(seed)
     h = rng.normal(size=(n, d)).astype(np.float32)
     pos = rng.normal(size=(n, 3)).astype(np.float32)
-    send = rng.integers(0, n, e).astype(np.int32)
-    recv = rng.integers(0, n, e).astype(np.int32)
+    send = rng.integers(0, n, e).astype(index_dtype)
+    recv = rng.integers(0, n, e).astype(index_dtype)
     emask = rng.random(e) >= masked
     w = (rng.normal(size=(msg_rows(d), d)) * 0.1).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev)
@@ -326,11 +335,43 @@ def star_case(graphs, model: EGNNFusedModel, seed: int, dev):
             batch.edge_mask.to(dev), h.to(dev), batch.pos.to(dev), w.to(dev))
 
 
+def box_case(model: EGNNFusedModel, seed: int, dev):
+    """The unsorted 10k-atom box's edges and positions, random node
+    features and layer 0's packed weights."""
+    b = bench_scale.box_batch(GVP_BOX_ATOMS, sort=False).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((b.num_nodes, model.emb_dim), generator=gen, device=dev)
+    with torch.no_grad():
+        w = model.convs[0].packed().detach().contiguous().to(dev)
+    return (b.senders, b.receivers, b.edge_mask, h, b.pos, w)
+
+
+def check_resident_plans() -> None:
+    """K1's plan in C (gmp_egnn_resident_plan) against edge.resident_plan
+    at every width the wrapper takes and a range of edge and cluster
+    counts."""
+    lib = _build.load("egnn_message")
+    out = (ctypes.c_int * 11)()
+    for d in range(16, 257, 16):
+        for e in (0, 5, 1400, 1408, 4193, 129_280):
+            for clusters in (16, 66, 132):
+                want = tuple(edge.resident_plan(d, e, clusters))
+                _build.check(lib, lib.gmp_egnn_resident_plan(
+                    d, e, clusters, ctypes.addressof(out)), "resident plan")
+                got = (out[0], tuple(out[3:3 + out[0]]), out[1], out[2])
+                if got != want:
+                    raise AssertionError(f"K1's plan at D {d}, E {e}, {clusters} "
+                                         f"clusters: C {got}, Python {want}")
+
+
 def check_kernel_case(name: str, args) -> float:
     with torch.no_grad():
         got = egnn_message(*args)
+        again = egnn_message(*args)
         want = egnn_message_plain(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two runs of egnn_message differ bitwise")
     err = 0.0
     for g, w_, part in zip(got, want, ("msg", "pos", "cnt")):
         if not torch.isfinite(g).all():
@@ -341,8 +382,14 @@ def check_kernel_case(name: str, args) -> float:
                 f"{name}: kernel {part} differs from plain version by "
                 f"{(g - w_).abs().max().item():.3e}")
     n, d = args[3].shape
-    log(f"  {name}: N={n} E={args[0].shape[0]} D={d} "
-        f"live={int(args[2].sum())} max_abs_err={err:.3e}")
+    e = args[0].shape[0]
+    plan, clusters = edge.kernel_resident_plan(
+        e, d, args[3].device, args[0].dtype == torch.int64)
+    log(f"  {name}: N={n} E={e} D={d} {args[0].dtype} "
+        f"live={int(args[2].sum())} max_abs_err={err:.3e}, bitwise equal "
+        f"twice; cluster {plan.cluster} (shares {list(plan.shares)}), tile "
+        f"{plan.tile}, {plan.smem_bytes} B shared a block, up to {clusters} "
+        "clusters")
     return err
 
 
@@ -1315,15 +1362,21 @@ def main() -> int:
     small = random_case(40, 150, 32, seed=1, masked=0.1, dev=dev)
     serve = star_case(graphs, cpu_model, seed=2, dev=dev)
     large = random_case(10_000, 129_000, WIDTH, seed=3, masked=0.0, dev=dev)
-    err = max(check_kernel_case("small", small),
-              check_kernel_case("serve bucket", serve),
-              check_kernel_case("N=10k", large))
-    with torch.no_grad():
-        first, second = egnn_message(*large), egnn_message(*large)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("egnn_message: two runs differ bitwise")
-    log("  two runs at N=10k are bitwise equal")
+    k1_cases = {
+        "small": small, "serve bucket": serve,
+        "train bucket": train_bucket_case(loaders, cpu_model, seed=5, dev=dev)[:6],
+        "N=10k": large, "10k box": box_case(cpu_model, seed=6, dev=dev),
+        "empty": random_case(6, 0, WIDTH, seed=7, masked=0.0, dev=dev),
+        "below one tile": random_case(20, 5, WIDTH, seed=8, masked=0.1, dev=dev,
+                                      index_dtype=np.int64)}
+    for d, e, idx in ((16, 700, np.int32), (64, 1400, np.int64),
+                      (128, 4193, np.int32), (256, 4000, np.int64)):
+        k1_cases[f"D={d}"] = random_case(300, e, d, seed=d, masked=0.1, dev=dev,
+                                         index_dtype=idx)
+    err = max(check_kernel_case(label, args) for label, args in k1_cases.items())
+    check_resident_plans()
+    log("  the edge kernel's plan in C equals edge.resident_plan at every "
+        "width")
 
     with torch.no_grad():
         k_ms = kernels_only_ms(serve)

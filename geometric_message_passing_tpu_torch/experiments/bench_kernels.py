@@ -23,8 +23,15 @@ have too.
 * ``k2``: K2 (``egnn_message_bwd``) with that model's layer-0 message rows
   at the same two shapes, plain version beside it, and at the train bucket
   each tile.
-* ``k1``: K1 (``egnn_message`` under ``no_grad``) on the first serving
-  batch of the 1400 star graphs (E 1408) and on the box, plain beside it.
+* ``k1``: K1 (``egnn_message`` under ``no_grad``) with layer 0's message
+  rows on the first serving batch of the 1400 star graphs (E 1408), the
+  star train bucket and the box, plain beside it; the whole call split into
+  the receiver CSR's kernels, the edge kernel and the reduce kernel; with a
+  package that has them, the edge kernel's plan and clock readings by kind
+  of step (``k1_phases``: weights, gather, products, cluster barriers, row
+  steps), the serving bucket at every tile the plan could take, and the
+  previous edge kernel's readings at every weight K-tile
+  (``csrc/egnn_ring_probe.cu``, ``ring_probe_ktiles``).
 * each of the three adds the registers, spills and stack frame of every
   kernel of the ``egnn_*`` sources (``resource_usage``).
 
@@ -87,7 +94,7 @@ from geometric_message_passing_tpu_torch.ops import gvp_message as gm
 
 BOX_ATOMS = 10_000
 EGNN_SOURCES = ("egnn_message", "egnn_message_bwd", "egnn_stack",
-                "egnn_stack_bwd")
+                "egnn_stack_bwd", "egnn_ring_probe")
 # kernel-name fragments of each EGNN kernel's CUDA kernels
 K1_NAMES, K2_NAMES, K6_NAMES = (("egnn_edge_kernel", "egnn_reduce_kernel"),
                                 ("egnn_bwd_",), ("egnn_stack_",))
@@ -249,6 +256,146 @@ def k6_phases(args, wall, gh, gpos, reps: int = 5) -> dict:
     return out
 
 
+def k1_phases(args, w0, reps: int = 5) -> dict:
+    """K1's edge kernel by kind of step (us, the median of ``reps``
+    launches) from the clock readings of block 0's thread 0 (a product
+    warp's): waiting for the weights, the gathers (what of them is not
+    hidden), the products, the cluster barriers and the first two
+    LayerNorm row steps, summed over its tiles (warps 4-7 copy the next
+    tile's features during the last product and run the third row step
+    during the next tile's first); the time until W1's rows were seen; the
+    whole block."""
+    send, recv, emask, h, pos = args
+    (n, d), e = h.shape, send.shape[0]
+    order, rowptr = edge.receiver_csr(recv, emask, n)
+    bufs = [torch.empty(shape, device=h.device)
+            for shape in ((e, d), (e, 3), (n, d), (n, 3), (n, 1))]
+    kinds = ("weights", "gather", "products", "cluster barriers", "LN1",
+             "LN2")
+    runs = []
+    for _ in range(reps + 1):
+        stamps = torch.zeros(edge.RESIDENT_STAMPS, dtype=torch.int64,
+                             device=h.device)
+        edge._launch_kernels(*args, w0, order, rowptr, *bufs, stamps=stamps)
+        torch.cuda.synchronize()
+        s = stamps.cpu().tolist()
+        us_per_cycle = (s[1] - s[0]) / s[2] / 1e3   # globaltimer ns over clock
+        cycles = [s[2]] + s[3:3 + len(kinds)] + [s[4 + len(kinds)]]
+        runs.append([c * us_per_cycle for c in cycles])
+    med = torch.tensor(runs[1:], dtype=torch.float64).median(dim=0).values
+    out = dict(zip(("block",) + kinds + ("W1 seen at",),
+                   [round(float(x), 3) for x in med]))
+    out["tiles"] = int(s[3 + len(kinds)])
+    return out
+
+
+def ring_probe_ktiles(args, w0, reps: int = 5) -> dict:
+    """The previous K1 edge kernel (``csrc/egnn_ring_probe.cu``) at every
+    weight K-tile of the middle block's tile (us, medians over ``reps``
+    launches): the wait for its mbarrier, the block barrier after it, the
+    products on it, the copy's flight from its issue to the mbarrier seen
+    complete, and the time before its wait began since the last K-tile's
+    products (the gather or a row step where a product starts).  Sums over
+    the tile's K-tiles beside the block's whole time."""
+    lib = _build.load("egnn_ring_probe")
+    send, recv, emask, h, pos = args
+    (n, d), e = h.shape, send.shape[0]
+    ktiles = -(-(2 * d + 1) // 32) + 2 * -(-d // 32)
+    msg_e, pos_e = torch.empty((e, d), device=h.device), torch.empty((e, 3), device=h.device)
+    block = (-(-e // 16)) // 2
+    dev = h.device.index if h.device.index is not None else torch.cuda.current_device()
+    fields = ("wait", "barrier", "products", "flight", "before")
+    runs, whole = [], []
+    for _ in range(reps + 1):
+        stamps = torch.zeros(4 + 5 * 32, dtype=torch.int64, device=h.device)
+        _build.check(lib, lib.gmp_egnn_ring_probe(
+            dev, send.data_ptr(), recv.data_ptr(), int(send.dtype == torch.int64),
+            emask.data_ptr(), h.data_ptr(), pos.data_ptr(), w0.data_ptr(),
+            msg_e.data_ptr(), pos_e.data_ptr(), stamps.data_ptr(), block, e, d,
+            torch.cuda.current_stream().cuda_stream), "egnn ring probe")
+        torch.cuda.synchronize()
+        s = stamps.cpu().tolist()
+        ns = (s[1] - s[0]) / (s[3] - s[2]) / 1e3          # us per cycle
+        q = [s[4 + 5 * k: 9 + 5 * k] for k in range(ktiles)]   # issue, begin, seen, synced, done
+        runs.append([[(t[2] - t[1]) * ns, (t[3] - t[2]) * ns, (t[4] - t[3]) * ns,
+                      (t[2] - t[0]) * ns,
+                      (t[1] - (q[k - 1][4] if k else s[2])) * ns]
+                     for k, t in enumerate(q)])
+        whole.append((s[3] - s[2]) * ns)
+    med = torch.tensor(runs[1:], dtype=torch.float64).median(dim=0).values
+    return {"block": block, "ktiles": ktiles,
+            "block_us": round(float(torch.tensor(whole[1:]).median()), 3),
+            "sum_us": {f: round(float(med[:, i].sum()), 3)
+                       for i, f in enumerate(fields)},
+            "per_ktile_us": {f: [round(float(x), 3) for x in med[:, i]]
+                             for i, f in enumerate(fields)}}
+
+
+@contextlib.contextmanager
+def forced_resident_tile(tile: int):
+    """K1's edge tile forced to ``tile`` (in place of ``resident_plan``'s
+    choice) while the block runs."""
+    saved = edge._resident_for
+
+    def forced(n_edges, d, idx64, device):
+        plan, _ = saved(n_edges, d, idx64, device)
+        plan = plan._replace(tile=tile, smem_bytes=edge.resident_smem_bytes(
+            d, plan.shares[0], tile))
+        return plan, edge._resident_clusters(d, tile, idx64, device)
+
+    edge._resident_for = forced
+    try:
+        yield
+    finally:
+        edge._resident_for = saved
+
+
+def k1_split(split: dict) -> dict:
+    """K1's whole call by part: the edge kernel, the reduce kernel and the
+    rest (the receiver CSR's sort and search kernels)."""
+    edge_ms = sum(v for k, v in split.items() if "egnn_edge_kernel" in k)
+    reduce_ms = sum(v for k, v in split.items() if "egnn_reduce_kernel" in k)
+    return {"receiver_csr": sum(split.values()) - edge_ms - reduce_ms,
+            "edge kernel": edge_ms, "reduce kernel": reduce_ms}
+
+
+def k1_readings(iters_small: int, iters_box: int) -> dict:
+    """K1 at the serving bucket, the star train bucket and the 10k box (see
+    the module's docstring)."""
+    dev = torch.device("cuda")
+    made = egnn_cases(dev)
+    wall, cases = made["wall"], made["cases"]
+    out = {}
+    for label in ("serve bucket", "train bucket", "10k box"):
+        args = cases[label]
+        n, d = args[3].shape
+        e = args[0].shape[0]
+        iters = iters_box if label == "10k box" else iters_small
+        w0 = wall[0, : edge.msg_rows(d)].contiguous()
+        with torch.no_grad():
+            fwd = reading(lambda: edge.egnn_message(*args, w0), iters, K1_NAMES)
+            r = {"fwd": dict(fwd, parts_ms=k1_split(fwd["split_ms"])),
+                 "fwd_plain_ms": cuda_time_ms(
+                     lambda: edge.egnn_message_plain(*args, w0), iters)}
+            if hasattr(edge, "resident_plan"):
+                plan, clusters = edge.kernel_resident_plan(e, d, dev)
+                r["plan"] = dict(plan._asdict(), clusters=clusters)
+                r["phases_us"] = k1_phases(args, w0)
+                if label == "serve bucket":
+                    r["by_tile_ms"] = {}
+                    for tile in edge.RESIDENT_TILES:
+                        if edge.resident_smem_bytes(d, plan.shares[0], tile) > edge.SMEM_MAX:
+                            continue
+                        with forced_resident_tile(tile):
+                            r["by_tile_ms"][tile] = reading(
+                                lambda: edge.egnn_message(*args, w0), iters,
+                                K1_NAMES)["kernel_ms"]
+            if "egnn_ring_probe" in _build.SIGNATURES:
+                r["previous_kernel_ktiles"] = ring_probe_ktiles(args, w0)
+        out[label] = dict(r, N=n, E=e, live=int(args[2].sum()))
+    return out
+
+
 @contextlib.contextmanager
 def forced_egnn_tile(tile: int):
     """K2's and K6's tile forced to ``tile`` (in place of ``egnn_tile``'s
@@ -262,13 +409,12 @@ def forced_egnn_tile(tile: int):
 
 
 def egnn_readings(which: str, iters_small: int, iters_box: int) -> dict:
-    """``which`` (k6, k2 or k1) at its two shapes: whole call, device time by
+    """``which`` (k6 or k2) at its two shapes: whole call, device time by
     CUDA kernel, the plain version's call, with the shape's live edges."""
     dev = torch.device("cuda")
     made = egnn_cases(dev)
     wall, cases = made["wall"], made["cases"]
-    labels = ("serve bucket", "10k box") if which == "k1" else (
-        "train bucket", "10k box")
+    labels = ("train bucket", "10k box")
     out = {}
     for label in labels:
         args = cases[label]
@@ -291,18 +437,13 @@ def egnn_readings(which: str, iters_small: int, iters_box: int) -> dict:
                          lambda: es.egnn_stack_bwd_plain(*args, wall, layers,
                                                          gh, gpos), iters),
                      "phases_us": k6_phases(args, wall, gh, gpos)}
-            elif which == "k2":
+            else:
                 r = {"bwd": reading(lambda: edge.egnn_message_bwd(
                          *args, w0, gh, gpos), iters, K2_NAMES),
                      "bwd_plain_ms": cuda_time_ms(
                          lambda: edge.egnn_message_bwd_plain(*args, w0, gh,
                                                              gpos), iters)}
-            else:
-                r = {"fwd": reading(lambda: edge.egnn_message(*args, w0),
-                                    iters, K1_NAMES),
-                     "fwd_plain_ms": cuda_time_ms(
-                         lambda: edge.egnn_message_plain(*args, w0), iters)}
-        if which != "k1" and label != "10k box" and hasattr(edge, "egnn_tile"):
+        if label != "10k box" and hasattr(edge, "egnn_tile"):
             # the train bucket at every tile, the rule's choice among them
             r["tile"] = edge.kernel_tile(args[0].shape[0], d, dev)
             r["by_tile_ms"] = {}
@@ -387,10 +528,11 @@ def k7_readings(iters: int, grouped: bool = True) -> dict:
 def resource_usage(sources=("gvp_message", "gvp_message_bwd")) -> dict:
     """Registers, stack, shared and local (spilled) bytes of each kernel of
     the built ``sources`` (``cuobjdump --dump-resource-usage``), by kernel:
-    the raw line after each ``Function`` line."""
+    the raw line after each ``Function`` line; a source the package does
+    not have is skipped."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     usage = {}
-    for source in sources:
+    for source in (s for s in sources if s in _build.SIGNATURES):
         _build.load(source)
         text = subprocess.run(
             [str(cuobjdump), "--dump-resource-usage", str(_build._target(source))],
@@ -467,10 +609,12 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     result = {"card": card, "kind": torch.cuda.get_device_name(0)}
-    for which in ("k6", "k2", "k1"):
+    for which in ("k6", "k2"):
         if args.only in (None, which):
             result[which] = egnn_readings(which, args.iters,
                                           max(2, args.iters // 4))
+    if args.only in (None, "k1"):
+        result["k1"] = k1_readings(args.iters, max(2, args.iters // 4))
     if args.only in (None, "k6", "k2", "k1"):
         result["egnn_resources"] = resource_usage(EGNN_SOURCES)
     if args.only in (None, "k5"):

@@ -35,8 +35,17 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # stream) is c_void_p so ctypes does not cut it to 32 bits
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "egnn_message": {
-        "gmp_egnn_edges": [I, P, P, I, P, P, P, P, P, P, I, I, P],
+        # indices, features, weights, msg_e, pos_e, E, D, tile, clusters,
+        # stamps, stream
+        "gmp_egnn_edges": [I, P, P, I, P, P, P, P, P, P, I, I, I, I, P, P],
         "gmp_egnn_reduce": [I, P, P, P, P, P, P, P, I, I, P],
+        "gmp_egnn_resident_plan": [I, I, I, P],          # D, E, clusters, out
+        "gmp_egnn_resident_clusters": [I, I, I, I, P],   # device, D, tile, idx64, out
+    },
+    "egnn_ring_probe": {
+        # indices, features, weights, msg_e, pos_e, stamps, probe block, E,
+        # D, stream
+        "gmp_egnn_ring_probe": [I, P, P, I, P, P, P, P, P, P, P, I, I, I, P],
     },
     "egnn_message_bwd": {
         # indices, features, weights, cotangents (2), CSRs (4), scratch and

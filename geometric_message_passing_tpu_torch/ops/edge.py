@@ -20,8 +20,9 @@ and, over masked-in edges, per receiver: sum of msg [N, D], sum of
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Mapping, Tuple
+from typing import Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -293,20 +294,131 @@ def kernel_tile(n_edges: int, d: int, device) -> int:
                      else torch.cuda.current_device())
 
 
+# K1's edge kernel keeps the message weights resident in shared memory for
+# the whole launch, their columns split over a cluster of blocks
+# (csrc/egnn_message.cu); its C twin is gmp_egnn_resident_plan.
+CLUSTERS = (1, 2, 4, 8)
+_RES_HEAD = 32       # the weight copies' mbarriers (128 bytes)
+_RES_BOX_ROWS = 32   # weight rows a bulk tensor copy moves
+_RES_MAX_SHARE = 128   # columns a block holds at most
+_RES_TILE_COST = 16    # a tile's fixed steps, in rows of products
+RESIDENT_TILES = (8, 16, 24, 32, 40)   # rows of an edge tile
+RESIDENT_STAMPS = 11   # slots of the edge kernel's clock readings
+
+
+class ResidentPlan(NamedTuple):
+    """How K1's edge kernel runs at width ``d``: ``cluster`` blocks share a
+    tile, block r holding the columns ``[sum(shares[:r]), sum(shares[:r+1]))``
+    of every weight; tiles of ``tile`` edge rows; ``smem_bytes`` of shared
+    memory a block."""
+    cluster: int
+    shares: Tuple[int, ...]
+    tile: int
+    smem_bytes: int
+
+
+def resident_shares(d: int, cluster: int) -> Tuple[int, ...]:
+    """``d`` columns over ``cluster`` blocks in multiples of 4, as even as
+    can be, the larger shares first."""
+    base, extra = divmod(d // 4, cluster)
+    return tuple(4 * (base + (r < extra)) for r in range(cluster))
+
+
+def resident_smem_bytes(d: int, share: int, tile: int) -> int:
+    """Shared memory of a block of K1's edge kernel whose widest share is
+    ``share`` columns: the head; the share of the packed rows [0, 4d+7)
+    (W1 b1 g1 B1 | W2 b2 g2 B2 | P1) rounded up to whole boxes of 32 rows;
+    the ten vector rows b1 ... P2, whole [10, d]; per tile row x
+    [row_ld(2d+1)], two buffers of whole product rows [row_ld(d) each] and
+    two of row scalars (the current tile's; the next tile's ids)."""
+    rows = -(-(4 * d + 7) // _RES_BOX_ROWS) * _RES_BOX_ROWS
+    return 4 * (_RES_HEAD + rows * share + 10 * d
+                + tile * (_row_ld(2 * d + 1) + 2 * _row_ld(d) + 2 * _SMALL))
+
+
+def resident_plan(d: int, n_edges: int, clusters: int) -> ResidentPlan:
+    """K1's plan for ``n_edges`` edges of width ``d`` on a card that holds
+    ``clusters`` clusters of the plan's size at once (at 8-row tiles).  The
+    cluster is the smallest of ``CLUSTERS`` whose share of the weights fits
+    a block beside an 8-row tile (D 16-96: 1; 112-144: 2; 160-208: 4;
+    224-256: 8); the tile, of ``RESIDENT_TILES`` that fit, the one with the
+    fewest rounds of tiles over the clusters times (rows + 16), the smaller
+    on a tie: a tile's gather, row steps and barriers cost about as much as
+    16 rows of products (the serving bucket's 1408 edges on 66 clusters of
+    2: 24, one round; the 10k box: 40)."""
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"egnn_message: D={d} must be a multiple of 16 in [16, 256]")
+    for cluster in CLUSTERS:
+        shares = resident_shares(d, cluster)
+        if (min(shares) >= 4 and shares[0] <= _RES_MAX_SHARE
+                and resident_smem_bytes(d, shares[0], RESIDENT_TILES[0]) <= SMEM_MAX):
+            break
+    else:
+        raise ValueError(f"egnn_message: no cluster holds the weights at D={d}")
+    slots = max(clusters, 1)
+    tile, best = RESIDENT_TILES[0], None
+    for t in RESIDENT_TILES:
+        if resident_smem_bytes(d, shares[0], t) > SMEM_MAX:
+            continue
+        tiles = -(-n_edges // t)
+        cost = -(-tiles // slots) * (t + _RES_TILE_COST)   # rounds x rows
+        if best is None or cost < best:
+            tile, best = t, cost
+    return ResidentPlan(cluster, shares, tile,
+                        resident_smem_bytes(d, shares[0], tile))
+
+
+@functools.lru_cache(maxsize=256)
+def _resident_clusters(d: int, tile: int, idx64: bool, device: int) -> int:
+    """Clusters of K1's edge kernel the card holds at once at ``tile``
+    (``cudaOccupancyMaxActiveClusters``); raises when it is 0."""
+    lib = _build.load("egnn_message")
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.gmp_egnn_resident_clusters(
+        device, d, tile, int(idx64), ctypes.addressof(out)),
+        "egnn edge kernel occupancy")
+    return out.value
+
+
+@functools.lru_cache(maxsize=256)
+def _resident_for(n_edges: int, d: int, idx64: bool, device: int
+                  ) -> Tuple[ResidentPlan, int]:
+    plan = resident_plan(d, n_edges,
+                         _resident_clusters(d, RESIDENT_TILES[0], idx64, device))
+    return plan, _resident_clusters(d, plan.tile, idx64, device)
+
+
+def kernel_resident_plan(n_edges: int, d: int, device,
+                         idx64: bool = False) -> Tuple[ResidentPlan, int]:
+    """The plan K1's edge kernel takes for ``n_edges`` edges of width ``d``
+    on ``device``, and the clusters it launches at most (one per tile
+    below that)."""
+    dev = torch.device(device)
+    return _resident_for(n_edges, d, idx64, dev.index if dev.index is not None
+                         else torch.cuda.current_device())
+
+
 def _launch_kernels(send, recv, emask, h, pos, packed_w, order, rowptr,
-                    msg_e, pos_e, msg_out, pos_out, cnt_out) -> None:
+                    msg_e, pos_e, msg_out, pos_out, cnt_out,
+                    stamps=None) -> None:
     """Launch the edge and reduce kernels on the current stream into the
     given buffers (per-edge scratch ``msg_e [E, D]``, ``pos_e [E, 3]``;
-    outputs ``[N, D]``, ``[N, 3]``, ``[N, 1]``)."""
+    outputs ``[N, D]``, ``[N, 3]``, ``[N, 1]``).  ``stamps`` (int64
+    ``[RESIDENT_STAMPS]`` on the card, optional) receives the edge kernel's
+    clock readings (``bench_kernels --only k1``)."""
     lib = _build.load("egnn_message")
     n, d = h.shape
     e = send.shape[0]
     dev = h.device.index if h.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    idx64 = send.dtype == torch.int64
+    plan, clusters = _resident_for(e, d, idx64, dev)
     _build.check(lib, lib.gmp_egnn_edges(
-        dev, send.data_ptr(), recv.data_ptr(), int(send.dtype == torch.int64),
+        dev, send.data_ptr(), recv.data_ptr(), int(idx64),
         emask.data_ptr(), h.data_ptr(), pos.data_ptr(), packed_w.data_ptr(),
-        msg_e.data_ptr(), pos_e.data_ptr(), e, d, stream), "egnn edge kernel")
+        msg_e.data_ptr(), pos_e.data_ptr(), e, d, plan.tile, clusters,
+        None if stamps is None else stamps.data_ptr(), stream),
+        "egnn edge kernel")
     _build.check(lib, lib.gmp_egnn_reduce(
         dev, order.data_ptr(), rowptr.data_ptr(), msg_e.data_ptr(),
         pos_e.data_ptr(), msg_out.data_ptr(), pos_out.data_ptr(),

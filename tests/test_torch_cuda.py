@@ -63,6 +63,19 @@ def _inputs(n, e, d, seed, masked, index_dtype, device):
     (17, 33, 16, 0.3, torch.int64),        # E not a multiple of the tile
     (50, 301, 256, 0.1, torch.int64),      # widest D: 82 KB of shared memory
     (6, 0, 48, 0.0, torch.int32),          # no edges
+    # the resident kernel's plans: clusters of 1 (D 16, 64), 2 (112:
+    # 56-column shares; 128; 144: 72), 4 (176) and 8 (240: shares of 32 and
+    # 28; 256), below one tile, int32 and int64 ids, 10% of the edges masked
+    (100, 700, 16, 0.1, torch.int32),
+    (300, 1400, 64, 0.1, torch.int64),
+    (90, 600, 112, 0.1, torch.int32),
+    (808, 1408, 128, 0.1, torch.int64),
+    (50, 5, 128, 0.1, torch.int32),
+    (70, 900, 144, 0.1, torch.int32),
+    (60, 500, 176, 0.1, torch.int64),
+    (60, 500, 240, 0.1, torch.int32),
+    (200, 4000, 256, 0.1, torch.int64),
+    (20, 7, 256, 0.1, torch.int32),
 ])
 def test_kernel_matches_plain(cuda_device, n, e, d, masked, index_dtype):
     args = _inputs(n, e, d, seed=8, masked=masked, index_dtype=index_dtype,
@@ -77,6 +90,27 @@ def test_kernel_matches_plain(cuda_device, n, e, d, masked, index_dtype):
     for a, b, w in zip(first, second, want):
         assert torch.equal(a, b)       # deterministic: no atomics
         torch.testing.assert_close(a, w, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_resident_plan_c_twin_matches(cuda_device):
+    """The edge kernel's plan in C (gmp_egnn_resident_plan) equals
+    ``edge.resident_plan`` at every width and a range of edge counts, and
+    the card holds at least one cluster of every plan."""
+    import ctypes
+    from geometric_message_passing_tpu_torch.ops import _build
+    lib = _build.load("egnn_message")
+    out = (ctypes.c_int * 11)()
+    for d in range(16, 257, 16):
+        for e in (0, 5, 1400, 1408, 4193, 129_280):
+            for clusters in (16, 66, 132):
+                plan = edge.resident_plan(d, e, clusters)
+                assert lib.gmp_egnn_resident_plan(d, e, clusters,
+                                                  ctypes.addressof(out)) == 0
+                got = (out[0], tuple(out[3:3 + out[0]]), out[1], out[2])
+                assert got == tuple(plan)
+        assert edge.kernel_resident_plan(1408, d, cuda_device)[1] >= 1
+    assert lib.gmp_egnn_resident_plan(24, 100, 66, ctypes.addressof(out)) != 0
 
 
 @pytest.mark.cuda
