@@ -215,10 +215,53 @@ Phases; any failure raises and the script exits non-zero:
      10k-atom box give bitwise-equal gradients, with exactly 14 K4 launches
      per step (per layer the message sum and the position mean's two sums,
      the pool and the embedding's gradient: ``nn.basic.Embedding``);
+  3e. K3 on the triplet fold (``sorted_segsum.sorted_fold`` over
+     ``ascending_plan``, the identity plan of the ascending ``idx_ji`` built
+     on the card: no sort, no host read) against the plain sum at the
+     DimeNet++ star train bucket (fold 7, batch 100: 4224 triplet rows into
+     1408 edges), on the unsorted 10k-atom box's 1.7M triplets (129,280
+     edges) and at a case with edges that own no triplet, 5% of the rows
+     masked and a masked tail, all at width 64: within 1e-5, two runs
+     bitwise equal, one K3 launch a call; kernel, whole call (with its
+     masking pass), plan, plain version, the CSR-sort route (K4 over the
+     same ids), ``index_add_`` and ``torch.segment_reduce`` timed beside the
+     bound;
+  4e / 4f. DimeNet++ (4 layers) and SphereNet (2 layers) serving at their
+     full default widths: ``Predictor(needs_triplets=True)`` over the 1000
+     fold-7 star graphs and ``Predictor(with_quads=True)`` over 1500 fold
+     5/6/7 star graphs (their star data, seed 0), the heads that
+     start at 0 drawn, counters set to 0 just before and read just after:
+     per batch K3 once a layer and K4 L + 2 times, nothing else; finite
+     (n, 1), within atol = rtol = 1e-4 of the CPU plain path; median of
+     5 calls;
+  5e / 5f. one train step's gradients of each (heads drawn) on a star train
+     batch on the card against the CPU's plain f32 step: within 2e-4 of
+     each parameter's max(|ref|, 1) (the CPU tests' tolerance), the float64
+     distances printed beside; planted faults that must fail that check:
+     DimeNet++ with the fold's plan shifted by one row, SphereNet with the
+     fold's backward dropped;
+  6i. DimeNet++ star run, the main path: ``fit_regression`` of the JAX
+     CLI's configuration (fold 7, 4 layers, 1000 graphs, batch 100, lr
+     1e-4; weights and shuffle from seed 0, ``run_experiment_reg``'s first
+     repeat), 600 epochs, counters set to 0 just before and read just after:
+     K3 4 per forward, K4 6 per forward and 1 per train step (the
+     embedding's gradient), nothing else; test MAE below 0.09 (the JAX
+     package 0.0831 +- 0.0007);
+  6j. SphereNet star run: folds 5-7, 2 layers, 200 epochs under the
+     protocol of the JAX package's number (1500 graphs, lr 5e-4, cosine
+     schedule): K3 2 per forward, K4 4 per forward and 1 per train step;
+     test MAE below 0.10 (the JAX package 0.0798 +- 0.0049);
+  6k. ``bench_scale``'s dimenet step: one step on a 1000-atom box
+     (triplet_chunk a third of its triplets, heads drawn) on the card
+     against the CPU float64 run, each gradient within 1e-2 of its largest
+     entry, with the fold's plan shifted by one row as a planted fault;
+     then the 10k-atom box at ``bench_scale.config('dimenet', 10_000)`` (4
+     layers, triplet_chunk 262144: 7 chunks): a warm step and 4 timed, K3
+     4 x 7 and K4 7 per step, ms per step and peak device memory;
   7. summary: one JSON line of kernels, then the device line last.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 3d, 4, 4b, 4c, 4d, 5, 5b, 5c, 5d,
-6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 7.
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 4c, 4d, 4e, 4f, 5,
+5b, 5c, 5d, 5e, 5f, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j, 6k, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
@@ -243,16 +286,20 @@ from geometric_message_passing_tpu_torch.experiments import (bench_kernels,
                                                              bench_scale)
 from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
     cuda_time_ms)
+from geometric_message_passing_tpu_torch.experiments import train
 from geometric_message_passing_tpu_torch.experiments.bench import (
-    LR, N_EPOCHS as EPOCHS, TFN_STAR, bench_data, card_line, tfn_data,
-    tfn_model as _tfn_model)
+    DIMENET_STAR, LR, N_EPOCHS as EPOCHS, SPHERENET_STAR, TFN_STAR,
+    bench_data, card_line, tfn_data, tfn_model as _tfn_model,
+    triplet_star_data)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.experiments.train import (
-    fit_regression, make_tx, train_step)
+    fit_regression, make_tx, seed_everything, train_step)
 from geometric_message_passing_tpu_torch.graph import (
     GraphLoader, assemble_batch, build_slot_data, pad_sizes)
 from geometric_message_passing_tpu_torch.models import (
-    EGNNFusedModel, GVPGNNModel, TFNModel, egnn_fused, gvpgnn)
+    DimeNetPPModel, EGNNFusedModel, GVPGNNModel, SphereNetModel, TFNModel,
+    egnn_fused, gvpgnn)
+from geometric_message_passing_tpu_torch.models import dimenet as dimenet_mod
 from geometric_message_passing_tpu_torch.nn import conv as tfn_conv
 from geometric_message_passing_tpu_torch.nn import tensor_product
 from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
@@ -1306,6 +1353,273 @@ def plain_tfn_twins():
         yield
 
 
+# ---------------------------------------------------------------------------
+# The triplet models: DimeNet++ and SphereNet (the fold on K3, sums on K4)
+# ---------------------------------------------------------------------------
+
+TRIPLET_STEP_TOL = 2e-4     # the CPU tests': of each parameter's max(|ref|, 1)
+DIMENET_EPOCHS, DIMENET_MAE_MAX = 600, 0.09    # JAX fold 7, 600 epochs:
+DIMENET_JAX_MAE, DIMENET_JAX_SD = 0.0831, 0.0007   # RESULTS.md
+SPHERENET_EPOCHS, SPHERENET_MAE_MAX = 200, 0.10
+SPHERENET_JAX_MAE, SPHERENET_JAX_SD = 0.0798, 0.0049  # folds 5-7, 2 layers
+DIMENET_BOX_ATOMS, DIMENET_CHECK_ATOMS = 10_000, 1_000
+TRIPLET_MODELS = {"dimenet": (DimeNetPPModel, DIMENET_STAR),
+                  "spherenet": (SphereNetModel, SPHERENET_STAR)}
+
+
+def triplet_model(name: str, device, heads: bool = False):
+    """The star configuration's model ``name`` at its default widths,
+    weights from seed 0 (``run_experiment_reg``'s first repeat).  ``heads``:
+    the Linears that start at 0 (DimeNet++'s output heads) drawn by
+    GlorotOrthogonal from seed 1, so that every gradient is exercised."""
+    cls, cfg = TRIPLET_MODELS[name]
+    model = cls(num_layers=cfg["num_layers"], in_dim=1, out_dim=1,
+                generator=seed_everything(0), device="cpu")
+    if heads:
+        gen = torch.Generator().manual_seed(1)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear) and not m.weight.any():
+                dimenet_mod.glorot_orthogonal_(m.weight, gen)
+    return model.to(device)
+
+
+def triplet_launches(name: str, forwards: int, train_steps: int) -> dict:
+    """K3 and K4 launches of ``forwards`` forward passes of which
+    ``train_steps`` had a backward: K3 once per layer (the fold), K4 per
+    forward L + 2 (DimeNet++: L + 1 output blocks and the pool; SphereNet:
+    init_v, L update_v and the pool) and one per backward (the embedding's
+    gradient)."""
+    layers = TRIPLET_MODELS[name][1]["num_layers"]
+    return {"sorted_segment_sum": layers * forwards,
+            "segment_sum": (layers + 2) * forwards + train_steps}
+
+
+def check_triplet_fold(label: str, y, ids, mask, n: int,
+                       iters: int = 50) -> dict:
+    """K3 over the identity plan of the ascending ``ids`` (built on the
+    card) against the plain sum: within SEG_TOL, finite, two runs bitwise
+    equal, one launch each.  Times: the kernel, the whole call (with the
+    masking pass), the plain version, ``index_add_`` and
+    ``torch.segment_reduce`` on the masked rows, and the CSR-sort route
+    (K4 over the same ids: a device sort, then the kernel)."""
+    plan = sss.ascending_plan(ids, n)
+    before = sss.sorted_segment_sum.launches
+    with torch.no_grad():
+        got = sss.sorted_fold(y, ids, plan, mask)
+        again = sss.sorted_fold(y, ids, plan, mask)
+        want = sss.sorted_segment_sum_plain(y, ids, n, mask)
+        csr = sss.segment_sum(y, ids, n, mask)
+    torch.cuda.synchronize()
+    if sss.sorted_segment_sum.launches - before != 2:
+        raise AssertionError(f"{label}: the fold did not launch K3 once a call")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite values")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.allclose(got, want, atol=SEG_TOL, rtol=SEG_TOL):
+        raise AssertionError(f"{label}: differs from the plain sum by {err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two runs differ bitwise")
+    if not torch.allclose(csr, want, atol=SEG_TOL, rtol=SEG_TOL):
+        raise AssertionError(f"{label}: the CSR-sort route differs")
+    t, d = y.shape
+    live = int(mask.sum())
+    masked = torch.where(mask[:, None], y, torch.zeros_like(y))
+    out = torch.empty_like(got)
+    buf = torch.zeros_like(got)
+    lengths = plan.rowptr.diff()
+    with torch.no_grad():
+        k_ms = cuda_time_ms(lambda: sss.launch_csr_segsum(
+            masked, None, plan.rowptr, out), iters)
+        call_ms = cuda_time_ms(lambda: sss.sorted_fold(y, ids, plan, mask),
+                               iters)
+        plain_ms = cuda_time_ms(
+            lambda: sss.sorted_segment_sum_plain(y, ids, n, mask), iters)
+        csr_ms = cuda_time_ms(lambda: sss.segment_sum(y, ids, n, mask), iters)
+        lib_ms = cuda_time_ms(lambda: buf.index_add_(0, ids, masked), iters)
+        reduce_ms = cuda_time_ms(lambda: torch.segment_reduce(
+            masked, "sum", lengths=lengths), iters)
+        plan_ms = cuda_time_ms(lambda: sss.ascending_plan(ids, n), iters)
+    b_ms, b_by = seg_bound_ms(live, d, n, t * (ids.element_size() + 1))
+    log(f"  {label}: T={t} live={live} E={n} D={d} max_abs_err={err:.3e}, "
+        f"bitwise repeatable; kernel {k_ms:.4f} ms, whole call {call_ms:.4f} "
+        f"ms (masking pass included), plan {plan_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, CSR-sort route (K4) {csr_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, segment_reduce {reduce_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    return {"shape": label, "T": t, "live": live, "E": n, "D": d,
+            "max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
+            "plan_ms": plan_ms, "plain_ms": plain_ms, "csr_sort_ms": csr_ms,
+            "library_ms": lib_ms, "segment_reduce_ms": reduce_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def tail_masked_case(dev, e: int = 500, d: int = 64, seed: int = 51):
+    """Ascending ids over ``e`` edges with edges that own no triplet (edge
+    7 among them), 5% of the rows masked and 37 masked pad rows on the last
+    edge."""
+    rng = np.random.default_rng(seed)
+    per_edge = rng.integers(0, 7, e)
+    per_edge[7] = 0
+    ids = np.concatenate([np.repeat(np.arange(e), per_edge),
+                          np.full(37, e - 1)])
+    mask = rng.random(len(ids)) >= 0.05
+    mask[-37:] = False
+    y = rng.standard_normal((len(ids), d)).astype(np.float32)
+    return (torch.from_numpy(y).to(dev),
+            torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def serve_triplet(name: str, graphs, dev, card: str) -> dict:
+    """``Predictor`` over ``graphs`` at the model's full default widths
+    (heads drawn), counters set to 0 just before and read just after;
+    finite (n, 1), within ATOL/RTOL of the same weights on the CPU plain
+    path; the median of 5 calls."""
+    cls, cfg = TRIPLET_MODELS[name]
+    cpu_model = triplet_model(name, "cpu", heads=True)
+    model = copy.deepcopy(cpu_model).to(dev)
+    kw = dict(batch_size=BATCH, needs_triplets=True,
+              with_quads=cfg["with_quads"])
+    pred = Predictor(model, **kw)
+    reset_counts()
+    y = pred.predict(graphs)
+    got = counts()
+    batches = -(-len(graphs) // BATCH)
+    want = dict({k: 0 for k in got}, **triplet_launches(name, batches, 0))
+    log(f"[serve] {name} {cfg} predict({len(graphs)} star graphs): launches "
+        f"{got} (want K3 {want['sorted_segment_sum']}, K4 "
+        f"{want['segment_sum']}, nothing else)")
+    if y.shape != (len(graphs), 1) or not np.isfinite(y).all():
+        raise AssertionError(f"{name} predict gave shape {y.shape}, "
+                             f"finite={np.isfinite(y).all()}")
+    if got != want:
+        raise AssertionError(f"{name} predict launched {got}")
+    y_cpu = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    err = float(np.abs(y - y_cpu).max())
+    log(f"  vs the CPU plain path: max_abs_err={err:.3e} (atol {ATOL}, rtol "
+        f"{RTOL}; outputs up to {np.abs(y_cpu).max():.3f})")
+    if not np.allclose(y, y_cpu, atol=ATOL, rtol=RTOL):
+        raise AssertionError(f"{name} predict differs from the CPU by {err}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred.predict(graphs)
+        times.append(time.perf_counter() - t)
+    ms = statistics.median(times) * 1e3
+    log(f"[serve] {name} predict: median {ms:.2f} ms per call of 5 "
+        f"({len(graphs) / ms * 1e3:.0f} graphs/s) [{card}]")
+    return {"launches": got, "max_abs_err": err, "predict_ms": ms}
+
+
+def shifted_fold_plan(ids, n):
+    """The planted fault of phase 5e: the fold's plan with its row pointers
+    shifted by one row."""
+    plan = sss.ascending_plan(ids, n)
+    return plan._replace(rowptr=torch.clamp_max(plan.rowptr + 1, ids.shape[0]))
+
+
+def fold_without_backward(data, ids, plan, mask=None):
+    """The planted fault of phase 5f: the fold cut off from the gradient."""
+    return sss.sorted_fold(data.detach(), ids, plan, mask)
+
+
+def triplet_grads(model, batch, device, dtype) -> dict:
+    """Each parameter's gradient (zero where it got none) after one L1-sum
+    loss backward of a copy of ``model`` on ``batch``, float64 on the CPU."""
+    work = copy.deepcopy(model).to(device=device, dtype=dtype)
+    b = batch.to(device)
+    b.pos, b.y = b.pos.to(dtype), b.y.to(dtype)
+    train.l1_sum_loss(work(b), b).backward()
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                ).double().cpu() for n, p in work.named_parameters()}
+
+
+def scaled_error(got: dict, want: dict) -> tuple:
+    """Largest gradient error relative to max(|ref|, 1) per parameter (the
+    CPU tests' scaling), and the parameter."""
+    err, worst = 0.0, ""
+    for name, g in got.items():
+        e = ((g - want[name]).abs().max().item()
+             / max(want[name].abs().max().item(), 1.0))
+        if e > err:
+            err, worst = e, name
+    return err, worst
+
+
+def step_triplet(name: str, batch, card: str) -> dict:
+    """One step's gradients of ``name`` (heads drawn) on the card against
+    the CPU's plain f32 step at the same weights, within TRIPLET_STEP_TOL
+    of max(|ref|, 1); the CPU float64 step printed beside; a planted fault
+    (5e: the fold's plan shifted by one row; 5f: the fold's backward
+    dropped) must fail that check."""
+    model = triplet_model(name, "cpu", heads=True)
+    layers = TRIPLET_MODELS[name][1]["num_layers"]
+    reset_counts()
+    grads = {"card": triplet_grads(model, batch, "cuda", torch.float32)}
+    launched = counts()
+    if launched["sorted_segment_sum"] != layers:
+        raise AssertionError(f"{name} step launched {launched}")
+    fault = ((dimenet_mod, "ascending_plan", shifted_fold_plan)
+             if name == "dimenet"
+             else (dimenet_mod, "sorted_fold", fold_without_backward))
+    with patched(*fault):
+        grads["card, planted fault"] = triplet_grads(model, batch, "cuda",
+                                                     torch.float32)
+    grads["cpu f32"] = triplet_grads(model, batch, "cpu", torch.float32)
+    exact = triplet_grads(model, batch, "cpu", torch.float64)
+    reading = {run: scaled_error(g, grads["cpu f32"])
+               for run, g in grads.items() if run != "cpu f32"}
+    vs64 = {run: scaled_error(g, exact) for run, g in grads.items()}
+    log(f"[train] {name} one step on a train batch ({batch.num_edges} edges, "
+        f"{batch.triplets.num_triplets} triplets): launches {launched}; "
+        f"gradients against the CPU f32 step (tol {TRIPLET_STEP_TOL:g} of "
+        "max(|ref|, 1)): " + ", ".join(f"{r} {e:.3e} at {w}"
+                                        for r, (e, w) in reading.items())
+        + "; against float64: " + ", ".join(f"{r} {e:.3e}"
+                                            for r, (e, _) in vs64.items()))
+    if reading["card"][0] > TRIPLET_STEP_TOL:
+        raise AssertionError(f"{name}: the step on the card does not match "
+                             "the CPU")
+    if reading["card, planted fault"][0] <= TRIPLET_STEP_TOL:
+        raise AssertionError(f"{name}: the step check passed the planted fault")
+    return {"launches": launched,
+            **{f"grad_err {r}": e for r, (e, _) in reading.items()},
+            **{f"vs_f64 {r}": e for r, (e, _) in vs64.items()}}
+
+
+def train_triplet(name: str, loaders, epochs: int, mae_max: float,
+                  jax_mae: float, jax_sd: float, card: str):
+    """``fit_regression`` of the star configuration (``run_experiment_reg``'s
+    first repeat: weights and shuffle from seed 0; the configuration's lr
+    and schedule) on the card, counters set to 0 just before and read just
+    after; test MAE finite and below ``mae_max``."""
+    cfg = TRIPLET_MODELS[name][1]
+    steps, val_b, test_b = (len(ld) for ld in loaders)
+    model = triplet_model(name, "cuda")
+    reset_counts()
+    res = fit_regression(model, None, *loaders, n_epochs=epochs,
+                         lr=cfg["lr"], cosine=cfg["cosine"], seed=0,
+                         device="cuda")
+    got = counts()
+    fired = fired_epochs(res.perf_per_epoch)
+    forwards = epochs * (steps + val_b) + fired * test_b
+    want = dict({k: 0 for k in got},
+                **triplet_launches(name, forwards, epochs * steps))
+    log(f"[train] {name} fit_regression {epochs} epochs "
+        f"{TRIPLET_MODELS[name][1]}: train_time {res.train_time:.3f} s, test "
+        f"MAE {res.test:.5f} (the JAX package {jax_mae} +- {jax_sd}), best "
+        f"val MAE {res.best_val:.5f}; launches {got} (want K3 "
+        f"{want['sorted_segment_sum']}, K4 {want['segment_sum']}; {fired} "
+        f"test passes) [{card}]")
+    if got != want:
+        raise AssertionError(f"{name} training launched {got}, expected {want}")
+    if not (np.isfinite(res.test) and res.test < mae_max):
+        raise AssertionError(f"{name} test MAE {res.test} is not finite and "
+                             f"below {mae_max}")
+    return res, got
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
@@ -1699,6 +2013,33 @@ def main() -> int:
     del tfn_slot
     torch.cuda.empty_cache()
 
+    # 3e. K3 on the triplet fold: the identity plan of the ascending idx_ji
+    log(f"[kernels] sorted_segment_sum (K3) on the triplet fold: "
+        f"sorted_fold over ascending_plan vs the plain sum (atol=rtol="
+        f"{SEG_TOL}) [{card}]")
+    dn_data, dn_loaders = triplet_star_data(**DIMENET_STAR)
+    sn_data, sn_loaders = triplet_star_data(**SPHERENET_STAR)
+    dn_batch = next(iter(dn_loaders[0]))
+    t = time.perf_counter()
+    tri_box = bench_scale.box_batch(DIMENET_BOX_ATOMS, sort=False,
+                                    triplets=True).to(dev)
+    log(f"  the unsorted {DIMENET_BOX_ATOMS}-atom box with its "
+        f"{int(tri_box.triplets.t_mask.sum())} triplets: built and copied in "
+        f"{time.perf_counter() - t:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(50)
+    fold_cases = {"star train bucket": dn_batch.to(dev),
+                  f"{DIMENET_BOX_ATOMS // 1000}k box": tri_box}
+    k3_fold = []
+    for label, b in fold_cases.items():
+        tri = b.triplets
+        y = torch.randn((tri.num_triplets, 64), generator=gen, device=dev)
+        k3_fold.append(check_triplet_fold(f"fold {label} D64", y, tri.idx_ji,
+                                          tri.t_mask, b.num_edges))
+    k3_fold.append(check_triplet_fold("fold masked tail, empty edge D64",
+                                      *tail_masked_case(dev), 500))
+    del y
+    torch.cuda.empty_cache()
+
     # 4. serve
     model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                            generator=torch.Generator().manual_seed(0),
@@ -1866,6 +2207,11 @@ def main() -> int:
     tfn_ms = statistics.median(times) * 1e3
     log(f"[serve] TFN predict: median {tfn_ms:.2f} ms per call of 7 "
         f"({N_GRAPHS / tfn_ms * 1e3:.0f} graphs/s) [{card}]")
+
+    # 4e / 4f. DimeNet++ and SphereNet serving over their star data
+    triplet_serve = {"dimenet": serve_triplet("dimenet", dn_data, dev, card),
+                     "spherenet": serve_triplet("spherenet", sn_data, dev,
+                                                card)}
 
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
@@ -2057,6 +2403,12 @@ def main() -> int:
     if tfn_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
         raise AssertionError("phase 5d's check passed the planted fault")
     del narrow, tfn_step
+
+    # 5e / 5f. one DimeNet++ and one SphereNet step against the CPU
+    triplet_check = {
+        "dimenet": step_triplet("dimenet", dn_batch, card),
+        "spherenet": step_triplet("spherenet", next(iter(sn_loaders[0])),
+                                  card)}
 
     # 6. train, the main path
     reset_counts()
@@ -2325,6 +2677,85 @@ def main() -> int:
     del det_box, det_model, det_grads
     torch.cuda.empty_cache()
 
+    # 6i / 6j. DimeNet++ and SphereNet star runs, the main path
+    dres, dn_train = train_triplet("dimenet", dn_loaders, DIMENET_EPOCHS,
+                                   DIMENET_MAE_MAX, DIMENET_JAX_MAE,
+                                   DIMENET_JAX_SD, card)
+    sres, sn_train = train_triplet("spherenet", sn_loaders, SPHERENET_EPOCHS,
+                                   SPHERENET_MAE_MAX, SPHERENET_JAX_MAE,
+                                   SPHERENET_JAX_SD, card)
+
+    # 6k. bench_scale's dimenet step on the 10k box; one step on a small box
+    # against the CPU float64 run, chunked, with a planted fault
+    small = bench_scale.box_batch(DIMENET_CHECK_ATOMS, sort=False,
+                                  triplets=True)
+    chunk = small.triplets.num_triplets // 3
+    small_model = dimenet_mod.DimeNetPPModel(
+        **dict(bench_scale.config("dimenet", DIMENET_CHECK_ATOMS),
+               triplet_chunk=chunk), in_dim=8, out_dim=1,
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for out_block in small_model.outputs:
+        dimenet_mod.glorot_orthogonal_(out_block.lin.weight, gen)
+    f32, f64 = torch.float32, torch.float64
+    small_grads = {"card": triplet_grads(small_model, small, "cuda", f32)}
+    with patched(dimenet_mod, "ascending_plan", shifted_fold_plan):
+        small_grads["card, planted fault"] = triplet_grads(small_model, small,
+                                                           "cuda", f32)
+    small_grads["cpu f32"] = triplet_grads(small_model, small, "cpu", f32)
+    exact = triplet_grads(small_model, small, "cpu", f64)
+    dimenet_box_check = {run: grad_error(g, exact)
+                         for run, g in small_grads.items()}
+    log(f"[box] dimenet one step on a {DIMENET_CHECK_ATOMS}-atom box "
+        f"({int(small.edge_mask.sum())} edges, "
+        f"{int(small.triplets.t_mask.sum())} triplets, triplet_chunk {chunk}), "
+        f"gradients against the CPU float64 run (tol {GRAD_TOL:g} of each "
+        "parameter's largest entry): " + ", ".join(
+            f"{run} {e:.3e}" for run, e in dimenet_box_check.items()))
+    if dimenet_box_check["card"] > GRAD_TOL:
+        raise AssertionError("dimenet: the box step on the card does not "
+                             "match the CPU")
+    if dimenet_box_check["card, planted fault"] <= GRAD_TOL:
+        raise AssertionError("dimenet: the box check passed the planted fault")
+    cfg = bench_scale.config("dimenet", DIMENET_BOX_ATOMS)
+    box_model = bench_scale.build("dimenet", cfg,
+                                  torch.Generator().manual_seed(0), dev)
+    step_fn = bench_scale.make_step(box_model, tri_box)
+    step_fn().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(BOX_STEPS):
+        t = time.perf_counter()
+        losses.append(step_fn().item())
+        times.append(time.perf_counter() - t)
+    dn_box_counts = counts()
+    n_chunks = -(-tri_box.triplets.num_triplets // cfg["triplet_chunk"])
+    want = dict({k: 0 for k in dn_box_counts},
+                sorted_segment_sum=BOX_STEPS * cfg["num_layers"] * n_chunks,
+                segment_sum=BOX_STEPS * (cfg["num_layers"] + 3))
+    dn_box = {"launches": dn_box_counts,
+              "step_ms": statistics.median(times) * 1e3,
+              "step_times_ms": [x * 1e3 for x in times],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "losses": losses, "chunks": n_chunks,
+              "triplets": int(tri_box.triplets.t_mask.sum()),
+              "edges": int(tri_box.edge_mask.sum())}
+    log(f"[box] dimenet {cfg} on the {DIMENET_BOX_ATOMS}-atom box "
+        f"({dn_box['edges']} edges, {dn_box['triplets']} triplets, "
+        f"{n_chunks} chunks): {BOX_STEPS} steps after a warm one, median "
+        f"{dn_box['step_ms']:.2f} ms per step, peak "
+        f"{dn_box['peak_mem_gb']:.3f} GB; losses {losses}; launches "
+        f"{dn_box_counts} (want K3 {cfg['num_layers'] * n_chunks} and K4 "
+        f"{cfg['num_layers'] + 3} per step) [{card}]")
+    if dn_box_counts != want:
+        raise AssertionError(f"dimenet box steps launched {dn_box_counts}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("dimenet box: a loss is not finite")
+    del box_model, step_fn, tri_box
+    torch.cuda.empty_cache()
+
     # 7. summary
     kernels = [{
         "name": "egnn_message", "ok": True, "route": "cuda",
@@ -2399,7 +2830,13 @@ def main() -> int:
             **{k: top[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms",
                                    "segment_reduce_ms")},
-            "shapes": readings})
+            "shapes": readings,
+            # the triplet models' main paths (phases 6i, 6j): K3 is their
+            # fold, K4 their edge -> node sums and pools
+            "triplet_launches": {"dimenet": dn_train[name],
+                                 "spherenet": sn_train[name]},
+            **({"triplet_fold": k3_fold} if name == "sorted_segment_sum"
+               else {})})
     # K7: one hidden layer's five groups in one launch at the TFN train
     # bucket; beside it layer 0, bf16 W and each group in a launch of its own
     for name, direction, replaces in (
@@ -2444,7 +2881,19 @@ def main() -> int:
                     "tfn_train_time_s": tres.train_time,
                     "tfn_train_epochs": TFN_EPOCHS, "tfn_test_mae": tres.test,
                     "tfn_best_val_mae": tres.best_val,
-                    "tfn_train_check": tfn_check}))
+                    "tfn_train_check": tfn_check,
+                    "triplet_serve": triplet_serve,
+                    "triplet_train_check": triplet_check,
+                    "dimenet_train_time_s": dres.train_time,
+                    "dimenet_train_epochs": DIMENET_EPOCHS,
+                    "dimenet_test_mae": dres.test,
+                    "dimenet_best_val_mae": dres.best_val,
+                    "spherenet_train_time_s": sres.train_time,
+                    "spherenet_train_epochs": SPHERENET_EPOCHS,
+                    "spherenet_test_mae": sres.test,
+                    "spherenet_best_val_mae": sres.best_val,
+                    "dimenet_box_check": dimenet_box_check,
+                    "dimenet_box": dn_box}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -34,6 +34,7 @@ import torch
 
 from .. import datasets as ds
 from ..graph import GraphLoader, pad_sizes, random_split
+from ..triplets import triplet_pad_sizes
 from ..models import EGNNFusedModel, EGNNModel, TFNModel
 from .train import fit_regression, seed_everything
 
@@ -72,6 +73,33 @@ def tfn_model(generator: torch.Generator, device="cuda", **kw) -> TFNModel:
     """``TFNModel`` at ``TFN_STAR`` (entries overridden by ``kw``)."""
     return TFNModel(**dict(TFN_STAR, **kw), in_dim=1, out_dim=1,
                     generator=generator, device=device)
+
+
+# The triplet models' star configurations.  DimeNet++: the JAX CLI's
+# defaults (1000 graphs, batch 100, lr 1e-4, plateau schedule, seed 0, split
+# 50/20/30) on fold [7] with 4 layers.  SphereNet: folds 5-7 with 2 layers
+# under the protocol of the JAX package's SphereNet star number
+# (scripts/validate_accuracy.py: 1500 graphs, lr 5e-4, cosine schedule).
+DIMENET_STAR = dict(fold=[7], num_layers=4, with_quads=False, n_data=1000,
+                    lr=1e-4, cosine=False)
+SPHERENET_STAR = dict(fold=[5, 6, 7], num_layers=2, with_quads=True,
+                      n_data=1500, lr=5e-4, cosine=True)
+
+
+def triplet_star_data(fold, with_quads: bool, n_data: int, **_):
+    """The JAX CLI's star data for a directional model: ``n_data`` star
+    graphs on ``fold`` (target max angle, seed 0), split 50/20/30 (seed 0),
+    batch 100, loaders with triplets (and quads), their node and triplet
+    buckets sized over all the data.  Takes a ``*_STAR`` dict as keywords
+    (its other entries are ignored)."""
+    data = ds.create_star_graphs(num=n_data, fold=list(fold), dim=3,
+                                 target="max", seed=0)
+    tr, va, te = random_split(data, [0.5, 0.2, 0.3], seed=0)
+    kw = dict(batch_size=BATCH_SIZE, pad=pad_sizes(data, BATCH_SIZE),
+              with_triplets=True, with_quads=with_quads,
+              triplet_pad=triplet_pad_sizes(data, BATCH_SIZE, with_quads))
+    return data, (GraphLoader(tr, shuffle=True, seed=0, **kw),
+                  GraphLoader(va, **kw), GraphLoader(te, **kw))
 
 
 def bench_model(generator: torch.Generator, device="cuda",

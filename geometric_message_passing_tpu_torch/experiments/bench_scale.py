@@ -1,31 +1,37 @@
 """Box-scale training throughput of the port on one CUDA card (port of the
-repository's ``scripts/bench_scale.py``, its SchNet, EGNN and GVP-GNN
-models).
+repository's ``scripts/bench_scale.py``, its SchNet, EGNN, GVP-GNN and
+DimeNet++ models).
 
     python -m geometric_message_passing_tpu_torch.experiments.bench_scale \\
         [--sizes 10000,30000,100000] \\
-        [--models schnet,schnet_sorted,egnn,egnn_sorted,gvp,gvp_sorted] \\
+        [--models schnet,schnet_sorted,egnn,egnn_sorted,gvp,gvp_sorted,dimenet] \\
         [--steps N]
 
-Data: one synthetic molecular box per size (``datasets.create_molecular_boxes``:
-cutoff 3.0, average degree 14, 8 species, seed 0; 1,350,872 edges at 100k
-atoms), batched alone.  The ``_sorted`` models take the receiver-sorted box
-and its segment plans (``ops.sorted_segsum.batch_seg_plans``): every segment
-reduction and gather backward runs the sorted segment-sum kernel (GVP-GNN's
-merged receiver sum and sender gather backward; its message chain takes the
-plain route, not the GVP kernel, as in the JAX script).  Models at the widths
-of ``MODELS`` (4 layers x 128; GVP-GNN 4 layers at its defaults, 128/16
-node and 32/1 edge widths, with ``remat`` from 30k atoms on, the JAX
-script's rule), ``in_dim`` 8, ``out_dim`` 1, initial weights from seed 0; no
-narrower fallback.  The models train in training mode (GVP-GNN's dropout
-on), as the JAX script applies them with ``train=True``.
+Data: one synthetic molecular box per size
+(``datasets.create_molecular_boxes``: cutoff 3.0, average degree 14, 8
+species, seed 0; 1,350,872 edges at 100k atoms), batched alone. The
+``_sorted`` models take the receiver-sorted box and its segment plans
+(``ops.sorted_segsum.batch_seg_plans``): every segment reduction and gather
+backward runs the sorted segment-sum kernel (GVP-GNN's merged receiver sum
+and sender gather backward; its message chain takes the plain route, not the
+GVP kernel, as in the JAX script). Models at the widths of ``MODELS`` (4
+layers x 128; GVP-GNN 4 layers at its defaults, 128/16 node and 32/1 edge
+widths, with ``remat`` from 30k atoms on, the JAX script's rule), ``in_dim``
+8, ``out_dim`` 1, initial weights from seed 0; no narrower fallback.
+``dimenet`` (DimeNet++ at its default widths, 4 layers, ``triplet_chunk``
+262144) takes the box with its triplets (about 1.7M at 10k atoms); its
+triplet fold runs K3 per chunk over the ascending ``idx_ji``, its other sums
+K4. Its 50k/100k settings (edge chunks, remat) are not ported yet:
+``config`` raises from 50k atoms on. The models train in training mode
+(GVP-GNN's dropout on), as the JAX script applies them with ``train=True``.
 
 Step: L1-sum loss, backward, Adam (lr 1e-4).  A call is
 ``max(4, min(40, 1_500_000 // n))`` steps ending in a host read of the loss;
 two warm calls, then 3 timed calls on the host clock.  The box, the plans and
 the copy to the card come before the timed window.
 
-Prints one JSON line per (model, size) with the JAX script's keys plus
+Prints one JSON line per (model, size) with the JAX script's keys
+(``triplets`` and ``triplets_per_sec`` for ``dimenet``) plus
 ``peak_mem_gb`` (``torch.cuda.max_memory_allocated`` over the warm and
 timed calls); ``device`` is the card's ``nvidia-smi`` name and power limit.
 A model that fails (out of memory, say) prints a row with ``error`` and the
@@ -59,10 +65,12 @@ MODELS = {
     "schnet_sorted": dict(num_layers=4, hidden_channels=128, num_filters=128),
     "gvp": dict(num_layers=4),
     "gvp_sorted": dict(num_layers=4),
+    "dimenet": dict(num_layers=4, triplet_chunk=262144),
 }
 SORTED = {"egnn_sorted": "egnn", "schnet_sorted": "schnet",
           "gvp_sorted": "gvp"}
 REMAT_FROM = 30_000   # GVP-GNN atoms from which the chain is rematerialised
+DIMENET_MAX = 50_000  # DimeNet++'s settings from here on are not ported yet
 LR = 1e-4
 
 
@@ -73,18 +81,25 @@ def build(name: str, cfg: dict, generator: torch.Generator, device="cuda"):
 
 
 def box_batch(n_nodes: int, sort: bool, cutoff: float = 3.0,
-              avg_degree: float = 14.0) -> GraphBatch:
+              avg_degree: float = 14.0, triplets: bool = False) -> GraphBatch:
     """The benchmark's box of ``n_nodes`` atoms as one padded batch on the
-    host, its edges sorted by receiver when ``sort``."""
+    host, its edges sorted by receiver when ``sort``, with its triplets when
+    ``triplets``."""
     graphs = create_molecular_boxes(num=1, n_nodes=n_nodes, cutoff=cutoff,
                                     avg_degree=avg_degree, n_species=8, seed=0)
     if sort:
         graphs = [sort_edges_by_receiver(g) for g in graphs]
-    return next(iter(GraphLoader(graphs, batch_size=1)))
+    return next(iter(GraphLoader(graphs, batch_size=1,
+                                 with_triplets=triplets)))
 
 
 def steps_per_call(n_nodes: int) -> int:
     return max(4, min(40, 1_500_000 // n_nodes))
+
+
+def dimenet_steps(steps: int) -> int:
+    """DimeNet++'s steps per call: a tenth, at least 2 (the JAX script's)."""
+    return max(2, steps // 10)
 
 
 def config(name: str, n_nodes: int) -> dict:
@@ -93,6 +108,10 @@ def config(name: str, n_nodes: int) -> dict:
     cfg = dict(MODELS[name])
     if name in ("gvp", "gvp_sorted") and n_nodes >= REMAT_FROM:
         cfg["remat"] = True
+    if name == "dimenet" and n_nodes >= DIMENET_MAX:
+        raise NotImplementedError(
+            f"dimenet at {n_nodes} atoms (edge chunks, remat) is not ported "
+            "yet")
     return cfg
 
 
@@ -125,9 +144,11 @@ def make_step(model: torch.nn.Module, batch: GraphBatch,
     device, not read)."""
     opt = make_tx(model.parameters(), lr)
 
+    kw = {} if plans is None else {"seg_plans": plans}
+
     def step() -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
-        loss = l1_sum_loss(model(batch, seg_plans=plans), batch)
+        loss = l1_sum_loss(model(batch, **kw), batch)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -160,6 +181,10 @@ def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
     if not math.isfinite(loss):
         raise FloatingPointError(f"{name}: loss {loss} is not finite")
     sps = steps * reps / dt
+    extra = {}
+    if batch.triplets is not None:
+        tri = int(batch.triplets.t_mask.sum())
+        extra = {"triplets": tri, "triplets_per_sec": tri * sps}
     return {
         "model": name, "nodes": nodes, "edges": edges,
         "ms_per_step": 1000.0 / sps,
@@ -168,7 +193,7 @@ def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
         "cfg": dict(cfg),
         "device": card_line(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "steps_per_call": steps, "loss": loss,
+        "steps_per_call": steps, "loss": loss, **extra,
     }
 
 
@@ -195,13 +220,16 @@ def main(argv=None) -> int:
         batches = {}
         steps = args.steps or steps_per_call(n_nodes)
         for name in names:
-            sort = name in SORTED
-            if sort not in batches:
-                batches[sort] = box_batch(n_nodes, sort, args.cutoff,
-                                          args.avg_degree).to("cuda")
+            kind = "sorted" if name in SORTED else (
+                "triplets" if name == "dimenet" else "plain")
             try:
-                row = bench_one(name, config(name, n_nodes), batches[sort],
-                                steps)
+                if kind not in batches:
+                    batches[kind] = box_batch(
+                        n_nodes, kind == "sorted", args.cutoff,
+                        args.avg_degree, triplets=kind == "triplets").to("cuda")
+                row = bench_one(name, config(name, n_nodes), batches[kind],
+                                dimenet_steps(steps) if name == "dimenet"
+                                else steps)
             except Exception as exc:      # out of memory, say: no fallback
                 traceback.print_exc()
                 failed = True

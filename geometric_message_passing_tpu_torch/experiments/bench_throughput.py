@@ -8,20 +8,23 @@ Models and depths are the JAX script's ``MODELS`` table; the port builds
 ``schnet``, ``egnn``, ``egnn_fused`` (per-layer kernels K1/K2), ``egnn_stack``
 (``EGNNFusedModel(fuse_stack=True)``, the whole-stack kernel K6), ``gvp`` and
 ``tfn`` (4 layers, max_ell 3 at its default widths: the per-edge CG
-contraction kernel K7 and the segment sum K4), and runs them all by default.
-``mace``, ``dimenet`` and ``spherenet`` are not ported yet: naming one
-raises.
+contraction kernel K7 and the segment sum K4), ``dimenet`` (DimeNet++, 4
+layers) and ``spherenet`` (2 layers) at their default widths (the triplet
+fold on K3, the other sums on K4), and runs them all by default.  ``mace``
+is not ported yet: naming it raises.
 
 Data: 100 star graphs (fold 5/6/7, target max angle, seed 0) as one padded
-batch of 100 on the card.  Model: the registry's defaults at ``out_dim`` 1
-and the table's layer count, initial weights from seed 0.  Step: L1-sum
-loss, backward, Adam (lr 5e-4), in training mode (GVP-GNN's dropout on,
-drawn from the model's own generator, where the JAX script reuses one key
-for every step).  A call is 100 steps ending in a host read of the last
-loss; two warm calls, then three timed calls on the host clock.  The JAX
-script scans its 100 steps inside one device program; the port runs them
-as eager steps, so its number includes the host's launches and is not
-comparable with the JAX script's TPU numbers.
+batch of 100 on the card, with its triplets for ``dimenet`` and its triplets
+and quads for ``spherenet``, as the JAX script pads them. Model: the
+registry's defaults at ``out_dim`` 1 and the table's layer count, initial
+weights from seed 0. Step: L1-sum loss, backward, Adam (lr 5e-4), in
+training mode (GVP-GNN's dropout on, drawn from the model's own generator,
+where the JAX script reuses one key for every step). A call is 100 steps
+ending in a host read of the last loss; two warm calls, then three timed
+calls on the host clock.  The JAX script scans its 100 steps inside one
+device program; the port runs them as eager steps, so its number includes
+the host's launches and is not comparable with the JAX script's TPU
+numbers.
 
 Prints one JSON line per model with the JAX script's keys (``model``,
 ``num_layers``, ``edges_per_batch``, ``steps_per_sec``,
@@ -57,7 +60,9 @@ MODELS = {
     "dimenet": dict(num_layers=4),
     "spherenet": dict(num_layers=2),
 }
-PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp", "tfn")
+PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp", "tfn",
+          "dimenet", "spherenet")
+TRIPLETS = {"dimenet": False, "spherenet": True}   # name -> with quads
 STEPS, REPS, WARM, LR = 100, 3, 2, 5e-4
 
 
@@ -83,13 +88,18 @@ def build(name: str, generator: torch.Generator, device="cuda"):
     return model_registry[name](**cfg)
 
 
-def star_batch(num: int = 100, batch_size: int = 100, device="cuda") -> GraphBatch:
-    """The JAX script's batch: the first padded batch of ``num`` star graphs
-    (fold 5/6/7, seed 0), on ``device``."""
+def star_batch(num: int = 100, batch_size: int = 100, device="cuda",
+               name: str = "") -> GraphBatch:
+    """The JAX script's batch for model ``name``: the first padded batch of
+    ``num`` star graphs (fold 5/6/7, seed 0), with triplets (and quads) for
+    the directional models, on ``device``."""
     data = ds.create_star_graphs(num=num, fold=[5, 6, 7], dim=3, target="max",
                                  seed=0)
+    needs_tri = name in TRIPLETS
     loader = GraphLoader(data, batch_size=batch_size,
-                         pad=pad_sizes(data, batch_size))
+                         pad=pad_sizes(data, batch_size),
+                         with_triplets=needs_tri,
+                         with_quads=TRIPLETS.get(name, False))
     return next(iter(loader)).to(device)
 
 
@@ -143,10 +153,13 @@ def main(argv=None) -> list:
     if not torch.cuda.is_available():
         raise SystemExit("bench_throughput: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch = star_batch()
+    batches = {}
     rows = []
     for name in args.models:
-        rows.append(bench_one(name, batch))
+        kind = TRIPLETS.get(name)
+        if kind not in batches:
+            batches[kind] = star_batch(name=name)
+        rows.append(bench_one(name, batches[kind]))
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

@@ -2,15 +2,17 @@
 CUDA card.
 
     python -m geometric_message_passing_tpu_torch.experiments.profile_train \
-        [--fuse-stack | --tfn]
+        [--fuse-stack | --tfn | --dimenet]
 
 Trains the bench configuration (EGNN 4 layers x 128, pool "first", 1400
 star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``;
 ``--fuse-stack`` runs its whole-stack strategy, K6, in place of the
 per-layer kernels K1/K2; ``--tfn`` trains TFN's star configuration instead,
-``bench.TFN_STAR`` on ``bench.tfn_data``) through ``fit_regression`` for a
-few warm epochs,
-then traces one more epoch (7 train steps, the validation pass and, since
+``bench.TFN_STAR`` on ``bench.tfn_data``; ``--dimenet`` DimeNet++'s star
+configuration, ``bench.DIMENET_STAR`` on ``bench.triplet_star_data``: 4
+layers at the default widths, fold [7], 1000 graphs, lr 1e-4, 5 train
+steps an epoch) through ``fit_regression`` for a few warm epochs,
+then traces one more epoch (its train steps, the validation pass and, since
 its best-val rule fires on a first epoch, the test pass) with
 ``torch.profiler`` and prints:
   * the mean epoch wall time of an untraced 10-epoch run, and the traced
@@ -42,8 +44,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..graph import build_slot_data
-from .bench import (BATCH_SIZE, LR, bench_data, bench_model, card_line,
-                    tfn_data, tfn_model)
+from ..models import DimeNetPPModel
+from .bench import (BATCH_SIZE, DIMENET_STAR, LR, bench_data, bench_model,
+                    card_line, tfn_data, tfn_model, triplet_star_data)
 from .train import fit_regression, make_tx, seed_everything, train_step
 
 # kernel-name fragments of each group, checked in this order
@@ -78,14 +81,17 @@ def _device_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def step_reading(model, loaders, steps: int = 20, traced: int = 5) -> dict:
+def step_reading(model, loaders, steps: int = 20, traced: int = 5,
+                 lr: float = LR) -> dict:
     """One train step of a copy of ``model`` on the first ``BATCH_SIZE``
     training graphs: untraced wall ms (mean of ``steps``, each ending in a
     synchronise), device ms per step and idle share from ``traced`` steps."""
     work = copy.deepcopy(model)
-    slot = build_slot_data(loaders[0].graphs, device="cuda")
+    slot = build_slot_data(loaders[0].graphs,
+                           with_triplets=loaders[0].with_triplets,
+                           with_quads=loaders[0].with_quads, device="cuda")
     row = torch.arange(BATCH_SIZE, device="cuda")
-    opt = make_tx(work.parameters(), LR)
+    opt = make_tx(work.parameters(), lr)
 
     def step():
         train_step(work, opt, slot, row)
@@ -117,17 +123,26 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
                        help="the whole-stack strategy (K6)")
     which.add_argument("--tfn", action="store_true",
                        help="TFN's star configuration (K7)")
+    which.add_argument("--dimenet", action="store_true",
+                       help="DimeNet++'s star configuration (K3 fold, K4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    lr = LR
     if args.tfn:
         _, loaders = tfn_data()
         model = tfn_model(seed_everything(0))
+    elif args.dimenet:
+        _, loaders = triplet_star_data(**DIMENET_STAR)
+        model = DimeNetPPModel(num_layers=DIMENET_STAR["num_layers"],
+                               in_dim=1, out_dim=1,
+                               generator=seed_everything(0))
+        lr = DIMENET_STAR["lr"]
     else:
         _, loaders = bench_data()
         model = bench_model(seed_everything(0), fuse_stack=args.fuse_stack)
-    fit = dict(lr=LR, seed=1, device="cuda")
+    fit = dict(lr=lr, seed=1, device="cuda")
     warm = fit_regression(model, None, *loaders, n_epochs=warm_epochs, **fit)
     model.load_state_dict(warm.variables)
 
@@ -154,12 +169,13 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
     print("top kernels:")
     for dev_us, count, key in rows[:20]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
-    step = step_reading(model, loaders)
+    step = step_reading(model, loaders, lr=lr)
     print(f"one train step: {step['step_ms']:.3f} ms untraced (mean of 20), "
           f"device {step['device_ms']:.3f} ms, idle share "
           f"{step['idle_share']:.3f}, {step['device_events']:.0f} device events")
     res = {
         "card": card_line(), "fuse_stack": args.fuse_stack, "tfn": args.tfn,
+        "dimenet": args.dimenet,
         "epoch_ms_untraced": epoch_ms,
         "idle_share_untraced": 1 - device_ms / epoch_ms,
         "traced_wall_ms": traced_wall_ms, "device_ms": device_ms,

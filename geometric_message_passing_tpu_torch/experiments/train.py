@@ -9,20 +9,21 @@ in slot layout (``graph.SlotData``):
   * each epoch shuffles the training graphs on the device
     (``torch.randperm`` from a device generator seeded by ``seed``), pads
     the last batch with the sentinel index M and assembles every batch on
-    the device (``graph.assemble_batch``);
+    the device (``graph.assemble_batch``), with its triplets (and quads)
+    when the loaders carry them (DimeNet++, SphereNet);
   * a train step is the L1-sum loss, ``backward`` (through the EGNN kernels'
     autograd function) and an Adam step;
-  * the learning rate is set from the plateau scheduler before the epoch's
-    steps; after them the validation MAE is read to the host (one read per
-    epoch) and the test set is evaluated only when validation is at least as
-    good as the best so far: the JAX package's best-val rule.
+  * the learning rate is set from the plateau scheduler (or, with
+    ``cosine``, from the cosine schedule) before the epoch's steps; after
+    them the validation MAE is read to the host (one read per epoch) and the
+    test set is evaluated only when validation is at least as good as the
+    best so far: the JAX package's best-val rule.
 
 Protocol quirks kept from the JAX package (and its reference): losses are
 sums over the batch, metrics sum / num_examples, the plateau scheduler runs
 in ``mode='max'`` on the validation MAE, and regression re-instantiates the
-model every repeat.  The JAX engine's checkpointing, NaN recovery, ``mesh=``,
-cosine schedule and ``loss_mask`` are not ported yet and raise
-``NotImplementedError``.
+model every repeat.  The JAX engine's checkpointing, NaN recovery, ``mesh=``
+and ``loss_mask`` are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,6 +98,14 @@ def plateau_update(state: Dict[str, np.generic], metric: float,
           else state["lr"])
     return {"lr": f32(lr), "best": signed if improved else best,
             "bad": np.int32(0) if decay else bad}
+
+
+def cosine_lr(lr0: float, eta_min: float, t_max: int, epoch: int) -> np.float32:
+    """The cosine schedule's rate at ``epoch`` of ``t_max``, in the JAX
+    package's float32 arithmetic."""
+    f32 = np.float32
+    return f32(eta_min) + f32(0.5) * (f32(lr0) - f32(eta_min)) * (
+        f32(1) + np.cos(f32(np.pi) * f32(epoch) / f32(t_max)))
 
 
 def make_tx(params, lr: float = 1e-4) -> torch.optim.Optimizer:
@@ -175,8 +184,6 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     False, its default; this raises otherwise."""
     if task != "regression":
         raise NotImplementedError("classification is not ported yet")
-    if cosine:
-        raise NotImplementedError("the cosine schedule is not ported yet")
     if checkpoint_dir or checkpoint_every or nan_recovery:
         raise NotImplementedError(
             "checkpointing and NaN recovery are not ported yet")
@@ -186,7 +193,9 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
                          "torch.backends.cuda.matmul.allow_tf32 = False")
     plateau = plateau or PlateauConfig()
     slot_train, slot_val, slot_test = (
-        build_slot_data(ld.graphs, y_dtype=ld.y_dtype, device=dev)
+        build_slot_data(ld.graphs, y_dtype=ld.y_dtype,
+                        with_triplets=ld.with_triplets,
+                        with_quads=ld.with_quads, device=dev)
         for ld in (train_loader, val_loader, test_loader))
     b = train_loader.batch_size
     steps = len(train_loader)
@@ -206,8 +215,10 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     losses: List[List[float]] = []
     t0 = time.time()
     for epoch in range(n_epochs):
+        lr_now = (cosine_lr(lr, 1e-6, n_epochs, epoch) if cosine
+                  else sched["lr"])
         for group in opt.param_groups:
-            group["lr"] = float(sched["lr"])
+            group["lr"] = float(lr_now)
         perm = (epoch_order(epoch) if epoch_order is not None
                 else torch.randperm(m, generator=gen, device=dev))
         slots = torch.cat([perm.to(device=dev, dtype=torch.long),
@@ -224,7 +235,8 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
             test_metric = eval_metric(model, slot_test, test_plan,
                                       test_loader.num_examples)
             best_val = val_f
-        sched = plateau_update(sched, val_f, plateau)
+        if not cosine:
+            sched = plateau_update(sched, val_f, plateau)
         tests.append(test_metric)
         vals.append(val_f)
     test_read = torch.stack(tests).tolist() if tests else []
@@ -248,7 +260,8 @@ def fit_regression(model: torch.nn.Module, variables, train_loader,
                    nan_recovery: bool = False, device=None,
                    epoch_order=None) -> FitResult:
     """Regression protocol: Adam at ``lr``, plateau scheduler in mode 'max'
-    (factor 0.9, patience 15, min_lr 1e-4), best-val test rule.
+    (factor 0.9, patience 15, min_lr 1e-4) or, with ``cosine``, the cosine
+    schedule from ``lr`` down to 1e-6 over ``n_epochs``; best-val test rule.
 
     Trains a copy of ``model`` loaded with ``variables`` (a state dict; None
     takes the model's own) and leaves ``model`` untouched, so repeated calls

@@ -1,7 +1,8 @@
 """Where one GVP-GNN train step on a CUDA card drifts from float64: a
 bisection by op class.
 
-    python -m geometric_message_passing_tpu_torch.experiments.trial_gvp_drift
+    python -m geometric_message_passing_tpu_torch.experiments.trial_gvp_drift \\
+        [--probe-bias]
 
 Model and data are those of ``chip_smoke.py`` phase 5b: ``GVPGNNModel`` at
 its defaults with 4 layers, weights from seed 0, every dropout rate 0; the
@@ -27,8 +28,27 @@ float64 run, and the parameter where it lies:
 
 A class whose float32 run alone reproduces the ``card f32`` gap is where
 the card's drift enters; a class whose float64 run alone closes it is where
-the rounding of the layers before it is amplified.  Prints one JSON line with the card's ``nvidia-smi``
-name and power limit.  It needs a card and raises without one.
+the rounding of the layers before it is amplified.
+
+``--probe-bias`` looks at the parameter where the gap lies,
+``layers.2.conv.gvp1_bs`` (the bias of the second GVP of layer 2's message
+chain), on the plain route: its gradient is the sum over the edges of the
+cotangent of that GVP's pre-activation, one term per edge and channel.  The
+probe keeps those terms (``gvp_chain``'s ``pre_relu`` rows) in the CPU
+float64 run, the CPU float32 run and the card's float32 run, and reports
+for each f32 run: the bias gradient's error (of its largest float64 entry),
+the part of it that the f32 sum itself adds (against the float64 sum of the
+same f32 terms) and the part the terms carry, the terms' largest error (of
+their largest float64 entry), and the cancellation of the worst channel (the
+sum of its terms' magnitudes over the magnitude of their sum).  It also
+counts the ReLU mask flips (a pre-activation whose sign differs from the
+float64 run's) of every GVP chain in the step and of the probed GVP, with
+the largest float64 |pre-activation| among them, and the bias gradient's
+error left when the probed GVP's flipped entries take the float64 run's
+terms.
+
+Prints one JSON line with the card's ``nvidia-smi`` name and power limit.
+It needs a card and raises without one.
 """
 
 from __future__ import annotations
@@ -44,6 +64,7 @@ from torch import nn
 from torch.utils._pytree import tree_map
 
 from ..graph import build_slot_data
+from ..ops import gvp_message as gm
 from ..models import GVPGNNModel, gvpgnn
 from ..models.pooling import global_add_pool
 from ..nn import gvp
@@ -162,7 +183,119 @@ def quiet_model(use_pallas: bool) -> GVPGNNModel:
     return model
 
 
-def main() -> dict:
+PROBE_LAYER, PROBE_GVP = 2, 1     # layers.2.conv.gvp1_bs
+
+
+@contextlib.contextmanager
+def bias_terms(work: GVPGNNModel, found: list, every: list):
+    """Collect, in ``found``, the pre-activation of GVP ``PROBE_GVP`` in
+    layer ``PROBE_LAYER``'s message chain (its rows' cotangents are the
+    per-edge terms of that GVP's bias gradient), with its grad retained;
+    and in ``every`` each chain's ReLU pre-activations, in call order."""
+    target = getattr(work.layers[PROBE_LAYER].conv, f"gvp{PROBE_GVP}_bs")
+    original = gm.gvp_chain
+
+    def chain(s, vx, vy, vz, weights, n_layers, pre_relu=None):
+        zs = []
+        out = original(s, vx, vy, vz, weights, n_layers, zs)
+        every.append([z.detach().double().cpu() for z in zs])
+        if weights[gm.N_W * PROBE_GVP + 3] is target:
+            zs[PROBE_GVP].retain_grad()
+            found.append(zs[PROBE_GVP])
+        if pre_relu is not None:
+            pre_relu.extend(zs)
+        return out
+
+    gm.gvp_chain = chain
+    try:
+        yield
+    finally:
+        gm.gvp_chain = original
+
+
+def probe_step(model: GVPGNNModel, graphs, row, device, dtype) -> dict:
+    """One plain-route train step of a copy of ``model``: the probed bias's
+    gradient and its per-edge terms, float64 on the CPU."""
+    work = copy.deepcopy(model).to(device=device, dtype=dtype)
+    slot = build_slot_data(graphs, device=device)
+    slot.pos, slot.y = slot.pos.to(dtype), slot.y.to(dtype)
+    found: list = []
+    every: list = []
+    with bias_terms(work, found, every):
+        train_step(work, make_tx(work.parameters(), LR), slot, row.to(device))
+    if len(found) != 1:
+        raise AssertionError(f"probe found {len(found)} chains, want 1")
+    bias = getattr(work.layers[PROBE_LAYER].conv, f"gvp{PROBE_GVP}_bs")
+    return {"grad": bias.grad.double().cpu(),
+            "terms": found[0].grad.double().cpu(),
+            "z": found[0].detach().double().cpu(), "every": every}
+
+
+def flips(z, z_exact):
+    """Entries whose sign differs from the float64 run's, their count, and
+    the largest float64 |z| among them."""
+    flip = torch.sign(z) != torch.sign(z_exact)
+    margin = z_exact.abs()[flip].max().item() if flip.any() else 0.0
+    return flip, int(flip.sum()), margin
+
+
+def probe_reading(run: dict, exact: dict) -> dict:
+    """How far ``run``'s bias gradient lies from ``exact``'s, split into the
+    f32 sum's own rounding and the terms' errors, and the cancellation."""
+    top = exact["grad"].abs().max().item()
+    t_top = exact["terms"].abs().max().item()
+    sum64 = run["terms"].sum(dim=0)
+    err = (run["grad"] - exact["grad"]).abs()
+    j = int(err.argmax())
+    mag = exact["terms"][:, j].abs().sum().item()
+    flip, n_flip, margin = flips(run["z"], exact["z"])
+    mended = torch.where(flip, exact["terms"], run["terms"]).sum(dim=0)
+    all_flips, all_margin = 0, 0.0
+    for zs, zs_exact in zip(run["every"], exact["every"]):
+        for z, z_exact in zip(zs, zs_exact):
+            _, n, m = flips(z, z_exact)
+            all_flips, all_margin = all_flips + n, max(all_margin, m)
+    return {"grad_err": err.max().item() / top,
+            "probed_flips": n_flip, "probed_flip_margin": margin,
+            "grad_err_flips_mended": (mended - exact["grad"]).abs().max().item()
+            / top,
+            "all_relu_flips": all_flips, "all_flip_margin": all_margin,
+            "sum_rounding_err": (run["grad"] - sum64).abs().max().item() / top,
+            "terms_carry_err": (sum64 - exact["grad"]).abs().max().item() / top,
+            "term_err": (run["terms"] - exact["terms"]).abs().max().item()
+            / t_top,
+            "worst_channel": j,
+            "worst_channel_grad": exact["grad"][j].item(),
+            "largest_grad": top,
+            "cancellation": mag / max(abs(exact["grad"][j].item()), 1e-300),
+            "terms_magnitude_sum": mag,
+            "live_terms": int((exact["terms"][:, j] != 0).sum())}
+
+
+def probe_main(graphs, row) -> dict:
+    plain = quiet_model(False)
+    f32, f64 = torch.float32, torch.float64
+    exact = probe_step(plain, graphs, row, "cpu", f64)
+    runs = {"cpu f32": probe_step(plain, graphs, row, "cpu", f32),
+            "card f32 plain": probe_step(plain, graphs, row, "cuda", f32),
+            "card f64 plain": probe_step(plain, graphs, row, "cuda", f64)}
+    readings = {name: probe_reading(r, exact) for name, r in runs.items()}
+    cpu, card = runs["cpu f32"]["terms"], runs["card f32 plain"]["terms"]
+    readings["card vs cpu f32 terms"] = (
+        (card - cpu).abs().max().item() / exact["terms"].abs().max().item())
+    return {"trial": "gvp_drift_probe_bias",
+            "parameter": f"layers.{PROBE_LAYER}.conv.gvp{PROBE_GVP}_bs",
+            "readings": readings, "device": card_line()}
+
+
+def main(argv=None) -> dict:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--probe-bias", action="store_true",
+                    help="the per-edge terms of layers.2.conv.gvp1_bs's "
+                    "gradient on both devices")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trial_gvp_drift: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,6 +304,10 @@ def main() -> dict:
     graphs = loaders[0].graphs
     row = torch.from_numpy(np.random.default_rng(7).permutation(
         loaders[0].num_examples))[:100]
+    if args.probe_bias:
+        out = probe_main(graphs, row)
+        print(json.dumps(out), flush=True)
+        return out
     kernel, plain = quiet_model(True), quiet_model(False)
     f32, f64 = torch.float32, torch.float64
     exact = one_step(plain, graphs, row, "cpu", f64)

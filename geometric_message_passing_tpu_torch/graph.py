@@ -12,6 +12,15 @@ Host-side construction is numpy; the batch holds CPU tensors until
 ``GraphBatch.to(device)``.  For training, ``SlotData`` keeps a whole dataset
 on the device in per-graph slots and ``assemble_batch`` builds each batch
 there from a row of graph indices.
+
+The directional models (DimeNet++, SphereNet) read ``GraphBatch.triplets``,
+a ``TripletData`` built on the host (``triplets.batch_triplets``, or the
+slot fields of ``build_slot_data(with_triplets=True)``).  Its ``idx_ji`` is
+ascending on every path: the enumeration walks edges in ascending id,
+offsets grow with the graph or the slot, and pad triplets carry the largest
+edge id.  The builders check it (``ValueError``), because the triplet fold
+on the card sums over a plan that assumes it
+(``ops.sorted_segsum.ascending_plan``).
 """
 
 from __future__ import annotations
@@ -21,6 +30,43 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class TripletData:
+    """Static-shape triplet (and optional quad) indices of a padded batch.
+    T = padded triplet count, Q = padded quad count.  Pad triplets point at
+    the last node and edge, pad quads at the last triplet."""
+
+    idx_i: torch.Tensor          # [T] node i of triplet k->j->i
+    idx_j: torch.Tensor          # [T]
+    idx_k: torch.Tensor          # [T]
+    idx_kj: torch.Tensor         # [T] edge id of k->j
+    idx_ji: torch.Tensor         # [T] edge id of j->i, ascending
+    t_mask: torch.Tensor         # [T] bool
+    q_trip: Optional[torch.Tensor] = None   # [Q] triplet id of each quad
+    q_kn: Optional[torch.Tensor] = None     # [Q] node id of the 4th point k_n
+    q_mask: Optional[torch.Tensor] = None   # [Q] bool
+
+    @property
+    def num_triplets(self) -> int:
+        return self.idx_i.shape[0]
+
+    def to(self, device) -> "TripletData":
+        return TripletData(**{f.name: _to(getattr(self, f.name), device)
+                              for f in dataclasses.fields(self)})
+
+
+def _to(value, device):
+    return None if value is None else value.to(device)
+
+
+def check_ascending(idx_ji: np.ndarray, where: str) -> None:
+    """Raise ``ValueError`` unless ``idx_ji`` is ascending along its last
+    axis (the triplet fold's plan on the card assumes it)."""
+    if idx_ji.shape[-1] > 1 and bool((np.diff(idx_ji, axis=-1) < 0).any()):
+        raise ValueError(f"{where}: idx_ji is not ascending; the triplet fold "
+                         "needs triplets sorted by their edge j->i")
 
 
 @dataclasses.dataclass
@@ -40,6 +86,7 @@ class GraphBatch:
     edge_mask: torch.Tensor      # [E] bool
     graph_mask: torch.Tensor     # [G] bool
     first_node: torch.Tensor     # [G] int32 index of each graph's first node
+    triplets: Optional[TripletData] = None
 
     @property
     def num_nodes(self) -> int:
@@ -54,7 +101,7 @@ class GraphBatch:
         return self.graph_mask.shape[0]
 
     def to(self, device) -> "GraphBatch":
-        return GraphBatch(**{f.name: getattr(self, f.name).to(device)
+        return GraphBatch(**{f.name: _to(getattr(self, f.name), device)
                              for f in dataclasses.fields(self)})
 
 
@@ -187,6 +234,17 @@ class SlotData:
     node_mask: torch.Tensor    # [M+1, Sn] bool
     edge_mask: torch.Tensor    # [M+1, Se] bool
     y: torch.Tensor            # [M+1, y_dim]
+    # optional slotted triplet/quad indices (directional models): local
+    # node/edge/triplet ids, padded to St/Sq per graph
+    tri_i: Optional[torch.Tensor] = None      # [M+1, St]
+    tri_j: Optional[torch.Tensor] = None
+    tri_k: Optional[torch.Tensor] = None
+    tri_kj: Optional[torch.Tensor] = None     # edge ids
+    tri_ji: Optional[torch.Tensor] = None     # edge ids, ascending per slot
+    tri_mask: Optional[torch.Tensor] = None
+    q_trip: Optional[torch.Tensor] = None     # [M+1, Sq] triplet ids
+    q_kn: Optional[torch.Tensor] = None       # [M+1, Sq] node ids
+    q_mask: Optional[torch.Tensor] = None
 
     @property
     def num_graphs(self) -> int:      # real graphs (sentinel excluded)
@@ -206,9 +264,10 @@ def build_slot_data(graphs: Sequence[Graph], y_dtype=np.float32,
                     with_triplets: bool = False, with_quads: bool = False,
                     device="cpu") -> SlotData:
     """Pack ``graphs`` into slot layout on the host, then copy it to
-    ``device`` once.  Triplet and quad fields are not ported yet."""
-    if with_triplets or with_quads:
-        raise NotImplementedError("slot triplets/quads are not ported yet")
+    ``device`` once.  ``with_triplets`` / ``with_quads`` add each graph's
+    triplets (and quads) with the JAX package's fills: node ``sn-1``, edge
+    ``se-1``, triplet ``st-1``; ``ValueError`` if a slot's ``tri_ji`` is not
+    ascending."""
     m = len(graphs)
     sn = sn or max(g.num_nodes for g in graphs)
     se = se or max(max(g.num_edges for g in graphs), 1)
@@ -233,8 +292,42 @@ def build_slot_data(graphs: Sequence[Graph], y_dtype=np.float32,
         node_mask[i, :nn] = True
         edge_mask[i, :ne] = True
         y[i] = ys[i].astype(y_dtype)
+    tri = (_slot_triplets(graphs, sn, se, with_quads)
+           if with_triplets or with_quads else {})
     return SlotData(*(torch.from_numpy(a).to(device) for a in (
-        atoms, pos, senders, receivers, node_mask, edge_mask, y)))
+        atoms, pos, senders, receivers, node_mask, edge_mask, y)),
+        **{k: torch.from_numpy(v).to(device) for k, v in tri.items()})
+
+
+def _slot_triplets(graphs: Sequence[Graph], sn: int, se: int,
+                   with_quads: bool) -> dict:
+    """The slot fields of ``graphs``' triplets (and quads) as numpy arrays."""
+    from .triplets import graph_triplets
+
+    m = len(graphs)
+    tris = [graph_triplets(g, with_quads) for g in graphs]
+    st = max(max((len(t[0]) for t in tris), default=1), 1)
+    names = ("tri_i", "tri_j", "tri_k", "tri_kj", "tri_ji")
+    fills = (sn - 1, sn - 1, sn - 1, se - 1, se - 1)
+    out = {k: np.full((m + 1, st), f, np.int32) for k, f in zip(names, fills)}
+    out["tri_mask"] = np.zeros((m + 1, st), bool)
+    for i, t in enumerate(tris):
+        nt = len(t[0])
+        for k, a in zip(names, t[:5]):
+            out[k][i, :nt] = a
+        out["tri_mask"][i, :nt] = True
+    check_ascending(out["tri_ji"], "build_slot_data")
+    if with_quads:
+        sq = max(max((len(t[5]) for t in tris), default=1), 1)
+        out["q_trip"] = np.full((m + 1, sq), st - 1, np.int32)
+        out["q_kn"] = np.full((m + 1, sq), sn - 1, np.int32)
+        out["q_mask"] = np.zeros((m + 1, sq), bool)
+        for i, t in enumerate(tris):
+            nq = len(t[5])
+            out["q_trip"][i, :nq] = t[5]
+            out["q_kn"][i, :nq] = t[6]
+            out["q_mask"][i, :nq] = True
+    return out
 
 
 def assemble_batch(slot: SlotData, idx: torch.Tensor) -> GraphBatch:
@@ -242,7 +335,9 @@ def assemble_batch(slot: SlotData, idx: torch.Tensor) -> GraphBatch:
     selects the blank sentinel).  The same ``GraphBatch`` contract as
     ``batch_graphs``, except that graph i's nodes sit at [i*Sn, i*Sn+Sn):
     pad nodes are masked and pooled into the trailing pad graph, and pad
-    edges are masked self-loops on each slot's last node."""
+    edges are masked self-loops on each slot's last node.  Slot triplets
+    (and quads) come along with node, edge and triplet offsets, so
+    ``idx_ji`` stays ascending."""
     b = idx.shape[0]
     m = slot.num_graphs
     sn = slot.slot_nodes
@@ -251,6 +346,23 @@ def assemble_batch(slot: SlotData, idx: torch.Tensor) -> GraphBatch:
     off = torch.arange(b, dtype=torch.int32, device=dev) * sn
     node_mask = slot.node_mask[idx].reshape(-1)
     gid = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(sn)
+    triplets = None
+    if slot.tri_i is not None:
+        ar = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+        noff, eoff = ar * sn, ar * slot.slot_edges
+        tri = dict(
+            idx_i=(slot.tri_i[idx] + noff).reshape(-1),
+            idx_j=(slot.tri_j[idx] + noff).reshape(-1),
+            idx_k=(slot.tri_k[idx] + noff).reshape(-1),
+            idx_kj=(slot.tri_kj[idx] + eoff).reshape(-1),
+            idx_ji=(slot.tri_ji[idx] + eoff).reshape(-1),
+            t_mask=slot.tri_mask[idx].reshape(-1))
+        if slot.q_trip is not None:
+            toff = ar * slot.tri_i.shape[1]
+            tri.update(q_trip=(slot.q_trip[idx] + toff).reshape(-1),
+                       q_kn=(slot.q_kn[idx] + noff).reshape(-1),
+                       q_mask=slot.q_mask[idx].reshape(-1))
+        triplets = TripletData(**tri)
     return GraphBatch(
         atoms=slot.atoms[idx].reshape(-1),
         pos=slot.pos[idx].reshape(-1, 3),
@@ -264,6 +376,7 @@ def assemble_batch(slot: SlotData, idx: torch.Tensor) -> GraphBatch:
                                                     device=dev)]),
         first_node=torch.cat([off, torch.full((1,), b * sn - 1,
                                               dtype=torch.int32, device=dev)]),
+        triplets=triplets,
     )
 
 
@@ -280,7 +393,9 @@ class GraphLoader:
     """Host-side batching iterator with static padded shapes; every batch
     shares one bucket.  The last incomplete batch is kept.  The shuffle is a
     numpy ``default_rng(seed)`` stream, as in the JAX package, so both
-    packages visit the graphs in the same order."""
+    packages visit the graphs in the same order.  ``with_triplets`` /
+    ``with_quads`` attach each batch's ``TripletData``, padded to
+    ``triplet_pad = (T, Q)`` (default ``triplets.triplet_pad_sizes``)."""
 
     def __init__(
         self,
@@ -290,6 +405,9 @@ class GraphLoader:
         seed: int = 0,
         y_dtype=np.float32,
         pad: Optional[tuple] = None,
+        with_triplets: bool = False,
+        with_quads: bool = False,
+        triplet_pad: Optional[tuple] = None,
     ):
         self.graphs = list(graphs)
         self.batch_size = batch_size
@@ -297,6 +415,14 @@ class GraphLoader:
         self.rng = np.random.default_rng(seed)
         self.y_dtype = y_dtype
         self.pad = pad or pad_sizes(self.graphs, batch_size)
+        self.with_triplets = with_triplets or with_quads
+        self.with_quads = with_quads
+        self.triplet_pad = None
+        if self.with_triplets:
+            from .triplets import triplet_pad_sizes
+
+            self.triplet_pad = triplet_pad or triplet_pad_sizes(
+                self.graphs, batch_size, with_quads)
 
     def __len__(self):
         return (len(self.graphs) + self.batch_size - 1) // self.batch_size
@@ -312,7 +438,14 @@ class GraphLoader:
         n_pad, e_pad, g_pad = self.pad
         for i in range(0, len(order), self.batch_size):
             chunk = [self.graphs[j] for j in order[i : i + self.batch_size]]
-            yield batch_graphs(chunk, n_pad, e_pad, g_pad, self.y_dtype)
+            batch = batch_graphs(chunk, n_pad, e_pad, g_pad, self.y_dtype)
+            if self.with_triplets:
+                from .triplets import batch_triplets
+
+                batch.triplets = batch_triplets(chunk, n_pad, e_pad,
+                                                *self.triplet_pad,
+                                                self.with_quads)
+            yield batch
 
 
 def random_split(dataset: Sequence, fractions: Sequence[float], seed: int = 0):

@@ -1,0 +1,329 @@
+"""DimeNet++, directional message passing over triplets (port of
+``models/dimenet.py``).
+
+Triplets come precomputed on the batch (``GraphBatch.triplets``).  The hot
+loop of each interaction block is the triplet pass: project the spherical
+basis, gather ``x_kj[idx_kj]``, multiply, and sum over ``idx_ji`` into the
+edges.  That sum is the triplet fold: ``idx_ji`` is ascending, so the fold
+runs the sorted segment sum (K3 on the card) over an identity plan built on
+the device (``ops.sorted_segsum.ascending_plan``), one launch per block and
+triplet chunk.  Every other sum (edges into nodes in the output blocks, the
+pool) is ``ops.scatter.segment_sum``: K4 on the card.
+
+As in the JAX package (and the fork it follows), the triplet angle is taken
+at node i, between (j - i) and (k - i), not at j as in stock DimeNet.
+
+``triplet_chunk`` slices the triplet axis with a Python loop (the last chunk
+is shorter; nothing is padded, so each chunk's ``idx_ji`` stays ascending)
+and accumulates the chunks with ``ops.scatter.segment_sum_into``; with
+``sbf_in_chunk`` (the default) the angular half of the basis is evaluated
+per chunk from the positions.  The chunks are not rematerialised: the
+backward keeps every chunk's intermediates.  ``edge_chunk``,
+``remat_blocks``, ``remat_full_blocks``, ``rbf_in_chunk`` and
+``chunk_output_blocks=False`` are not ported yet and raise.
+
+Module names map onto the flax tree (``weights.dimenet_from_jax``):
+``rbf.freq``, ``emb`` (``emb``, ``lin_rbf`` = Dense_0, ``lin`` = Dense_1),
+``interactions[b]`` for ``interaction_b`` (``lin_ji``, ``lin_kj``,
+``lin_rbf1``, ``lin_rbf2``, ``lin_down``, ``lin_up``, ``lin`` = Dense_0..6,
+``before_skip``/``after_skip`` = ResidualLayer_0.., ``lin_sbf1``,
+``lin_sbf2``) and ``outputs[b]`` for ``output_b`` (``lin_rbf``, ``lin_up``,
+``lins[k]``, ``lin`` = Dense_0..).  Embedding tables are stored as in the
+JAX package, uniform on [0, 2 sqrt 3), and shifted by -sqrt 3 when read.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .. import resolve_device
+from ..graph import GraphBatch
+from ..nn.basic import Embedding, torch_linear_init_
+from ..ops.dimenet_basis import (DistEmb, angle_cbf, angle_emb, angle_product,
+                                 sph_bessel_rbf)
+from ..ops.norms import safe_arctan2, safe_norm
+from ..ops.scatter import segment_sum, segment_sum_into
+from ..ops.sorted_segsum import SegmentPlan, ascending_plan, sorted_fold
+from .pooling import POOL
+
+SQRT3 = math.sqrt(3.0)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def glorot_orthogonal_(weight: torch.Tensor, generator: torch.Generator,
+                       scale: float = 2.0) -> torch.Tensor:
+    """Fill a Linear's ``weight [out, in]`` in place: a random orthogonal
+    matrix (QR of a Gaussian one drawn from ``generator``) rescaled to
+    variance ``scale / (fan_in + fan_out)`` (DimeNet's GlorotOrthogonal)."""
+    out_f, in_f = weight.shape
+    a = torch.randn(max(out_f, in_f), min(out_f, in_f), generator=generator,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    w = q if out_f >= in_f else q.T
+    w = w * math.sqrt(scale / ((in_f + out_f) * w.var(unbiased=False).item()))
+    with torch.no_grad():
+        return weight.copy_(w.to(weight.dtype))
+
+
+def dense(in_f: int, out_f: int, generator: torch.Generator,
+          bias: bool = True, init: str = "glorot") -> nn.Linear:
+    """A Linear with its weight drawn from ``generator`` by ``init``:
+    ``'glorot'`` (glorot_orthogonal, zero bias), ``'torch'`` (torch's
+    default for weight and bias) or ``'zeros'``."""
+    layer = nn.Linear(in_f, out_f, bias=bias)
+    with torch.no_grad():
+        if init == "glorot":
+            glorot_orthogonal_(layer.weight, generator)
+        elif init == "torch":
+            torch_linear_init_(layer.weight, in_f, generator)
+        elif init == "zeros":
+            layer.weight.zero_()
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        if bias:
+            if init == "torch":
+                torch_linear_init_(layer.bias, in_f, generator)
+            else:
+                layer.bias.zero_()
+    return layer
+
+
+def atom_embedding(hidden: int, generator: torch.Generator) -> Embedding:
+    """95 x ``hidden`` table, uniform on [0, 2 sqrt 3) as the JAX package
+    stores it (read back shifted by -sqrt 3: torch's U(-sqrt 3, sqrt 3))."""
+    emb = Embedding(95, hidden)
+    with torch.no_grad():
+        emb.weight.uniform_(0.0, 2 * SQRT3, generator=generator)
+    return emb
+
+
+class ResidualLayer(nn.Module):
+    def __init__(self, hidden: int, *, generator: torch.Generator):
+        super().__init__()
+        self.lin1 = dense(hidden, hidden, generator)
+        self.lin2 = dense(hidden, hidden, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + swish(self.lin2(swish(self.lin1(x))))
+
+
+class EmbeddingBlock(nn.Module):
+    """x_e = act(W [emb(z_i), emb(z_j), act(W_rbf rbf)]); the two Linears
+    keep torch's default init (PyG's EmbeddingBlock)."""
+
+    def __init__(self, num_radial: int, hidden: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.emb = atom_embedding(hidden, generator)
+        self.lin_rbf = dense(num_radial, hidden, generator, init="torch")
+        self.lin = dense(3 * hidden, hidden, generator, init="torch")
+
+    def forward(self, atoms, rbf, senders, receivers) -> torch.Tensor:
+        x = self.emb(atoms) - SQRT3
+        rbf0 = swish(self.lin_rbf(rbf))
+        return swish(self.lin(torch.cat([x[receivers], x[senders], rbf0], -1)))
+
+
+class TripletFold:
+    """The triplet fold of one batch, shared by every block: the masked sum
+    over ``idx_ji`` of rows given chunk by chunk (slices of the triplet
+    axis; one chunk when ``chunk`` is None), each chunk through its own
+    ``ascending_plan`` (K3 on the card), the chunks accumulated."""
+
+    def __init__(self, idx_ji: torch.Tensor, t_mask: torch.Tensor,
+                 num_edges: int, chunk: Optional[int] = None):
+        t = idx_ji.shape[0]
+        step = t if chunk is None or t <= chunk else chunk
+        self.slices: List[slice] = [slice(c, min(c + step, t))
+                                    for c in range(0, max(t, 1), max(step, 1))]
+        self.plans: List[SegmentPlan] = [ascending_plan(idx_ji[s], num_edges)
+                                         for s in self.slices]
+        self.idx_ji, self.t_mask = idx_ji, t_mask
+
+    def sum(self, rows_of) -> torch.Tensor:
+        """``[E, D]``: the fold of ``rows_of(s)``, the ``[len(s), D]`` rows
+        of the triplets ``s``."""
+        acc = None
+        for s, plan in zip(self.slices, self.plans):
+            ids, mask = self.idx_ji[s], self.t_mask[s]
+            if acc is None:
+                acc = sorted_fold(rows_of(s), ids, plan, mask)
+            else:
+                acc = segment_sum_into(acc, rows_of(s), ids, mask, plan=plan)
+        return acc
+
+
+class InteractionPPBlock(nn.Module):
+    """Triplet-level directional interaction with down/up projection (PyG
+    ``InteractionPPBlock``)."""
+
+    def __init__(self, hidden: int, int_emb_size: int, basis_emb_size: int,
+                 num_spherical: int, num_radial: int, num_before_skip: int,
+                 num_after_skip: int, *, generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.lin_ji = dense(hidden, hidden, g)
+        self.lin_kj = dense(hidden, hidden, g)
+        self.lin_rbf1 = dense(num_radial, basis_emb_size, g, bias=False)
+        self.lin_rbf2 = dense(basis_emb_size, hidden, g, bias=False)
+        self.lin_down = dense(hidden, int_emb_size, g, bias=False)
+        self.lin_sbf1 = dense(num_spherical * num_radial, basis_emb_size, g,
+                              bias=False)
+        self.lin_sbf2 = dense(basis_emb_size, int_emb_size, g, bias=False)
+        self.lin_up = dense(int_emb_size, hidden, g, bias=False)
+        self.before_skip = nn.ModuleList(ResidualLayer(hidden, generator=g)
+                                         for _ in range(num_before_skip))
+        self.lin = dense(hidden, hidden, g)
+        self.after_skip = nn.ModuleList(ResidualLayer(hidden, generator=g)
+                                        for _ in range(num_after_skip))
+
+    def forward(self, x, rbf, sbf_of, idx_kj,
+                fold: TripletFold) -> torch.Tensor:
+        """``sbf_of(s)``: the spherical basis of the triplets ``s``."""
+        x_ji = swish(self.lin_ji(x))
+        x_kj = swish(self.lin_kj(x)) * self.lin_rbf2(self.lin_rbf1(rbf))
+        x_kj = swish(self.lin_down(x_kj))
+        x_kj = fold.sum(lambda s: x_kj[idx_kj[s]]
+                        * self.lin_sbf2(self.lin_sbf1(sbf_of(s))))
+        h = x_ji + swish(self.lin_up(x_kj))
+        for layer in self.before_skip:
+            h = layer(h)
+        h = swish(self.lin(h)) + x
+        for layer in self.after_skip:
+            h = layer(h)
+        return h
+
+
+class OutputPPBlock(nn.Module):
+    """Edge features gated by the radial basis, summed into their receivers
+    (K4 on the card), then the node MLP; the last Linear starts at 0."""
+
+    def __init__(self, num_radial: int, hidden: int, out_emb_channels: int,
+                 out_dim: int, num_output_layers: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.lin_rbf = dense(num_radial, hidden, g, bias=False)
+        self.lin_up = dense(hidden, out_emb_channels, g, bias=False)
+        self.lins = nn.ModuleList(dense(out_emb_channels, out_emb_channels, g)
+                                  for _ in range(num_output_layers))
+        self.lin = dense(out_emb_channels, out_dim, g, bias=False, init="zeros")
+
+    def forward(self, x, rbf, receivers, num_nodes, edge_mask) -> torch.Tensor:
+        x = segment_sum(self.lin_rbf(rbf) * x, receivers, num_nodes,
+                        mask=edge_mask)
+        x = self.lin_up(x)
+        for lin in self.lins:
+            x = swish(lin(x))
+        return self.lin(x)
+
+
+def angle_at_i(pos: torch.Tensor, idx_i, idx_j, idx_k) -> torch.Tensor:
+    """The fork's triplet angle at node i between (j - i) and (k - i)."""
+    pos_i = pos[idx_i]
+    pos_ji = pos[idx_j] - pos_i
+    pos_ki = pos[idx_k] - pos_i
+    a = (pos_ji * pos_ki).sum(-1)
+    b = safe_norm(torch.linalg.cross(pos_ji, pos_ki, dim=-1))
+    return safe_arctan2(b, a)
+
+
+class DimeNetPPModel(nn.Module):
+    """DimeNet++ with the JAX package's constructor surface and defaults;
+    ``forward(batch)`` returns ``[num_graphs, out_dim]`` and needs
+    ``batch.triplets``.  ``in_dim``, ``max_num_neighbors`` and ``act`` are
+    accepted and unused (swish throughout), as there.
+
+    Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
+    None), then moved to ``device`` (default ``"cuda"``, which raises when
+    CUDA is absent)."""
+
+    def __init__(self, hidden_channels: int = 128, in_dim: int = 1,
+                 out_dim: int = 1, num_layers: int = 4, int_emb_size: int = 64,
+                 basis_emb_size: int = 8, out_emb_channels: int = 256,
+                 num_spherical: int = 7, num_radial: int = 6,
+                 cutoff: float = 10.0, max_num_neighbors: int = 32,
+                 envelope_exponent: int = 5, num_before_skip: int = 1,
+                 num_after_skip: int = 2, num_output_layers: int = 3,
+                 act: str = "swish", pool: str = "sum",
+                 triplet_chunk: Optional[int] = None,
+                 sbf_in_chunk: bool = True, remat_blocks: bool = False,
+                 edge_chunk: Optional[int] = None,
+                 remat_full_blocks: bool = False, rbf_in_chunk: bool = False,
+                 chunk_output_blocks: bool = True, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        for name, value, default in (
+                ("edge_chunk", edge_chunk, None),
+                ("remat_blocks", remat_blocks, False),
+                ("remat_full_blocks", remat_full_blocks, False),
+                ("rbf_in_chunk", rbf_in_chunk, False),
+                ("chunk_output_blocks", chunk_output_blocks, True)):
+            if value != default:
+                raise NotImplementedError(
+                    f"DimeNetPPModel({name}={value!r}) is not ported yet")
+        if pool not in POOL:
+            raise ValueError(f"pool must be one of {sorted(POOL)}, got {pool!r}")
+        dev = resolve_device(device)
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.out_dim, self.pool, self.cutoff = out_dim, pool, cutoff
+        self.num_spherical, self.num_radial = num_spherical, num_radial
+        self.triplet_chunk, self.sbf_in_chunk = triplet_chunk, sbf_in_chunk
+        self.rbf = DistEmb(num_radial, cutoff, envelope_exponent,
+                           zero_outside=True)
+        self.emb = EmbeddingBlock(num_radial, hidden_channels, generator=g)
+        self.outputs = nn.ModuleList(
+            OutputPPBlock(num_radial, hidden_channels, out_emb_channels,
+                          out_dim, num_output_layers, generator=g)
+            for _ in range(num_layers + 1))
+        self.interactions = nn.ModuleList(
+            InteractionPPBlock(hidden_channels, int_emb_size, basis_emb_size,
+                               num_spherical, num_radial, num_before_skip,
+                               num_after_skip, generator=g)
+            for _ in range(num_layers))
+        self.to(dev)
+
+    def _sbf_of(self, batch: GraphBatch, dist: torch.Tensor):
+        """``s -> [len(s), ns*nr]`` spherical basis of the triplets ``s``:
+        slices of one materialised basis, or (chunked with
+        ``sbf_in_chunk``) the angle and the product evaluated per chunk
+        from the positions and the per-edge radial table."""
+        tri, ns, nr = batch.triplets, self.num_spherical, self.num_radial
+        if self.triplet_chunk is not None and self.sbf_in_chunk:
+            rbf_sph = sph_bessel_rbf(dist, ns, nr, self.cutoff)
+
+            def sbf_of(s: slice) -> torch.Tensor:
+                angle = angle_at_i(batch.pos, tri.idx_i[s], tri.idx_j[s],
+                                   tri.idx_k[s])
+                return angle_product(rbf_sph[tri.idx_kj[s]],
+                                     angle_cbf(angle, ns))
+            return sbf_of
+        angle = angle_at_i(batch.pos, tri.idx_i, tri.idx_j, tri.idx_k)
+        sbf = angle_emb(dist, angle, tri.idx_kj, ns, nr, self.cutoff)
+        return lambda s: sbf[s]
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        tri = batch.triplets
+        if tri is None:
+            raise ValueError("DimeNet++ needs triplet indices (batch.triplets)")
+        j, i = batch.senders, batch.receivers
+        dist = safe_norm(batch.pos[i] - batch.pos[j])
+        sbf_of = self._sbf_of(batch, dist)
+        rbf = self.rbf(dist)
+        fold = TripletFold(tri.idx_ji, tri.t_mask, batch.num_edges,
+                           self.triplet_chunk)
+        x = self.emb(batch.atoms, rbf, j, i)
+        P = self.outputs[0](x, rbf, i, batch.num_nodes, batch.edge_mask)
+        for interaction, output in zip(self.interactions, self.outputs[1:]):
+            x = interaction(x, rbf, sbf_of, tri.idx_kj, fold)
+            P = P + output(x, rbf, i, batch.num_nodes, batch.edge_mask)
+        return POOL[self.pool](P, batch)

@@ -9,9 +9,14 @@ hand-written CSR segment sum (``ops.sorted_segsum.segment_sum``, K4), which
 adds each segment's rows in ascending row order without atomics, so two runs
 give bitwise-equal sums; a CPU tensor takes ``segment_sum_plain``, the
 masked ``index_add_``.  Data of more than two dimensions is summed as
-``[E, prod(rest)]`` rows and reshaped back.  ``segment_max`` stays plain
-PyTorch on both devices (``scatter_reduce`` with ``amax`` is
-order-independent).
+``[E, prod(rest)]`` rows and reshaped back.  ``segment_max`` and
+``segment_min`` stay plain PyTorch on both devices (``scatter_reduce`` with
+``amax`` / ``amin`` is order-independent).
+
+``segment_sum_into`` is the accumulator form of the chunked triplet folds;
+given the chunk's plan of ids that are already ascending
+(``ops.sorted_segsum.ascending_plan``), a CUDA tensor takes the sorted
+segment sum (K3) over it instead of K4.
 """
 
 from __future__ import annotations
@@ -52,6 +57,20 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.reshape((num_segments,) + rest)
 
 
+def segment_sum_into(acc: torch.Tensor, data: torch.Tensor,
+                     segment_ids: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     plan=None) -> torch.Tensor:
+    """``acc`` plus the masked segment sum of ``data`` over ``segment_ids``
+    into ``acc.shape[0]`` rows.  With ``plan`` (ids ascending): K3 over it
+    on the card (``sorted_segsum.sorted_fold``); else ``segment_sum``."""
+    if plan is not None:
+        from .sorted_segsum import sorted_fold
+
+        return acc + sorted_fold(data, segment_ids, plan, mask)
+    return acc + segment_sum(data, segment_ids, acc.shape[0], mask)
+
+
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -74,3 +93,28 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
     idx = _bcast(segment_ids.long(), data).expand_as(data)
     out = out.scatter_reduce(0, idx, data, "amax", include_self=True)
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Min with empty segments mapped to 0."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data), data,
+                           torch.full_like(data, torch.inf))
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), torch.inf)
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    out = out.scatter_reduce(0, idx, data, "amin", include_self=True)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Numerically stable softmax within each segment (masked rows 0)."""
+    mx = segment_max(logits, segment_ids, num_segments, mask)
+    ex = torch.exp(logits - mx[segment_ids])
+    if mask is not None:
+        ex = torch.where(_bcast(mask, ex), ex, torch.zeros_like(ex))
+    denom = segment_sum(ex, segment_ids, num_segments)
+    return ex / torch.clamp_min(denom[segment_ids], 1e-16)

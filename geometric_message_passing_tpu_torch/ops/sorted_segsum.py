@@ -13,6 +13,11 @@ runs on the card), without atomics.
   ``identity_perm`` marks a plan whose edges are already sorted (the
   receiver plan of a receiver-sorted graph): the kernel then reads the rows
   in place.  ``batch_seg_plans`` builds a batch's receiver and sender plans.
+* ``ascending_plan`` builds the identity plan of ids that are already
+  ascending on their own device (``searchsorted``: no sort, no host read):
+  the triplet fold of DimeNet++ and SphereNet over ``idx_ji``
+  (``sorted_fold``: masked rows are zeroed in the data, not left out of the
+  plan), one K3 launch per fold.
 * ``sorted_segment_sum`` (K3 forward; its backward is the masked gather
   ``g[seg]``) and ``sorted_gather`` (``h[idx]``, whose backward is K3 over
   the cotangent) are autograd functions; ``sorted_segment_sum.launches``
@@ -44,7 +49,8 @@ from .scatter import segment_sum_plain as sorted_segment_sum_plain
 class SegmentPlan(NamedTuple):
     """CSR of the masked-in edges by segment id."""
 
-    perm: torch.Tensor     # [E] int64 edge ids, stably sorted by segment
+    perm: Optional[torch.Tensor]  # [E] int64 edge ids, stably sorted by
+    #                               segment (None: the identity, not stored)
     rowptr: torch.Tensor   # [S+1] int64: segment s is perm[rowptr[s]:rowptr[s+1]]
     num_segments: int
     identity_perm: bool    # perm == arange(E)
@@ -72,6 +78,20 @@ def build_segment_plan(segment_ids, num_segments: int, mask=None,
         num_segments=num_segments,
         identity_perm=bool(np.array_equal(perm, np.arange(e))),
         masked=mask is not None)
+
+
+def ascending_plan(segment_ids: torch.Tensor, num_segments: int
+                   ) -> SegmentPlan:
+    """The identity plan of ``segment_ids`` ``[T]``, which must already be
+    ascending and lie in ``[0, num_segments)`` (the builders of the triplet
+    arrays check it on the host), built on their device:
+    ``rowptr = searchsorted(ids, arange(S + 1))``.  Every row lies in a
+    segment; a mask is applied to the data (``sorted_fold``)."""
+    ids = segment_ids.long()
+    rowptr = torch.searchsorted(
+        ids, torch.arange(num_segments + 1, device=ids.device))
+    return SegmentPlan(perm=None, rowptr=rowptr, num_segments=num_segments,
+                       identity_perm=True, masked=False)
 
 
 def batch_seg_plans(batch) -> Dict[str, SegmentPlan]:
@@ -160,7 +180,7 @@ def _sorted_segsum_cuda(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
 def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
         return x
-    return torch.where(mask[:, None], x, torch.zeros_like(x))
+    return torch.where(mask[:, None], x, x.new_zeros(()))
 
 
 class SortedSegmentSum(torch.autograd.Function):
@@ -193,6 +213,17 @@ def sorted_segment_sum(data: torch.Tensor, plan: SegmentPlan,
 
 
 sorted_segment_sum.launches = 0
+
+
+def sorted_fold(data: torch.Tensor, segment_ids: torch.Tensor,
+                plan: SegmentPlan,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The masked segment sum of ``data`` ``[T, D]`` over ascending
+    ``segment_ids`` into ``[plan.num_segments, D]``, ``plan`` being
+    ``ascending_plan(segment_ids, S)``: K3 on the card (one launch, masked
+    rows zeroed first), the plain sum on the CPU; differentiable in
+    ``data``."""
+    return sorted_segment_sum(_masked(data, mask), plan, segment_ids, mask)
 
 
 class SortedGather(torch.autograd.Function):

@@ -180,3 +180,91 @@ def tfn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if flax_name in params:
             _dense(sd, torch_name, params[flax_name])
     return sd
+
+
+def _residual(sd: Dict[str, torch.Tensor], prefix: str,
+              tree: Mapping[str, Any]) -> None:
+    """A JAX ``ResidualLayer`` (``Dense_0``, ``Dense_1``) as the port's
+    ``lin1`` / ``lin2``."""
+    _dense(sd, f"{prefix}.lin1", tree["Dense_0"])
+    _dense(sd, f"{prefix}.lin2", tree["Dense_1"])
+
+
+def dimenet_from_jax(variables: Mapping[str, Any],
+                     num_before_skip: int = 1) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.dimenet.DimeNetPPModel`` from the variables of
+    the JAX ``DimeNetPPModel``: ``params/rbf/freq``,
+    ``params/emb/{emb, Dense_0, Dense_1}``,
+    ``params/interaction_b/{Dense_0..6, ResidualLayer_k, lin_sbf1,
+    lin_sbf2}`` and ``params/output_b/Dense_k``; the first
+    ``num_before_skip`` ResidualLayers of a block (the model's setting, 1 by
+    default) are those before its skip.
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    sd = {"rbf.freq": _t(params["rbf"]["freq"]),
+          "emb.emb.weight": _t(params["emb"]["emb"]["embedding"])}
+    _dense(sd, "emb.lin_rbf", params["emb"]["Dense_0"])
+    _dense(sd, "emb.lin", params["emb"]["Dense_1"])
+    n_layers = sum(1 for k in params if k.startswith("interaction_"))
+    order = ("lin_ji", "lin_kj", "lin_rbf1", "lin_rbf2", "lin_down",
+             "lin_up", "lin")
+    for b in range(n_layers):
+        tree, prefix = params[f"interaction_{b}"], f"interactions.{b}"
+        for k, name in enumerate(order):
+            _dense(sd, f"{prefix}.{name}", tree[f"Dense_{k}"])
+        _dense(sd, f"{prefix}.lin_sbf1", tree["lin_sbf1"])
+        _dense(sd, f"{prefix}.lin_sbf2", tree["lin_sbf2"])
+        res = sorted((k for k in tree if k.startswith("ResidualLayer_")),
+                     key=lambda k: int(k.rsplit("_", 1)[1]))
+        for k, name in enumerate(res):
+            where = (f"before_skip.{k}" if k < num_before_skip
+                     else f"after_skip.{k - num_before_skip}")
+            _residual(sd, f"{prefix}.{where}", tree[name])
+    for b in range(n_layers + 1):
+        tree, prefix = params[f"output_{b}"], f"outputs.{b}"
+        dense_names = sorted(tree, key=lambda k: int(k.rsplit("_", 1)[1]))
+        _dense(sd, f"{prefix}.lin_rbf", tree[dense_names[0]])
+        _dense(sd, f"{prefix}.lin_up", tree[dense_names[1]])
+        for k, name in enumerate(dense_names[2:-1]):
+            _dense(sd, f"{prefix}.lins.{k}", tree[name])
+        _dense(sd, f"{prefix}.lin", tree[dense_names[-1]])
+    return sd
+
+
+def spherenet_from_jax(variables: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.spherenet.SphereNetModel`` from the variables
+    of the JAX ``SphereNetModel``: ``params/dist_emb/freq``,
+    ``params/init_e/{emb, lin_rbf_0, lin, lin_rbf_1}`` (or
+    ``node_embedding``), ``params/update_e_b/{lin_*, res_before_k,
+    res_after_k}`` and ``params/{init_v, update_v_b}/{lin_up, lin_k, lin}``.
+    The port's modules carry the flax names (``lin_k`` as ``lins.k``,
+    ``res_before_k`` as ``res_before.k``).
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    sd = {"dist_emb.freq": _t(params["dist_emb"]["freq"])}
+    init_e = params["init_e"]
+    if "emb" in init_e:
+        sd["init_e.emb.weight"] = _t(init_e["emb"]["embedding"])
+    else:
+        sd["init_e.node_embedding"] = _t(init_e["node_embedding"])
+    for name in ("lin_rbf_0", "lin", "lin_rbf_1"):
+        _dense(sd, f"init_e.{name}", init_e[name])
+    for key, tree in params.items():
+        if key.startswith("update_e_"):
+            prefix = f"update_es.{key[len('update_e_'):]}"
+            for name, value in tree.items():
+                if name.startswith(("res_before_", "res_after_")):
+                    kind, k = name.rsplit("_", 1)
+                    _residual(sd, f"{prefix}.{kind}.{k}", value)
+                else:
+                    _dense(sd, f"{prefix}.{name}", value)
+        elif key == "init_v" or key.startswith("update_v_"):
+            prefix = ("init_v" if key == "init_v"
+                      else f"update_vs.{key[len('update_v_'):]}")
+            for name, value in tree.items():
+                if name in ("lin_up", "lin"):
+                    _dense(sd, f"{prefix}.{name}", value)
+                else:
+                    _dense(sd, f"{prefix}.lins.{name[len('lin_'):]}", value)
+    return sd

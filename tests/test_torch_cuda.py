@@ -974,3 +974,75 @@ def test_tfn_predictor_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(
         y, Predictor(cpu, batch_size=10, device="cpu").predict(graphs),
         atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The triplet models: K3 over the ascending idx_ji, DimeNet++ steps
+# ---------------------------------------------------------------------------
+
+
+def _triplet_star_batch(num, device, quads=False):
+    graphs = datasets.create_star_graphs(num=num, fold=(5, 6, 7), seed=0)
+    loader = graph.GraphLoader(graphs, num, with_triplets=True,
+                               with_quads=quads)
+    return next(iter(loader)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_triplet_fold_identity_plan_matches_plain(cuda_device, d):
+    """K3 over the identity plan of the ascending idx_ji (built on the
+    card, masked rows zeroed in the data) against the plain sum, within
+    1e-5, two runs bitwise equal, one launch each."""
+    batch = _triplet_star_batch(100, cuda_device)
+    tri = batch.triplets
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    y = torch.randn((tri.num_triplets, d), generator=gen, device=cuda_device)
+    plan = sss.ascending_plan(tri.idx_ji, batch.num_edges)
+    assert plan.rowptr.device == y.device and plan.identity_perm
+    before = sss.sorted_segment_sum.launches
+    got = sss.sorted_fold(y, tri.idx_ji, plan, tri.t_mask)
+    again = sss.sorted_fold(y, tri.idx_ji, plan, tri.t_mask)
+    assert sss.sorted_segment_sum.launches - before == 2
+    want = sss.sorted_segment_sum_plain(y, tri.idx_ji, batch.num_edges,
+                                        tri.t_mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+def _dimenet_step_grads(batch, device, dtype=torch.float32):
+    model = bench_throughput.build("dimenet", torch.Generator().manual_seed(0),
+                                   device).to(dtype)
+    with torch.no_grad():
+        for out in model.outputs:         # start away from the zero heads
+            out.lin.weight.fill_(0.01)
+    b = batch.to(device)
+    b.pos, b.y = b.pos.to(dtype), b.y.to(dtype)
+    train.l1_sum_loss(model(b), b).backward()
+    return {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_dimenet_step_matches_cpu(cuda_device):
+    """One DimeNet++ gradient at full width on 20 star graphs on the card
+    (the fold on K3: 4 launches, one per block) against the CPU's plain
+    float64 step: each gradient within 1e-3 of its largest entry."""
+    batch = _triplet_star_batch(20, "cpu")
+    before = sss.sorted_segment_sum.launches
+    got = _dimenet_step_grads(batch, cuda_device)
+    assert sss.sorted_segment_sum.launches - before == 4
+    want = _dimenet_step_grads(batch, "cpu", torch.float64)
+    for name, g in got.items():
+        top = max(want[name].abs().max().item(), 1e-12)
+        assert (g - want[name]).abs().max().item() <= 1e-3 * top, name
+
+
+@pytest.mark.cuda
+def test_dimenet_plain_route_step_is_bitwise_repeatable(cuda_device):
+    """Two DimeNet++ steps on one star batch give bitwise-equal gradients:
+    the fold is K3, the other sums K4, the gathers' backward sorted."""
+    batch = _triplet_star_batch(100, cuda_device)
+    first = _dimenet_step_grads(batch, cuda_device)
+    second = _dimenet_step_grads(batch, cuda_device)
+    for name, g in first.items():
+        assert torch.equal(g, second[name]), name

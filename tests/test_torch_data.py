@@ -25,6 +25,9 @@ BATCH_FIELDS = [f.name for f in dataclasses.fields(tgraph.GraphBatch)]
 
 def _assert_same_batch(jb, tb):
     for name in BATCH_FIELDS:
+        if getattr(tb, name) is None:     # triplets: absent in both
+            assert getattr(jb, name) is None, name
+            continue
         a = np.asarray(getattr(jb, name))
         b = getattr(tb, name).numpy()
         assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
@@ -110,4 +113,7 @@ def test_graph_batch_to_keeps_fields():
     moved = b.to("cpu")
     assert moved.num_nodes == b.num_nodes and moved.num_graphs == 5
     for name in BATCH_FIELDS:
+        if getattr(b, name) is None:      # no triplets: None stays None
+            assert getattr(moved, name) is None, name
+            continue
         assert getattr(moved, name).dtype == getattr(b, name).dtype

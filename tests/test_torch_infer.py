@@ -88,9 +88,22 @@ def test_predict_empty(models):
                                     dict(needs_triplets=True),
                                     dict(with_quads=True)])
 def test_not_ported_options_raise(models, kwargs):
-    _, _, tmodel, _ = models
-    with pytest.raises(NotImplementedError):
-        Predictor(tmodel, batch_size=8, device="cpu", **kwargs)
+    """``mesh=`` is not ported yet and raises; ``needs_triplets`` and
+    ``with_quads`` (not ported before the triplet models) now serve: the
+    batches carry triplets (and quads), which this model ignores, so the
+    result is the plain Predictor's."""
+    _, _, tmodel, graphs = models
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError):
+            Predictor(tmodel, batch_size=8, device="cpu", **kwargs)
+        return
+    pred = Predictor(tmodel, batch_size=8, device="cpu", **kwargs)
+    y = pred.predict(graphs)
+    assert pred.needs_triplets and pred.triplet_pad[0] > 0
+    assert (pred.triplet_pad[1] > 0) == ("with_quads" in kwargs)
+    np.testing.assert_allclose(
+        y, Predictor(tmodel, batch_size=8, device="cpu").predict(graphs),
+        atol=1e-6)
 
 
 def test_default_device_raises_without_cuda(models, monkeypatch):

@@ -63,7 +63,11 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.nn.conv",
                    "geometric_message_passing_tpu_torch.models.tfn",
                    "geometric_message_passing_tpu_torch.experiments.trial_gvp_drift",
-                   "geometric_message_passing_tpu_torch.experiments.bench_kernels"):
+                   "geometric_message_passing_tpu_torch.experiments.bench_kernels",
+                   "geometric_message_passing_tpu_torch.triplets",
+                   "geometric_message_passing_tpu_torch.ops.dimenet_basis",
+                   "geometric_message_passing_tpu_torch.models.dimenet",
+                   "geometric_message_passing_tpu_torch.models.spherenet"):
         assert module in res["imported"]
 
 

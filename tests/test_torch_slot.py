@@ -11,6 +11,7 @@ import torch
 
 from geometric_message_passing_tpu import datasets as jds
 from geometric_message_passing_tpu import graph as jgraph
+from geometric_message_passing_tpu import triplets as jtri
 from geometric_message_passing_tpu_torch import datasets as tds
 from geometric_message_passing_tpu_torch import graph as tgraph
 
@@ -19,6 +20,9 @@ BATCH_FIELDS = [f.name for f in dataclasses.fields(tgraph.GraphBatch)]
 
 
 def _same(a, b, name):
+    if b is None:                 # an optional field absent in both
+        assert a is None, name
+        return
     a = np.asarray(a)
     b = b.cpu().numpy()
     assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
@@ -68,11 +72,21 @@ def test_eval_slot_indices_equal(num, batch):
 
 
 def test_loader_num_examples_and_unported_fields():
+    """The loader's size; slot triplets (not ported before the triplet
+    models) now round-trip through ``build_slot_data`` / ``assemble_batch``
+    as the JAX package's do; a slot smaller than a graph raises."""
     graphs = tds.create_star_graphs(num=11, fold=(4,), seed=3)
+    jgraphs = jds.create_star_graphs(num=11, fold=(4,), seed=3)
     loader = tgraph.GraphLoader(graphs, 4)
     assert loader.num_examples == 11 == jgraph.GraphLoader(
-        jds.create_star_graphs(num=11, fold=(4,), seed=3), 4).num_examples
-    with pytest.raises(NotImplementedError):
-        tgraph.build_slot_data(graphs, with_triplets=True)
+        jgraphs, 4).num_examples
+    tslot = tgraph.build_slot_data(graphs, with_triplets=True)
+    jtri._TRIPLET_CACHE.clear()      # keyed on id(graph): no stale entries
+    jslot = jgraph.build_slot_data(jgraphs, with_triplets=True)
+    rows = [3, 11, 0, 7]
+    tb = tgraph.assemble_batch(tslot, torch.tensor(rows))
+    jb = jgraph.assemble_batch(jslot, jnp.asarray(rows, jnp.int32))
+    for name in ("idx_i", "idx_j", "idx_k", "idx_kj", "idx_ji", "t_mask"):
+        _same(getattr(jb.triplets, name), getattr(tb.triplets, name), name)
     with pytest.raises(ValueError):
         tgraph.build_slot_data(graphs, sn=3)

@@ -133,7 +133,9 @@ def _jax_epoch_orders(seed, m, n_epochs):
         jax.random.fold_in(shuffle_key, e), m)) for e in range(n_epochs)]
 
 
-def test_fit_regression_tracks_jax_for_3_epochs():
+def test_fit_regression_tracks_jax_for_3_epochs(cosine=False):
+    """The plateau scheduler (``cosine``: the cosine schedule, ported with
+    the triplet models, whose JAX star numbers were taken with it)."""
     jdata, tdata = _graph_sets(40)
     jsplit = jgraph.random_split(jdata, [0.5, 0.2, 0.3], seed=0)
     tsplit = tgraph.random_split(tdata, [0.5, 0.2, 0.3], seed=0)
@@ -142,11 +144,12 @@ def test_fit_regression_tracks_jax_for_3_epochs():
     tl = _loaders(tsplit, tgraph, pad, 8)
     jmodel, variables, tmodel = _bridged(next(iter(jl[0])))
     jres = jtrain.fit_regression(jmodel, variables, *jl, n_epochs=3, lr=LR,
-                                 seed=0)
+                                 seed=0, cosine=cosine)
     orders = _jax_epoch_orders(0, len(jsplit[0]), 3)
     tres = ttrain.fit_regression(
         tmodel, tmodel.state_dict(), *tl, n_epochs=3, lr=LR, seed=0,
-        device="cpu", epoch_order=lambda e: torch.from_numpy(orders[e]))
+        device="cpu", cosine=cosine,
+        epoch_order=lambda e: torch.from_numpy(orders[e]))
     assert tres.perf_per_epoch.shape == (3, 2)
     assert tres.train_losses.shape == (3, len(tl[0]))
     np.testing.assert_allclose(tres.perf_per_epoch, jres.perf_per_epoch,
@@ -154,6 +157,10 @@ def test_fit_regression_tracks_jax_for_3_epochs():
     np.testing.assert_allclose([tres.best_val, tres.test],
                                [jres.best_val, jres.test], atol=1e-4, rtol=0)
     _assert_state(tres.variables, jres.variables, atol=1e-4)
+
+
+def test_fit_regression_with_cosine_tracks_jax_for_3_epochs():
+    test_fit_regression_tracks_jax_for_3_epochs(cosine=True)
 
 
 def test_fit_regression_does_not_train_its_input():
@@ -197,7 +204,8 @@ def test_unported_options_raise(monkeypatch):
     loaders = _loaders(tgraph.random_split(tdata, [0.5, 0.25, 0.25]), tgraph,
                        tgraph.pad_sizes(tdata, 4), 4)
     model = EGNNFusedModel(**KW, device="cpu")
-    for kw in (dict(cosine=True), dict(loss_mask=True),
+    # the cosine schedule is ported (test_fit_regression_tracks_jax_for_3_epochs)
+    for kw in (dict(loss_mask=True),
                dict(checkpoint_dir="ckpt", checkpoint_every=1),
                dict(nan_recovery=True)):
         with pytest.raises(NotImplementedError):
@@ -206,3 +214,9 @@ def test_unported_options_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.fit_regression(model, None, *loaders, n_epochs=1)
+
+
+def test_cosine_lr_matches_jax():
+    for epoch in (0, 1, 57, 199):
+        assert ttrain.cosine_lr(5e-4, 1e-6, 200, epoch) == pytest.approx(
+            float(jtrain.cosine_lr(5e-4, 1e-6, 200, epoch)), rel=1e-6)
