@@ -217,15 +217,30 @@ Phases; any failure raises and the script exits non-zero:
      the pool and the embedding's gradient: ``nn.basic.Embedding``);
   3e. K3 on the triplet fold (``sorted_segsum.sorted_fold`` over
      ``ascending_plan``, the identity plan of the ascending ``idx_ji`` built
-     on the card: no sort, no host read) against the plain sum at the
+     on the card: no sort, no host read; the kernel skips the masked rows
+     itself and adds an optional accumulator) against the plain sum at the
      DimeNet++ star train bucket (fold 7, batch 100: 4224 triplet rows into
      1408 edges), on the unsorted 10k-atom box's 1.7M triplets (129,280
      edges) and at a case with edges that own no triplet, 5% of the rows
      masked and a masked tail, all at width 64: within 1e-5, two runs
-     bitwise equal, one K3 launch a call; kernel, whole call (with its
-     masking pass), plan, plain version, the CSR-sort route (K4 over the
-     same ids), ``index_add_`` and ``torch.segment_reduce`` timed beside the
-     bound;
+     bitwise equal, one K3 launch a call, and with an accumulator bitwise
+     equal to the previous formula ``acc + fold`` (K3 over the
+     masked-zeroed rows, then an add); kernel, whole call, the call with an
+     accumulator, the previous formula, plan, plain version, K4 over the
+     same ids, the CSR-sort route, ``index_add_`` and
+     ``torch.segment_reduce`` timed beside the bound;
+  3f. K4 and the fold at every shape the star models launch: one train
+     step and one predict batch of each of egnn (per layer), egnn_stack,
+     gvp, tfn, dimenet and spherenet at their main paths' configurations
+     run under ``bench_kernels.capture_star_shapes``, which records every
+     ``segment_sum`` (K4) and ``sorted_fold`` call; each distinct shape
+     held to the plain version (SEG_TOL of max(|ref|, 1)), two runs bitwise
+     equal, K4 on its scan route and nothing but the segment-sum kernel on
+     the device (no sort: the profiler's split, launches a call printed);
+     the
+     kernel by the profiler, the whole call, the host microseconds a call,
+     the CSR-sort route the previous design took, ``index_add_``,
+     ``segment_reduce`` and the bound printed;
   4e / 4f. DimeNet++ (4 layers) and SphereNet (2 layers) serving at their
      full default widths: ``Predictor(needs_triplets=True)`` over the 1000
      fold-7 star graphs and ``Predictor(with_quads=True)`` over 1500 fold
@@ -260,7 +275,7 @@ Phases; any failure raises and the script exits non-zero:
      4 x 7 and K4 7 per step, ms per step and peak device memory;
   7. summary: one JSON line of kernels, then the device line last.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 4, 4b, 4c, 4d, 4e, 4f, 5,
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f, 5,
 5b, 5c, 5d, 5e, 5f, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j, 6k, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
@@ -275,6 +290,7 @@ import contextlib
 import copy
 import ctypes
 import json
+import re
 import statistics
 import sys
 import time
@@ -285,7 +301,7 @@ import torch
 from geometric_message_passing_tpu_torch.experiments import (bench_kernels,
                                                              bench_scale)
 from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
-    cuda_time_ms)
+    cuda_time_ms, segsum_bound_ms as seg_bound_ms)
 from geometric_message_passing_tpu_torch.experiments import train
 from geometric_message_passing_tpu_torch.experiments.bench import (
     DIMENET_STAR, LR, N_EPOCHS as EPOCHS, SPHERENET_STAR, TFN_STAR,
@@ -603,30 +619,6 @@ SEG_TOL = 1e-5    # K3 and K4 against their plain versions, atol = rtol
 BOX_ATOMS, BOX_CHECK_ATOMS, BOX_STEPS = 100_000, 2_000, 4
 
 
-def seg_bound_ms(live: int, d: int, n: int, index_bytes: int) -> tuple:
-    """Least time for a segment sum of ``live`` rows of width ``d`` into
-    ``n`` segments: the rows read once, ``index_bytes`` of plan or ids and
-    mask, the output written once, over HBM rate, against ``live * d`` adds
-    over the f32 rate."""
-    t_bytes = (4 * live * d + index_bytes + 4 * n * d) / HBM_BYTES_PER_S * 1e3
-    t_ops = live * d / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
-
-
-def library_ms(data, seg, mask, n: int, order, rowptr, iters: int) -> tuple:
-    """Times of one PyTorch call computing the same sum: ``index_add_`` of
-    the masked rows into a buffer, and ``torch.segment_reduce`` of the rows
-    in segment order (both prepared outside the timed loop)."""
-    masked = torch.where(mask[:, None], data, torch.zeros_like(data))
-    buf = torch.zeros((n, data.shape[1]), dtype=data.dtype, device=data.device)
-    live = int(rowptr[-1])
-    rows = data[order[:live]]
-    lengths = rowptr.diff()
-    return (cuda_time_ms(lambda: buf.index_add_(0, seg, masked), iters),
-            cuda_time_ms(lambda: torch.segment_reduce(rows, "sum",
-                                                      lengths=lengths), iters))
-
-
 def check_segsum(label: str, data, seg, mask, n: int, plan=None,
                  timed: bool = True, iters: int = 50,
                  long_rows: bool = False) -> dict:
@@ -677,13 +669,19 @@ def check_segsum(label: str, data, seg, mask, n: int, plan=None,
             f"max_abs_err={err:.3e}, bitwise repeatable")
         return reading
     out = torch.empty_like(got)
+    scan = plan is None and sss.segsum_route(data.shape[0], n)[0] == "scan"
     with torch.no_grad():
-        k_ms = cuda_time_ms(lambda: sss.launch_csr_segsum(data, perm, rowptr,
-                                                          out), iters)
+        if scan:     # K4's one launch: the ids and the mask read in place
+            k_ms = cuda_time_ms(lambda: sss.launch_scan_segsum(
+                data, seg, mask, out), iters)
+        else:
+            k_ms = cuda_time_ms(lambda: sss.launch_csr_segsum(
+                data, perm, rowptr, out), iters)
         call_ms = cuda_time_ms(call, iters)
         plain_ms = cuda_time_ms(
             lambda: sss.sorted_segment_sum_plain(data, seg, n, mask), iters)
-        lib_ms, reduce_ms = library_ms(data, seg, mask, n, order, rowptr, iters)
+        lib_ms, reduce_ms = bench_kernels.segsum_library_ms(data, seg, mask, n,
+                                                            iters)
     b_ms, b_by = seg_bound_ms(live, d, n, index_bytes)
     log(f"  {label}: E={data.shape[0]} live={live} N={n} D={d} "
         f"max_abs_err={err:.3e}; kernel {k_ms:.4f} ms, whole call "
@@ -1397,20 +1395,31 @@ def triplet_launches(name: str, forwards: int, train_steps: int) -> dict:
 def check_triplet_fold(label: str, y, ids, mask, n: int,
                        iters: int = 50) -> dict:
     """K3 over the identity plan of the ascending ``ids`` (built on the
-    card) against the plain sum: within SEG_TOL, finite, two runs bitwise
-    equal, one launch each.  Times: the kernel, the whole call (with the
-    masking pass), the plain version, ``index_add_`` and
-    ``torch.segment_reduce`` on the masked rows, and the CSR-sort route
-    (K4 over the same ids: a device sort, then the kernel)."""
+    card), the mask read in the kernel, against the plain sum: within
+    SEG_TOL, finite, two runs bitwise equal, one launch each; with an
+    accumulator bitwise equal to the previous formula ``acc + fold`` (K3
+    over the masked-zeroed rows, then an add).  Times: the kernel, the whole
+    call, the call with an accumulator, the previous formula (masking pass,
+    kernel, add), the plain version, ``index_add_`` and
+    ``torch.segment_reduce`` on the masked rows, K4 over the same ids (its
+    route) and the CSR-sort route (a device sort, then the kernel)."""
     plan = sss.ascending_plan(ids, n)
+    acc = torch.randn((n, y.shape[1]), device=y.device,
+                      generator=torch.Generator(device=y.device).manual_seed(n))
+    masked = torch.where(mask[:, None], y, torch.zeros_like(y))
     before = sss.sorted_segment_sum.launches
     with torch.no_grad():
         got = sss.sorted_fold(y, ids, plan, mask)
         again = sss.sorted_fold(y, ids, plan, mask)
+        got_acc = sss.sorted_fold(y, ids, plan, mask, acc=acc)
         want = sss.sorted_segment_sum_plain(y, ids, n, mask)
-        csr = sss.segment_sum(y, ids, n, mask)
+        k4 = sss.segment_sum(y, ids, n, mask)
+        with bench_kernels.forced_k4_route("csr"):
+            csr = sss.segment_sum(y, ids, n, mask)
+        previous = torch.empty_like(got)
+        sss.launch_csr_segsum(masked, None, plan.rowptr, previous)
     torch.cuda.synchronize()
-    if sss.sorted_segment_sum.launches - before != 2:
+    if sss.sorted_segment_sum.launches - before != 3:
         raise AssertionError(f"{label}: the fold did not launch K3 once a call")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{label}: non-finite values")
@@ -1419,38 +1428,145 @@ def check_triplet_fold(label: str, y, ids, mask, n: int,
         raise AssertionError(f"{label}: differs from the plain sum by {err:.3e}")
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: two runs differ bitwise")
-    if not torch.allclose(csr, want, atol=SEG_TOL, rtol=SEG_TOL):
-        raise AssertionError(f"{label}: the CSR-sort route differs")
+    if not (torch.equal(got, previous) and torch.equal(got_acc, acc + previous)):
+        raise AssertionError(f"{label}: the in-kernel mask or accumulator "
+                             "differs bitwise from acc + the masked fold")
+    for route, r in (("K4", k4), ("CSR-sort route", csr)):
+        if not torch.allclose(r, want, atol=SEG_TOL, rtol=SEG_TOL):
+            raise AssertionError(f"{label}: the {route} differs")
     t, d = y.shape
     live = int(mask.sum())
-    masked = torch.where(mask[:, None], y, torch.zeros_like(y))
     out = torch.empty_like(got)
     buf = torch.zeros_like(got)
     lengths = plan.rowptr.diff()
+
+    def previous_formula():
+        z = torch.where(mask[:, None], y, torch.zeros_like(y))
+        sss.launch_csr_segsum(z, None, plan.rowptr, out)
+        return acc + out
+
     with torch.no_grad():
         k_ms = cuda_time_ms(lambda: sss.launch_csr_segsum(
-            masked, None, plan.rowptr, out), iters)
+            y, None, plan.rowptr, out, mask=mask), iters)
         call_ms = cuda_time_ms(lambda: sss.sorted_fold(y, ids, plan, mask),
                                iters)
+        acc_ms = cuda_time_ms(lambda: sss.sorted_fold(y, ids, plan, mask,
+                                                      acc=acc), iters)
+        prev_ms = cuda_time_ms(previous_formula, iters)
         plain_ms = cuda_time_ms(
             lambda: sss.sorted_segment_sum_plain(y, ids, n, mask), iters)
-        csr_ms = cuda_time_ms(lambda: sss.segment_sum(y, ids, n, mask), iters)
+        k4_ms = cuda_time_ms(lambda: sss.segment_sum(y, ids, n, mask), iters)
+        with bench_kernels.forced_k4_route("csr"):
+            csr_ms = cuda_time_ms(lambda: sss.segment_sum(y, ids, n, mask),
+                                  iters)
         lib_ms = cuda_time_ms(lambda: buf.index_add_(0, ids, masked), iters)
         reduce_ms = cuda_time_ms(lambda: torch.segment_reduce(
             masked, "sum", lengths=lengths), iters)
         plan_ms = cuda_time_ms(lambda: sss.ascending_plan(ids, n), iters)
     b_ms, b_by = seg_bound_ms(live, d, n, t * (ids.element_size() + 1))
+    route = sss.segsum_route(t, n)[0]
     log(f"  {label}: T={t} live={live} E={n} D={d} max_abs_err={err:.3e}, "
-        f"bitwise repeatable; kernel {k_ms:.4f} ms, whole call {call_ms:.4f} "
-        f"ms (masking pass included), plan {plan_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, CSR-sort route (K4) {csr_ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, segment_reduce {reduce_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by})")
+        f"bitwise repeatable, with acc bitwise equal to acc + the masked "
+        f"fold; kernel {k_ms:.4f} ms, whole call {call_ms:.4f} ms, with acc "
+        f"{acc_ms:.4f} ms (previous formula: masking pass, kernel, add "
+        f"{prev_ms:.4f} ms), plan {plan_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"K4 ({route} route) {k4_ms:.4f} ms, CSR-sort route {csr_ms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms, segment_reduce {reduce_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by})")
     return {"shape": label, "T": t, "live": live, "E": n, "D": d,
             "max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
-            "plan_ms": plan_ms, "plain_ms": plain_ms, "csr_sort_ms": csr_ms,
-            "library_ms": lib_ms, "segment_reduce_ms": reduce_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "acc_call_ms": acc_ms, "previous_formula_ms": prev_ms,
+            "plan_ms": plan_ms, "plain_ms": plain_ms, "k4_ms": k4_ms,
+            "k4_route": route, "csr_sort_ms": csr_ms, "library_ms": lib_ms,
+            "segment_reduce_ms": reduce_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def segsum_block_route(kernel: str):
+    """"scan" or "csr" for a profiler name of ``segsum_block<V, Id, kScan,
+    kPerm, kMask>``, None for any other kernel."""
+    m = re.match(r"segsum_block<[^,<>]+,[^,<>]+, (true|false),", kernel)
+    return None if m is None else ("scan" if m.group(1) == "true" else "csr")
+
+
+def star_call_kernels(fn, label: str, iters: int) -> dict:
+    """The device kernels of ``fn``'s calls by the profiler
+    (``bench_kernels.kernel_launches``), profiled again over 4x and 16x the
+    calls while it sees no segment-sum kernel (it can drop every device
+    event of a short run); raises if it never sees one."""
+    for n in (iters, 4 * iters, 16 * iters):
+        split = bench_kernels.kernel_launches(fn, n)
+        if any(segsum_block_route(k) for k in split):
+            return split
+    raise AssertionError(f"{label}: the profiler saw no segment-sum kernel "
+                         f"in {16 * iters} calls: {list(split)}")
+
+
+def check_star_segsum(cap, iters: int = 10) -> list:
+    """Phase 3f: every K4 and fold shape captured from the star models'
+    train steps and predict batches (``bench_kernels.capture_star_shapes``),
+    held to the plain version (SEG_TOL of max(|ref|, 1)), two runs bitwise
+    equal, and on the device (profiler) at most one segment-sum kernel a
+    call and nothing else (no sort), K4's of its scan route and the fold's
+    of the CSR route (``star_call_kernels``); then the readings of
+    ``bench_kernels.segsum_reading``."""
+    out = []
+    for key, (shape, (data, ids, n, mask)) in cap.shapes.items():
+        calls = {phase: c for (phase, k), c in cap.calls.items() if k == key}
+        label = (f"{shape['kind']} E {shape['E']} N {n} D {shape['D']}"
+                 f"{' masked' if mask is not None else ''}")
+        with torch.no_grad():
+            if shape["kind"] == "k4":
+                def call():
+                    return sss.segment_sum(data, ids, n, mask)
+            else:
+                plan = sss.ascending_plan(ids, n)
+
+                def call():
+                    return sss.sorted_fold(data, ids, plan, mask)
+            got, again = call(), call()
+            want = sss.sorted_segment_sum_plain(data, ids, n, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        scale = max(1.0, want.abs().max().item()) if want.numel() else 1.0
+        if not torch.isfinite(got).all() or err > SEG_TOL * scale:
+            raise AssertionError(f"{label}: differs from the plain version by "
+                                 f"{err:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two runs differ bitwise")
+        r = bench_kernels.segsum_reading(shape["kind"], (data, ids, n, mask),
+                                         iters, split_all=False)
+        call_r = r["call"]
+        with torch.no_grad():
+            split = star_call_kernels(call, label, iters)
+        on_card = {k: segsum_block_route(k) for k in split}
+        want_route = "scan" if shape["kind"] == "k4" else "csr"
+        per_call = sum(v["launches"] for v in split.values())
+        if set(on_card.values()) != {want_route} or per_call > 1.0 + 1e-9:
+            raise AssertionError(f"{label}: {per_call:.2f} device kernels a "
+                                 f"call, want one {want_route}-route "
+                                 f"segment-sum kernel and nothing else: "
+                                 f"{list(split)}")
+        parent, parent_name = ((r["csr_route"], "CSR-sort route")
+                               if shape["kind"] == "k4"
+                               else (r["k4"], "K4 over the same ids"))
+        log(f"  {label} (longest {shape['longest']}, live {shape['live']}; "
+            f"{calls}): max_abs_err={err:.3e} of {scale:.3g}, bitwise "
+            f"repeatable; kernel {call_r['segsum_ms']:.4f} ms (profiler, "
+            f"{per_call:.2f} {want_route}-route kernels a call, nothing "
+            f"else), "
+            f"whole call {call_r['call_ms']:.4f} ms, host "
+            f"{call_r['host_us']:.1f} us; {parent_name} "
+            f"{parent['call_ms']:.4f} ms (host {parent['host_us']:.1f} us); "
+            f"index_add_ "
+            f"{r['index_add_ms']:.4f} ms, segment_reduce "
+            f"{r['segment_reduce_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        for v in (r["call"], parent, r.get("with_acc", {})):
+            v.pop("split", None)
+        out.append(dict(shape, shape_label=label, calls=calls,
+                        **dict(r, max_abs_err=err,
+                               device_kernels_a_call=per_call)))
+    return out
 
 
 def tail_masked_case(dev, e: int = 500, d: int = 64, seed: int = 51):
@@ -1519,9 +1635,9 @@ def shifted_fold_plan(ids, n):
     return plan._replace(rowptr=torch.clamp_max(plan.rowptr + 1, ids.shape[0]))
 
 
-def fold_without_backward(data, ids, plan, mask=None):
+def fold_without_backward(data, ids, plan, mask=None, acc=None):
     """The planted fault of phase 5f: the fold cut off from the gradient."""
-    return sss.sorted_fold(data.detach(), ids, plan, mask)
+    return sss.sorted_fold(data.detach(), ids, plan, mask, acc=acc)
 
 
 def triplet_grads(model, batch, device, dtype) -> dict:
@@ -2038,6 +2154,19 @@ def main() -> int:
     k3_fold.append(check_triplet_fold("fold masked tail, empty edge D64",
                                       *tail_masked_case(dev), 500))
     del y
+    torch.cuda.empty_cache()
+
+    # 3f. K4 and the fold at every shape the star models launch
+    log(f"[kernels] segment sums at the star models' shapes (a train step "
+        f"and a predict batch of egnn, egnn_stack, gvp, tfn, dimenet and "
+        f"spherenet): K4 and the fold vs plain (SEG_TOL {SEG_TOL} of "
+        f"max(|ref|, 1)) [{card}]")
+    t = time.perf_counter()
+    star_cap = bench_kernels.capture_star_shapes(dev)
+    log(f"  {len(star_cap.shapes)} shapes captured in "
+        f"{time.perf_counter() - t:.2f} s")
+    star_segsum = check_star_segsum(star_cap)
+    del star_cap
     torch.cuda.empty_cache()
 
     # 4. serve
@@ -2835,6 +2964,8 @@ def main() -> int:
             # fold, K4 their edge -> node sums and pools
             "triplet_launches": {"dimenet": dn_train[name],
                                  "spherenet": sn_train[name]},
+            "star_shapes": [r for r in star_segsum
+                            if (r["kind"] == "fold") == (name == "sorted_segment_sum")],
             **({"triplet_fold": k3_fold} if name == "sorted_segment_sum"
                else {})})
     # K7: one hidden layer's five groups in one launch at the TFN train

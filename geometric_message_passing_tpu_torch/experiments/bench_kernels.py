@@ -1,16 +1,18 @@
-"""Device time of the EGNN kernels (K1, K2, K6), K5 (the GVP message pass)
-and K7 (TFN's CG contraction) at the shapes of their main paths, split by
-CUDA kernel, on one CUDA card.
+"""Device time of the EGNN kernels (K1, K2, K6), K5 (the GVP message pass),
+K7 (TFN's CG contraction) and K3/K4 (the segment sums) at the shapes of
+their main paths, split by CUDA kernel, on one CUDA card.
 
     python -m geometric_message_passing_tpu_torch.experiments.bench_kernels \
-        [--only k6 | k2 | k1 | k5 | k5-box | k7 | k7-one-group]
+        [--only k6 | k2 | k1 | k5 | k5-box | k7 | k7-one-group | segsum
+                | segsum-box | segsum-split | segsum-bitwise --io PATH]
     PYTHONPATH=<another checkout> python3 <this file> --only k6
 
 The second form times another checkout's kernels (an older commit of the
 port, unpacked with ``git archive``) through the calls both have, so two
 designs can be compared in one call on one card: ``k6``, ``k2``, ``k1``,
 ``k5`` and ``k7-one-group`` use only calls that older checkouts of the port
-have too.
+have too, ``segsum`` and ``segsum-box`` calls that the port had before K3
+and K4 took their scan route and in-kernel mask.
 
 * ``k6``: K6 (``egnn_stack`` under ``no_grad``, ``egnn_stack_bwd``) with the
   weights of ``EGNNFusedModel(4 layers, 128 wide, pool "first")`` from seed
@@ -56,6 +58,26 @@ have too.
   (``edge_weighted_contract``, ``edge_weighted_contract_bwd``): one call
   per group back to back, then each group alone.
 
+* ``segsum``: every K4 (``sorted_segsum.segment_sum``) and fold
+  (``sorted_fold``) call of one train step and one predict batch of each
+  star model at its main path's configuration (egnn per layer and whole
+  stack, gvp, tfn, dimenet, spherenet; ``capture_star_shapes``), each
+  distinct shape once: E, N, D, live rows, the longest segment; the call
+  by the profiler (device ms and launches a call, the segment-sum kernels
+  apart), by events (whole call) and by the host clock (microseconds a
+  call, no synchronize), K4's CSR-sort route beside its scan route, the
+  fold with an accumulator, ``index_add_``, ``segment_reduce``, the plain
+  version and the byte bound; then the box shapes (``segsum-box``: K3 on
+  the sorted 100k box and K4 on its edges shuffled, D 128; K4 as the box's
+  sum pool, D 176; the fold over the 10k box's 1.7M triplets, D 64) and K4's
+  scan route against its CSR route from E 1024 to 24576
+  (``scan_crossover``).
+* ``segsum-split``: a long segment split across a cluster of blocks against
+  one block, and the box pool's chunked path against one block
+  (``segsum_split_readings``).
+* ``segsum-bitwise --io PATH``: the star shapes' sums saved by one checkout
+  and compared bitwise by another (``segsum_bitwise``).
+
 Each reading: the whole call's mean time over ``--iters`` calls by CUDA
 events after warm-up (``cuda_time_ms``), and the device time per call of
 each CUDA kernel under ``torch.profiler`` over the same calls.  The last
@@ -72,9 +94,12 @@ import inspect
 import json
 import re
 import subprocess
+import sys
+import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -91,6 +116,8 @@ from geometric_message_passing_tpu_torch.ops import edge
 from geometric_message_passing_tpu_torch.ops import egnn_stack as es
 from geometric_message_passing_tpu_torch.ops import edge_contract as ec
 from geometric_message_passing_tpu_torch.ops import gvp_message as gm
+from geometric_message_passing_tpu_torch.ops import scatter
+from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 
 BOX_ATOMS = 10_000
 EGNN_SOURCES = ("egnn_message", "egnn_message_bwd", "egnn_stack",
@@ -598,11 +625,495 @@ def k5_box_readings(iters: int) -> dict:
     return out
 
 
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12    # H100 SXM data sheet
+
+
+def segsum_bound_ms(live: int, d: int, n: int, index_bytes: int) -> tuple:
+    """Least time for a segment sum of ``live`` rows of width ``d`` into
+    ``n`` segments: the rows read once, ``index_bytes`` of plan or ids and
+    mask, the output written once, over HBM rate, against ``live * d`` adds
+    over the f32 rate."""
+    t_bytes = (4 * live * d + index_bytes + 4 * n * d) / HBM_BYTES_PER_S * 1e3
+    t_ops = live * d / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def kernel_launches(fn, iters: int) -> dict:
+    """Device ms and launches per call of each CUDA kernel (and copy or
+    fill) ``fn`` runs, by ``short_name``, from the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = defaultdict(lambda: [0.0, 0.0])
+    for ev in prof.key_averages():
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                and not getattr(ev, "is_user_annotation", False)):
+            row = split[short_name(ev.key)]
+            row[0] += ev.self_device_time_total / 1e3 / iters
+            row[1] += ev.count / iters
+    return {k: {"ms": v[0], "launches": v[1]}
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1][0])}
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn`` (host clock, no synchronize
+    inside the loop), after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def segsum_library_ms(data, ids, mask, n: int, iters: int) -> tuple:
+    """Times of one PyTorch call computing the same sum: ``index_add_`` of
+    the masked rows into a buffer, and ``torch.segment_reduce`` of the live
+    rows in segment order (both prepared outside the timed loop)."""
+    live = torch.ones_like(ids, dtype=torch.bool) if mask is None else mask
+    masked = torch.where(live[:, None], data, torch.zeros_like(data))
+    buf = torch.zeros((n, data.shape[1]), dtype=data.dtype, device=data.device)
+    order, rowptr = edge.receiver_csr(ids, live, n)
+    rows = data[order[:int(rowptr[-1])]]
+    lengths = rowptr.diff()
+    idx = ids.long()
+    return (cuda_time_ms(lambda: buf.index_add_(0, idx, masked), iters),
+            cuda_time_ms(lambda: torch.segment_reduce(rows, "sum",
+                                                      lengths=lengths), iters))
+
+
+@contextlib.contextmanager
+def forced_k4_route(route: str):
+    """K4 on ``route`` ("scan" or "csr") whatever its row count; nothing
+    for a package whose K4 has only the CSR route."""
+    if not hasattr(sss, "SCAN_MAX_ROWS"):
+        yield
+        return
+    saved = sss.SCAN_MAX_ROWS
+    sss.SCAN_MAX_ROWS = 1 << 30 if route == "scan" else -1
+    try:
+        yield
+    finally:
+        sss.SCAN_MAX_ROWS = saved
+
+
+def has_k4_scan() -> bool:
+    return hasattr(sss, "SCAN_MAX_ROWS")
+
+
+def segsum_kernel_names(split: dict) -> dict:
+    """The split's segment-sum kernels (``segsum``) apart from the rest (the
+    CSR build's sort, searchsorted and fills, the masking pass)."""
+    mine = {k: v for k, v in split.items() if "segsum" in k}
+    return {"segsum_ms": sum(v["ms"] for v in mine.values()),
+            "segsum_launches": sum(v["launches"] for v in mine.values()),
+            "device_ms": sum(v["ms"] for v in split.values()),
+            "device_launches": sum(v["launches"] for v in split.values())}
+
+
+def segsum_call_reading(fn, iters: int, split: bool = True) -> dict:
+    """A call's whole-call time (events) and host microseconds, and with
+    ``split`` its device time and launches (profiler)."""
+    res = {"call_ms": cuda_time_ms(fn, iters),
+           "host_us": host_us(fn, 4 * iters)}
+    if split:
+        by_kernel = kernel_launches(fn, iters)
+        res.update(segsum_kernel_names(by_kernel), split=by_kernel)
+    return res
+
+
+def segsum_shape(kind: str, data, ids, n: int, mask) -> dict:
+    """E, N, D, live rows and the longest segment of one captured call."""
+    live = (torch.ones_like(ids, dtype=torch.bool) if mask is None
+            else mask.bool())
+    lengths = torch.bincount(ids.long()[live], minlength=n)[:n]
+    return {"kind": kind, "E": int(data.shape[0]), "N": int(n),
+            "D": int(data.shape[1]), "live": int(live.sum()),
+            "longest": int(lengths.max()) if n else 0,
+            "ids": str(ids.dtype).replace("torch.", ""),
+            "mask": mask is not None}
+
+
+class SegsumCapture:
+    """Record every K4 call (``sorted_segsum.segment_sum``) and every fold
+    (``sorted_fold``) a model's train step and predict batch make: each
+    distinct shape once, with its inputs, and the count by phase."""
+
+    def __init__(self):
+        self.shapes, self.calls = {}, defaultdict(int)
+        self.phase = ""
+
+    def _record(self, kind, data, ids, n, mask):
+        shape = segsum_shape(kind, data, ids, n, mask)
+        key = tuple(shape.values())
+        if key not in self.shapes:
+            self.shapes[key] = (shape, (data.detach().clone(), ids.clone(), n,
+                                        None if mask is None else mask.clone()))
+        self.calls[(self.phase, key)] += 1
+
+    @contextlib.contextmanager
+    def active(self):
+        from geometric_message_passing_tpu_torch.models import dimenet as dm
+        real_k4, real_fold = sss.segment_sum, sss.sorted_fold
+
+        def k4(data, ids, n, mask=None):
+            self._record("k4", data, ids, n, mask)
+            return real_k4(data, ids, n, mask)
+
+        def fold(data, ids, plan, mask=None, **kw):
+            self._record("fold", data, ids, plan.num_segments, mask)
+            return real_fold(data, ids, plan, mask, **kw)
+
+        k4.launches = real_k4.launches
+        saved = [(sss, "segment_sum", real_k4), (sss, "sorted_fold", real_fold),
+                 (dm, "sorted_fold", dm.sorted_fold)]
+        sss.segment_sum, sss.sorted_fold, dm.sorted_fold = k4, fold, fold
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+
+def star_models(dev) -> dict:
+    """Each star model at its main path's configuration with weights from
+    seed 0, and its (train batch, predict batch) on the card."""
+    from geometric_message_passing_tpu_torch.experiments import (
+        bench_throughput as bt)
+    from geometric_message_passing_tpu_torch.experiments.bench import (
+        DIMENET_STAR, SPHERENET_STAR, bench_model, tfn_data, tfn_model,
+        triplet_star_data)
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    def batches(loaders):
+        return (next(iter(loaders[0])).to(dev), next(iter(loaders[2])).to(dev))
+
+    _, egnn_loaders = bench_data()
+    out = {"egnn": (bench_model(gen(), dev), batches(egnn_loaders)),
+           "egnn_stack": (bench_model(gen(), dev, fuse_stack=True),
+                          batches(egnn_loaders)),
+           "gvp": (GVPGNNModel(num_layers=4, in_dim=1, out_dim=1,
+                               use_pallas=True, device=dev, generator=gen()),
+                   batches(egnn_loaders)),
+           "tfn": (tfn_model(gen(), dev), batches(tfn_data()[1]))}
+    for name, cfg in (("dimenet", DIMENET_STAR), ("spherenet", SPHERENET_STAR)):
+        model = bt.build(name, gen(), dev)
+        out[name] = (model, batches(triplet_star_data(**cfg)[1]))
+    return out
+
+
+def capture_star_shapes(dev) -> SegsumCapture:
+    """Run one train step (forward and backward, L1-sum loss) and one
+    predict batch (eval, no grad) of every star model under a capture."""
+    from geometric_message_passing_tpu_torch.experiments.train import (
+        l1_sum_loss)
+    cap = SegsumCapture()
+    for name, (model, (train_b, pred_b)) in star_models(dev).items():
+        with cap.active():
+            cap.phase = f"{name} train step"
+            model.train()
+            l1_sum_loss(model(train_b), train_b).backward()
+            cap.phase = f"{name} predict batch"
+            model.eval()
+            with torch.no_grad():
+                model(pred_b)
+        torch.cuda.synchronize()
+    return cap
+
+
+def segsum_reading(kind: str, inputs, iters: int,
+                   split_all: bool = True) -> dict:
+    """One captured shape on the card: the call as the package makes it
+    (K4: ``segment_sum``; the fold: ``sorted_fold`` over ``ascending_plan``,
+    and ``segment_sum_into`` with an accumulator), K4's CSR route beside a
+    scan-route call, the plain version's error, ``index_add_``,
+    ``segment_reduce`` and the bound.  The profiler splits the main call,
+    and the others too with ``split_all``."""
+    data, ids, n, mask = inputs
+    res = {}
+    with torch.no_grad():
+        if kind == "k4":
+            want = sss.sorted_segment_sum_plain(data, ids, n, mask)
+            got = sss.segment_sum(data, ids, n, mask)
+            res["call"] = segsum_call_reading(
+                lambda: sss.segment_sum(data, ids, n, mask), iters)
+            if has_k4_scan():
+                res["route"] = sss.segsum_route(data.shape[0], n)[0]
+                with forced_k4_route("csr"):
+                    res["csr_route"] = segsum_call_reading(
+                        lambda: sss.segment_sum(data, ids, n, mask), iters,
+                        split_all)
+            index_bytes = ids.shape[0] * (ids.element_size()
+                                          + (0 if mask is None else 1))
+        else:
+            plan = sss.ascending_plan(ids, n)
+            want = sss.sorted_segment_sum_plain(data, ids, n, mask)
+            got = sss.sorted_fold(data, ids, plan, mask)
+            acc = torch.randn_like(want)
+            res["call"] = segsum_call_reading(
+                lambda: sss.sorted_fold(data, ids, plan, mask), iters)
+            res["with_acc"] = segsum_call_reading(
+                lambda: scatter.segment_sum_into(acc, data, ids, mask,
+                                                 plan=plan), iters, split_all)
+            res["k4"] = segsum_call_reading(
+                lambda: sss.segment_sum(data, ids, n, mask), iters, split_all)
+            index_bytes = ids.shape[0] * (ids.element_size()
+                                          + (0 if mask is None else 1))
+        torch.cuda.synchronize()
+        res["max_abs_err"] = (got - want).abs().max().item() if got.numel() else 0.0
+        res["index_add_ms"], res["segment_reduce_ms"] = segsum_library_ms(
+            data, ids, mask, n, iters)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: sss.sorted_segment_sum_plain(data, ids, n, mask), iters)
+    live = data.shape[0] if mask is None else int(mask.sum())
+    res["bound_ms"], res["bound_by"] = segsum_bound_ms(live, data.shape[1], n,
+                                                       index_bytes)
+    return res
+
+
+def box_segsum_inputs(dev) -> dict:
+    """The box shapes of PERF.md's K3/K4 rows: K3 over the receiver plan of
+    the sorted 100k box (D 128), K4 over its edges shuffled (D 128), K4 as
+    the box's sum pool (D 176, one segment) and the fold over the 10k box's
+    1.7M triplets (D 64)."""
+    box = bench_scale.box_batch(100_000, sort=True).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows = torch.randn((box.num_edges, 128), generator=gen, device=dev)
+    shuffle = torch.from_numpy(np.random.default_rng(28).permutation(
+        box.num_edges)).to(dev)
+    tri = bench_scale.box_batch(BOX_ATOMS, sort=False, triplets=True).to(dev)
+    t = tri.triplets
+    return {
+        "K3 sorted 100k box D128": ("k3", rows, box.receivers, box.num_nodes,
+                                    box.edge_mask),
+        "K4 shuffled 100k box D128": ("k4", rows, box.receivers[shuffle],
+                                      box.num_nodes, box.edge_mask[shuffle]),
+        "K4 100k box pool D176": ("k4", torch.randn(
+            (box.num_nodes, 176), generator=gen, device=dev), box.graph_id,
+            box.num_graphs, box.node_mask),
+        "fold 10k box D64": ("fold", torch.randn(
+            (t.num_triplets, 64), generator=gen, device=dev), t.idx_ji,
+            tri.num_edges, t.t_mask)}
+
+
+def box_segsum_reading(kind, data, ids, n, mask, iters: int) -> dict:
+    if kind != "k3":
+        res = segsum_reading(kind, (data, ids, n, mask), iters)
+        res.update(segsum_shape(kind, data, ids, n, mask))
+        return res
+    plan = sss.build_segment_plan(ids, n, mask=mask, device=data.device)
+    with torch.no_grad():
+        res = segsum_call_reading(
+            lambda: sss.sorted_segment_sum(data, plan, ids, mask), iters)
+    live = int(plan.rowptr[-1])
+    res["bound_ms"], res["bound_by"] = segsum_bound_ms(live, 128, n,
+                                                       8 * (n + 1))
+    res.update(segsum_shape(kind, data, ids, n, mask))
+    return res
+
+
+def scan_crossover(dev, iters: int) -> dict:
+    """K4's scan route against its CSR route as E grows (uniform random
+    ids into E / 2 segments, 10% masked, D 64 and 128): whole call and
+    device time, to place ``SCAN_MAX_ROWS``.  Empty without a scan route."""
+    if not has_k4_scan():
+        return {}
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(81)
+    for d in (64, 128):
+        for e in (1024, 4096, 8192, 16384, 24576):
+            n = e // 2
+            data = torch.randn((e, d), generator=gen, device=dev)
+            ids = torch.randint(0, n, (e,), generator=gen, device=dev)
+            mask = torch.rand(e, generator=gen, device=dev) > 0.1
+            row = {}
+            with torch.no_grad():
+                for route in ("scan", "csr"):
+                    with forced_k4_route(route):
+                        r = segsum_call_reading(
+                            lambda: sss.segment_sum(data, ids, n, mask), iters)
+                    r.pop("split")
+                    row[route] = r
+            out[f"E {e} N {n} D {d}"] = row
+    return out
+
+
+def segsum_box_readings(iters: int) -> dict:
+    """``--only segsum-box``: the box shapes alone."""
+    _build.load("sorted_segsum")
+    return {"box": {label: box_segsum_reading(*args, iters=iters)
+                    for label, args in box_segsum_inputs(
+                        torch.device("cuda")).items()}}
+
+
+def segsum_readings(iters: int) -> dict:
+    """``--only segsum``: every K4 and fold shape of the star models' train
+    steps and predict batches, then the box shapes and (with a scan route)
+    the crossover."""
+    dev = torch.device("cuda")
+    _build.load("sorted_segsum")
+    cap = capture_star_shapes(dev)
+    shapes = []
+    for key, (shape, inputs) in cap.shapes.items():
+        calls = {phase: c for (phase, k), c in cap.calls.items() if k == key}
+        shapes.append(dict(shape, calls=calls,
+                           **segsum_reading(shape["kind"], inputs, iters)))
+    box = {label: box_segsum_reading(*args, iters=max(5, iters // 4))
+           for label, args in box_segsum_inputs(dev).items()}
+    return {"star_shapes": shapes, "box": box,
+            "crossover": scan_crossover(dev, iters),
+            "scan_max_rows": getattr(sss, "SCAN_MAX_ROWS", None)}
+
+
+@contextlib.contextmanager
+def forced_split(cluster: int, chunked: bool = True):
+    """K3/K4 with clusters of ``cluster`` blocks at every row count
+    (``sss.CLUSTER``; 1: one block splits a long segment), and without the
+    chunked path unless ``chunked``."""
+    saved = sss.CLUSTER, sss.CLUSTER_MAX_ROWS, sss.LONG_ROWS
+    sss.CLUSTER, sss.CLUSTER_MAX_ROWS = cluster, 1 << 30
+    if not chunked:
+        sss.LONG_ROWS = 1 << 62
+    try:
+        yield
+    finally:
+        sss.CLUSTER, sss.CLUSTER_MAX_ROWS, sss.LONG_ROWS = saved
+
+
+def split_reading(fn, iters: int) -> dict:
+    """Segment-sum kernel ms and launches a call (profiler), whole call ms
+    (events)."""
+    r = segsum_kernel_names(kernel_launches(fn, iters))
+    return {"kernel_ms": r["segsum_ms"], "launches": r["segsum_launches"],
+            "device_launches": r["device_launches"],
+            "call_ms": cuda_time_ms(fn, iters)}
+
+
+def segsum_split_readings(iters: int) -> dict:
+    """``--only segsum-split``: how a long segment is split.  At every
+    captured star shape (``capture_star_shapes``) and at one segment of E
+    rows (E 808 to 24576, D 128): clusters of ``sss.CLUSTER`` blocks against
+    one block (cluster 1), in the order cluster, block, block, cluster (from
+    ``LONG_ROWS`` rows a lone segment takes the chunked CSR route, so those
+    read the chunked path whatever the cluster); at the 100k box's sum pool
+    (D 176, one segment a graph) the chunked path against one block's
+    split, in the order chunked, block, block, chunked."""
+    dev = torch.device("cuda")
+    _build.load("sorted_segsum")
+    c = sss.CLUSTER
+    cases = []
+    cap = capture_star_shapes(dev)
+    for shape, (data, ids, n, mask) in cap.shapes.values():
+        if shape["kind"] == "k4":
+            fn = (lambda data=data, ids=ids, n=n, mask=mask:
+                  sss.segment_sum(data, ids, n, mask))
+        else:
+            plan = sss.ascending_plan(ids, n)
+            fn = (lambda data=data, ids=ids, plan=plan, mask=mask:
+                  sss.sorted_fold(data, ids, plan, mask))
+        cases.append((shape, fn))
+    gen = torch.Generator(device=dev).manual_seed(83)
+    for e in (808, 2048, 4096, 8192, 16384, 24576):
+        data = torch.randn((e, 128), generator=gen, device=dev)
+        ids = torch.zeros(e, dtype=torch.int32, device=dev)
+        shape = segsum_shape("k4", data, ids, 1, None)
+        cases.append((shape, lambda data=data, ids=ids:
+                      sss.segment_sum(data, ids, 1)))
+    star = []
+    with torch.no_grad():
+        for shape, fn in cases:
+            runs = []
+            for cl in (c, 1, 1, c):
+                with forced_split(cl):
+                    runs.append(dict(split_reading(fn, iters), cluster=cl))
+            star.append(dict(shape, runs=runs))
+            print(json.dumps(star[-1]), file=sys.stderr, flush=True)
+        box = bench_scale.box_batch(100_000, sort=True).to(dev)
+        data = torch.randn((box.num_nodes, 176), generator=gen, device=dev)
+        n = box.num_graphs
+        pool = []
+        for chunked in (True, False, False, True):
+            with forced_split(1, chunked):
+                pool.append(dict(split_reading(
+                    lambda: sss.segment_sum(data, box.graph_id, n,
+                                            box.node_mask),
+                    max(3, iters // 4)), chunked=chunked))
+    return {"cluster": c, "star_and_one_segment": star,
+            "box_pool": dict(segsum_shape("k4", data, box.graph_id, n,
+                                          box.node_mask), runs=pool)}
+
+
+def segsum_bitwise(path: str) -> dict:
+    """``--only segsum-bitwise --io PATH``: K4 and the fold at the captured
+    star shapes against another checkout's, bitwise.  If PATH does not
+    exist: capture the shapes, sum each with this package and save inputs,
+    outputs and ``LONG_SEG`` there.  If it does (run then with an older
+    checkout on ``PYTHONPATH``): sum each saved input with this package and
+    compare segment by segment.  A segment of fewer than ``LONG_SEG`` live
+    rows is summed by one lane group (one warp before), rows in ascending
+    order in both, so it must be bitwise equal; the longer ones are split
+    and compared within SEG_TOL of max(|ref|, 1).  Raises on a difference."""
+    dev = torch.device("cuda")
+    _build.load("sorted_segsum")
+
+    def run(kind, data, ids, n, mask):
+        with torch.no_grad():
+            if kind == "k4":
+                return sss.segment_sum(data, ids, n, mask)
+            return sss.sorted_fold(data, ids, sss.ascending_plan(ids, n), mask)
+
+    if not Path(path).exists():
+        cap = capture_star_shapes(dev)
+        saved = []
+        for shape, (data, ids, n, mask) in cap.shapes.values():
+            out = run(shape["kind"], data, ids, n, mask)
+            saved.append((shape, [None if t is None else t.cpu()
+                                  for t in (data, ids, mask, out)], n))
+        torch.save({"long_seg": sss.LONG_SEG, "shapes": saved}, path)
+        return {"saved": path, "shapes": len(saved)}
+    blob = torch.load(path)
+    rows = []
+    for shape, (data, ids, mask, want), n in blob["shapes"]:
+        data, ids = data.to(dev), ids.to(dev)
+        mask = None if mask is None else mask.to(dev)
+        got = run(shape["kind"], data, ids, n, mask).cpu()
+        live = (torch.ones_like(ids, dtype=torch.bool) if mask is None
+                else mask.bool())
+        lengths = torch.bincount(ids.long()[live], minlength=n)[:n].cpu()
+        short = lengths < blob["long_seg"]
+        same = (got == want).all(dim=1)
+        scale = max(1.0, want.abs().max().item()) if want.numel() else 1.0
+        long_err = ((got - want)[~short].abs().max().item()
+                    if bool((~short).any()) else 0.0)
+        row = dict(shape, short_segments=int(short.sum()),
+                   short_bitwise_equal=int((same & short).sum()),
+                   long_segments=int((~short).sum()),
+                   long_max_abs_diff=long_err)
+        rows.append(row)
+        if row["short_bitwise_equal"] != row["short_segments"] or \
+                long_err > 1e-5 * scale:
+            raise AssertionError(f"segsum-bitwise: differs at {row}")
+    return {"compared": path, "shapes": rows}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--only", choices=("k6", "k2", "k1", "k5", "k5-box", "k7",
-                                       "k7-one-group"), default=None)
+                                       "k7-one-group", "segsum", "segsum-box",
+                                       "segsum-split", "segsum-bitwise"),
+                    default=None)
+    ap.add_argument("--io", default=None,
+                    help="segsum-bitwise: the file of saved inputs and sums")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: needs a CUDA card")
@@ -624,6 +1135,16 @@ def main(argv=None) -> dict:
     if args.only in (None, "k7", "k7-one-group"):
         result["k7"] = k7_readings(args.iters,
                                    grouped=args.only != "k7-one-group")
+    if args.only in (None, "segsum"):
+        result["segsum"] = segsum_readings(args.iters)
+    if args.only == "segsum-box":
+        result["segsum"] = segsum_box_readings(args.iters)
+    if args.only == "segsum-split":
+        result["segsum_split"] = segsum_split_readings(args.iters)
+    if args.only == "segsum-bitwise":
+        if args.io is None:
+            raise SystemExit("bench_kernels: segsum-bitwise needs --io")
+        result["segsum_bitwise"] = segsum_bitwise(args.io)
     print(json.dumps(result), flush=True)
     return result
 

@@ -108,7 +108,7 @@ class GraphBatch:
 class Graph:
     """A single host-side graph (numpy), the fields of a PyG ``Data``."""
 
-    __slots__ = ("atoms", "edge_index", "pos", "y")
+    __slots__ = ("atoms", "edge_index", "pos", "y", "__weakref__")
 
     def __init__(self, atoms, edge_index, pos, y):
         self.atoms = np.asarray(atoms, dtype=np.int32)

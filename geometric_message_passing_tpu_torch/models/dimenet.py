@@ -15,7 +15,8 @@ at node i, between (j - i) and (k - i), not at j as in stock DimeNet.
 
 ``triplet_chunk`` slices the triplet axis with a Python loop (the last chunk
 is shorter; nothing is padded, so each chunk's ``idx_ji`` stays ascending)
-and accumulates the chunks with ``ops.scatter.segment_sum_into``; with
+and accumulates the chunks inside the fold's launches (``sorted_fold`` with
+``acc``: each chunk's K3 launch adds the sum so far); with
 ``sbf_in_chunk`` (the default) the angular half of the basis is evaluated
 per chunk from the positions.  The chunks are not rematerialised: the
 backward keeps every chunk's intermediates.  ``edge_chunk``,
@@ -47,7 +48,7 @@ from ..nn.basic import Embedding, torch_linear_init_
 from ..ops.dimenet_basis import (DistEmb, angle_cbf, angle_emb, angle_product,
                                  sph_bessel_rbf)
 from ..ops.norms import safe_arctan2, safe_norm
-from ..ops.scatter import segment_sum, segment_sum_into
+from ..ops.scatter import segment_sum
 from ..ops.sorted_segsum import SegmentPlan, ascending_plan, sorted_fold
 from .pooling import POOL
 
@@ -137,7 +138,8 @@ class TripletFold:
     """The triplet fold of one batch, shared by every block: the masked sum
     over ``idx_ji`` of rows given chunk by chunk (slices of the triplet
     axis; one chunk when ``chunk`` is None), each chunk through its own
-    ``ascending_plan`` (K3 on the card), the chunks accumulated."""
+    ``ascending_plan`` (K3 on the card: one launch a chunk, which skips the
+    masked rows and adds the chunks before it)."""
 
     def __init__(self, idx_ji: torch.Tensor, t_mask: torch.Tensor,
                  num_edges: int, chunk: Optional[int] = None):
@@ -154,11 +156,8 @@ class TripletFold:
         of the triplets ``s``."""
         acc = None
         for s, plan in zip(self.slices, self.plans):
-            ids, mask = self.idx_ji[s], self.t_mask[s]
-            if acc is None:
-                acc = sorted_fold(rows_of(s), ids, plan, mask)
-            else:
-                acc = segment_sum_into(acc, rows_of(s), ids, mask, plan=plan)
+            acc = sorted_fold(rows_of(s), self.idx_ji[s], plan, self.t_mask[s],
+                              acc=acc)
         return acc
 
 

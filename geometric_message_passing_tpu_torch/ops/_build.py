@@ -30,7 +30,7 @@ BUILD_DIR = _PKG.parent / ".gmp_torch_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every C entry point, by library; every pointer (and the
 # stream) is c_void_p so ctypes does not cut it to 32 bits
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -54,9 +54,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "gmp_egnn_tile_smem": [I, I],   # tile, D
     },
     "sorted_segsum": {
-        # data, perm, rowptr, out, N, D, G, scratch, stream
-        "gmp_sorted_segsum": [I, P, P, P, P, I, I, I, P, P],
-        "gmp_sorted_segsum_f64": [I, P, P, P, P, I, I, I, P, P],
+        # data, perm, rowptr, mask, acc, out, N, D, G, scratch, long rows,
+        # cluster, stream
+        "gmp_segsum_csr": [I, P, P, P, P, P, P, I, I, I, P, I, I, P],
+        "gmp_segsum_csr_f64": [I, P, P, P, P, P, P, I, I, I, P, I, I, P],
+        # data, ids, ids int64?, mask, out, E, N, D, long rows, blocks,
+        # cluster, stream
+        "gmp_segsum_scan": [I, P, P, I, P, P, L, I, I, I, I, I, P],
+        "gmp_segsum_scan_f64": [I, P, P, I, P, P, L, I, I, I, I, I, P],
     },
     "gvp_message": {
         # features (8), weights, dims, 7 ints, CSR (2), scratch, outputs

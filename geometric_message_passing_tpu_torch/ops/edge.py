@@ -181,8 +181,9 @@ def receiver_csr(recv: torch.Tensor, emask: torch.Tensor, n: int
     """CSR of the masked-in edges by receiver: ``order`` lists edge ids
     sorted stably by receiver (masked-off edges sort last), and node ``i``'s
     edges are ``order[rowptr[i]:rowptr[i+1]]``, in ascending edge order.
-    Both int64."""
-    key = torch.where(emask, recv.long(), torch.full_like(recv, n, dtype=torch.long))
+    Both int64.  ``emask`` None: every edge."""
+    key = recv.long() if emask is None else torch.where(
+        emask, recv.long(), torch.full_like(recv, n, dtype=torch.long))
     sorted_key, order = torch.sort(key, stable=True)
     nodes = torch.arange(n + 1, device=recv.device, dtype=torch.long)
     rowptr = torch.searchsorted(sorted_key, nodes)

@@ -5,9 +5,9 @@ Pad rows contribute zero; an empty segment gives 0 for sum, mean and max
 
 ``segment_sum`` (and ``segment_mean``, whose sum and count are two segment
 sums) is deterministic on both devices: a CUDA tensor goes to the
-hand-written CSR segment sum (``ops.sorted_segsum.segment_sum``, K4), which
-adds each segment's rows in ascending row order without atomics, so two runs
-give bitwise-equal sums; a CPU tensor takes ``segment_sum_plain``, the
+hand-written segment sum (``ops.sorted_segsum.segment_sum``, K4), which
+adds each segment's rows in a fixed order without atomics, so two runs give
+bitwise-equal sums; a CPU tensor takes ``segment_sum_plain``, the
 masked ``index_add_``.  Data of more than two dimensions is summed as
 ``[E, prod(rest)]`` rows and reshaped back.  ``segment_max`` and
 ``segment_min`` stay plain PyTorch on both devices (``scatter_reduce`` with
@@ -16,7 +16,8 @@ masked ``index_add_``.  Data of more than two dimensions is summed as
 ``segment_sum_into`` is the accumulator form of the chunked triplet folds;
 given the chunk's plan of ids that are already ascending
 (``ops.sorted_segsum.ascending_plan``), a CUDA tensor takes the sorted
-segment sum (K3) over it instead of K4.
+segment sum (K3) over it instead of K4, the accumulator added in the same
+launch.
 """
 
 from __future__ import annotations
@@ -63,11 +64,12 @@ def segment_sum_into(acc: torch.Tensor, data: torch.Tensor,
                      plan=None) -> torch.Tensor:
     """``acc`` plus the masked segment sum of ``data`` over ``segment_ids``
     into ``acc.shape[0]`` rows.  With ``plan`` (ids ascending): K3 over it
-    on the card (``sorted_segsum.sorted_fold``); else ``segment_sum``."""
+    on the card, ``acc`` added inside the same launch
+    (``sorted_segsum.sorted_fold``); else ``segment_sum``."""
     if plan is not None:
         from .sorted_segsum import sorted_fold
 
-        return acc + sorted_fold(data, segment_ids, plan, mask)
+        return sorted_fold(data, segment_ids, plan, mask, acc=acc)
     return acc + segment_sum(data, segment_ids, acc.shape[0], mask)
 
 

@@ -3,30 +3,37 @@
 ids (port of ``ops/pallas_edge.py::segment_sum_pallas``).
 
 Both reduce through one hand-written CUDA kernel, ``csrc/sorted_segsum.cu``:
-``out[s] = sum of data[perm[k]] for k in rowptr[s]:rowptr[s+1]``, in a
-fixed order, in the data's type (f32, or f64 for the float64 reference
-runs on the card), without atomics.
+``out[s] = acc[s] + the sum of segment s's live rows`` (``acc`` optional),
+each segment's rows added in ascending order, in the data's type (f32, or
+f64 for the float64 reference runs on the card), without atomics.
 
-* ``build_segment_plan`` makes that CSR on the host, once per graph: a
-  stable sort of the masked-in edges by segment id (masked-off edges sort
-  last, outside every row) and the row pointers, moved to the device once.
+* ``build_segment_plan`` makes a CSR on the host, once per graph: a stable
+  sort of the masked-in edges by segment id (masked-off edges sort last,
+  outside every row) and the row pointers, moved to the device once.
   ``identity_perm`` marks a plan whose edges are already sorted (the
   receiver plan of a receiver-sorted graph): the kernel then reads the rows
   in place.  ``batch_seg_plans`` builds a batch's receiver and sender plans.
 * ``ascending_plan`` builds the identity plan of ids that are already
   ascending on their own device (``searchsorted``: no sort, no host read):
   the triplet fold of DimeNet++ and SphereNet over ``idx_ji``
-  (``sorted_fold``: masked rows are zeroed in the data, not left out of the
-  plan), one K3 launch per fold.
+  (``sorted_fold``: the kernel skips the masked rows, which stay in the
+  plan, and adds the previous chunks' accumulator), one K3 launch per fold
+  and chunk.
 * ``sorted_segment_sum`` (K3 forward; its backward is the masked gather
   ``g[seg]``) and ``sorted_gather`` (``h[idx]``, whose backward is K3 over
   the cotangent) are autograd functions; ``sorted_segment_sum.launches``
   counts their K3 launches.
-* ``segment_sum`` (K4) builds the CSR of unsorted ids on the device
-  (``ops.edge.receiver_csr``) and launches the same kernel;
-  ``segment_sum.launches`` counts it.  ``ops.scatter.segment_sum`` (every
-  plain-route message sum, ``segment_mean`` and the sum/mean pools) sends
-  its CUDA tensors here.
+* ``segment_sum`` (K4) takes the route ``segsum_route`` picks from the row
+  and segment counts: up to ``SCAN_MAX_ROWS`` rows one launch that reads
+  the ids and the mask itself (no plan, no sort); above it a stable device
+  sort into a CSR (``ops.edge.receiver_csr``) and the CSR route.
+  ``segment_sum.launches`` counts its calls.  ``ops.scatter.segment_sum``
+  (every plain-route message sum, ``segment_mean``, the sum/mean pools and
+  the embeddings' gradients) sends its CUDA tensors here.
+* Inside the kernel a segment of at least ``LONG_SEG`` rows is split across
+  a block, or across a cluster of ``cluster_size(rows)`` blocks
+  (``long_segments``), and few segments of ``LONG_ROWS`` rows or more each
+  are cut into chunks over many blocks (``segment_chunks``).
 
 Tensors on the CPU take the plain version of the kernel,
 ``sorted_segment_sum_plain``: the masked ``index_add_`` sum of
@@ -36,7 +43,7 @@ from the plan.  CUDA tensors launch the kernel or raise.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,7 +93,7 @@ def ascending_plan(segment_ids: torch.Tensor, num_segments: int
     ascending and lie in ``[0, num_segments)`` (the builders of the triplet
     arrays check it on the host), built on their device:
     ``rowptr = searchsorted(ids, arange(S + 1))``.  Every row lies in a
-    segment; a mask is applied to the data (``sorted_fold``)."""
+    segment; the kernel reads a mask beside it (``sorted_fold``)."""
     ids = segment_ids.long()
     rowptr = torch.searchsorted(
         ids, torch.arange(num_segments + 1, device=ids.device))
@@ -105,7 +112,7 @@ def batch_seg_plans(batch) -> Dict[str, SegmentPlan]:
             for key, idx in (("rcv", batch.receivers), ("snd", batch.senders))}
 
 
-def _check_cuda(data: torch.Tensor, rowptr: torch.Tensor,
+def _check_cuda(data: torch.Tensor, rowptr: Optional[torch.Tensor],
                 perm: Optional[torch.Tensor], what: str) -> None:
     if data.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{what}: data must be float32 or float64, got "
@@ -123,56 +130,155 @@ def _check_cuda(data: torch.Tensor, rowptr: torch.Tensor,
     if perm is not None and perm.shape[0] != data.shape[0]:
         raise ValueError(f"{what}: the plan has {perm.shape[0]} edges, the "
                          f"data {data.shape[0]} rows")
-    if data.shape[0] >= 2**31 or rowptr.shape[0] > 2**31:
+    if data.shape[0] >= 2**31 or (rowptr is not None
+                                  and rowptr.shape[0] > 2**31):
         raise ValueError(f"{what}: E and N must be below 2**31")
+
+
+def _check_rows(data: torch.Tensor, t: Optional[torch.Tensor], name: str,
+                what: str) -> None:
+    """``t`` (None, or one entry per row of ``data``: ids or a mask) is 1-D
+    with ``data.shape[0]`` entries on data's device: the kernels read
+    ``t[r]`` for every row r as a raw pointer."""
+    if t is None:
+        return
+    if t.ndim != 1 or t.shape[0] != data.shape[0]:
+        raise ValueError(f"{what}: {name} must be [{data.shape[0]}] (one entry "
+                         f"a row), got {tuple(t.shape)}")
+    if t.device != data.device:
+        raise ValueError(f"{what}: {name} is on {t.device}, the data on "
+                         f"{data.device}")
 
 
 LONG_ROWS = 1024        # rows per segment from which segments are chunked
 CHUNK_BLOCKS = 264      # blocks the chunked path aims for (2 per SM)
 MAX_CHUNKS = 64
+LONG_SEG = 64           # rows from which one segment is split across a block
+SCAN_MAX_ROWS = 24576   # K4 rows up to which the scan route runs (PERF.md)
+SCAN_BLOCKS = 264       # blocks the scan route aims for (each reads all ids)
+CLUSTER = 8             # blocks that split a long segment in a small call
+CLUSTER_MAX_ROWS = 8192  # rows up to which a call runs in clusters (PERF.md)
+
+
+def cluster_size(rows: int) -> int:
+    """Blocks a cluster for ``rows`` rows: ``CLUSTER`` for the small calls
+    (the star buckets), whose long segments would otherwise leave all but
+    one SM idle; 1 above ``CLUSTER_MAX_ROWS``, where whole clusters wait
+    for SMs and one block's warps split a long segment."""
+    return CLUSTER if rows <= CLUSTER_MAX_ROWS else 1
 
 
 def segment_chunks(rows: int, n: int) -> int:
-    """Chunks per segment for ``rows`` rows in ``n`` segments: 0 (a warp or
-    a thread per segment) unless the segments are few and long (``rows >=
-    LONG_ROWS * n``: a pool of a whole box), then enough for ``n`` x chunks
-    blocks to fill the card."""
+    """Chunks per segment for ``rows`` rows in ``n`` segments: 0 (a lane
+    group, or a block for a long segment) unless the segments are few and
+    long (``rows >= LONG_ROWS * n``: a pool of a whole box), then enough for
+    ``n`` x chunks blocks to fill the card."""
     if n == 0 or rows < LONG_ROWS * n:
         return 0
     return max(1, min(MAX_CHUNKS, -(-CHUNK_BLOCKS // n)))
 
 
+def segsum_route(rows: int, n: int) -> Tuple[str, int]:
+    """K4's route for ``rows`` ids into ``n`` segments: ``("scan", 0)``, one
+    launch with no plan and no sort, up to ``SCAN_MAX_ROWS`` rows; else
+    ``("csr", chunks)``, a device sort into a CSR and the kernel (chunked
+    when the segments are few and long).  K3 always takes the CSR route
+    over its plan."""
+    chunks = segment_chunks(rows, n)
+    if chunks == 0 and rows <= SCAN_MAX_ROWS:
+        return "scan", 0
+    return "csr", chunks
+
+
+def long_segments(rowptr: torch.Tensor) -> torch.Tensor:
+    """Which segments of a plan the kernel splits across a block (at least
+    ``LONG_SEG`` rows); the others take one lane group each."""
+    return rowptr.diff() >= LONG_SEG
+
+
+_ENTRIES: Dict[tuple, tuple] = {}
+
+
+def _entry(route: str, dtype: torch.dtype) -> tuple:
+    """(library, C entry) of ``route`` for ``dtype``, looked up once."""
+    key = (route, dtype)
+    hit = _ENTRIES.get(key)
+    if hit is None:
+        lib = _build.load("sorted_segsum")
+        suffix = "" if dtype == torch.float32 else "_f64"
+        hit = _ENTRIES[key] = (lib, getattr(lib, f"gmp_segsum_{route}{suffix}"))
+    return hit
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _mask_bytes(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A row mask as contiguous bytes (bool or uint8 as they are)."""
+    if mask is None:
+        return None
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    return mask.contiguous()
+
+
 def launch_csr_segsum(data: torch.Tensor, perm: Optional[torch.Tensor],
-                      rowptr: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream into ``out`` ``[N, D]``
-    (``perm`` None: rows in place), with the scratch of the chunked path
-    when the segments are few and long.  No checks and no count: the
-    wrappers below and the timing code call it."""
-    lib = _build.load("sorted_segsum")
+                      rowptr: torch.Tensor, out: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      acc: Optional[torch.Tensor] = None) -> None:
+    """Launch the CSR route on the current stream into ``out`` ``[N, D]``
+    (``perm`` None: rows in place; ``mask``: rows to skip; ``acc``: added to
+    each sum), with the scratch of the chunked path when the segments are
+    few and long.  No checks and no count: the wrappers below and the
+    timing code call it."""
+    lib, fn = _entry("csr", data.dtype)
     n, d = out.shape
     chunks = segment_chunks(data.shape[0], n)
     scratch = (torch.empty((n, chunks, d), dtype=data.dtype, device=data.device)
                if chunks else None)
-    dev = data.device.index if data.device.index is not None else \
-        torch.cuda.current_device()
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    fn = (lib.gmp_sorted_segsum if data.dtype == torch.float32
-          else lib.gmp_sorted_segsum_f64)
-    _build.check(lib, fn(
-        dev, data.data_ptr(), None if perm is None else perm.data_ptr(),
-        rowptr.data_ptr(), out.data_ptr(), n, d, chunks,
-        None if scratch is None else scratch.data_ptr(), stream),
-        "sorted segment sum")
+    dev = data.get_device()
+    err = fn(dev, data.data_ptr(), _ptr(perm), rowptr.data_ptr(), _ptr(mask),
+             _ptr(acc), out.data_ptr(), n, d, chunks, _ptr(scratch), LONG_SEG,
+             cluster_size(data.shape[0]), torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _build.check(lib, err, "segment sum (CSR route)")
 
 
-def _sorted_segsum_cuda(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
-    """K3 on the card: ``[num_segments, D]``."""
+def launch_scan_segsum(data: torch.Tensor, ids: torch.Tensor,
+                       mask: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """Launch the scan route on the current stream into ``out`` ``[N, D]``:
+    ``ids`` contiguous int32 or int64, ``mask`` contiguous bytes or None.
+    No checks and no count."""
+    lib, fn = _entry("scan", data.dtype)
+    n, d = out.shape
+    dev = data.get_device()
+    err = fn(dev, data.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+             _ptr(mask), out.data_ptr(), data.shape[0], n, d,
+             LONG_SEG, SCAN_BLOCKS, cluster_size(data.shape[0]),
+             torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _build.check(lib, err, "segment sum (scan route)")
+
+
+def _sorted_segsum_cuda(data: torch.Tensor, plan: SegmentPlan,
+                        mask: Optional[torch.Tensor] = None,
+                        acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 on the card: ``[num_segments, D]`` (``acc`` + the sums), rows
+    whose ``mask`` is False skipped in the kernel."""
     data = data.contiguous()
     perm = None if plan.identity_perm else plan.perm
     _check_cuda(data, plan.rowptr, plan.perm, "sorted_segment_sum")
+    _check_rows(data, mask, "mask", "sorted_segment_sum")
     out = torch.empty((plan.num_segments, data.shape[1]), dtype=data.dtype,
                       device=data.device)
-    launch_csr_segsum(data, perm, plan.rowptr, out)
+    if acc is not None:
+        acc = acc.contiguous()
+        if acc.shape != out.shape or acc.dtype != out.dtype or \
+                acc.device != out.device:
+            raise ValueError(f"sorted_fold: acc must be {tuple(out.shape)} "
+                             f"{out.dtype} on {out.device}")
+    launch_csr_segsum(data, perm, plan.rowptr, out, _mask_bytes(mask), acc)
     sorted_segment_sum.launches += 1
     return out
 
@@ -183,13 +289,19 @@ def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.where(mask[:, None], x, x.new_zeros(()))
 
 
+def _plan_mask(plan: SegmentPlan, mask: Optional[torch.Tensor]):
+    """The mask the kernel must read: none when the plan left the masked-off
+    rows out already."""
+    return None if plan.masked else mask
+
+
 class SortedSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, plan, seg, mask):
         if data.device.type == "cpu":
             out = sorted_segment_sum_plain(data, seg, plan.num_segments, mask)
         elif data.device.type == "cuda":
-            out = _sorted_segsum_cuda(data, plan)
+            out = _sorted_segsum_cuda(data, plan, _plan_mask(plan, mask))
         else:
             raise ValueError(f"sorted_segment_sum: unsupported device {data.device}")
         ctx.save_for_backward(seg, mask)
@@ -206,24 +318,47 @@ def sorted_segment_sum(data: torch.Tensor, plan: SegmentPlan,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked segment sum of ``data`` ``[E, D]`` into ``[plan.num_segments,
     D]``; differentiable in ``data`` (backward: the masked gather
-    ``g[seg]``).  ``plan`` is ``build_segment_plan(seg, S, mask)``; ``seg``
-    and ``mask`` are the original ids and mask.  On the card the plan alone
-    decides which rows are summed (K3, one launch)."""
+    ``g[seg]``).  ``plan`` is ``build_segment_plan(seg, S, mask)`` (or a plan
+    built without the mask, which the kernel then reads); ``seg`` and
+    ``mask`` are the original ids and mask.  On the card: K3, one launch."""
     return SortedSegmentSum.apply(data, plan, seg, mask)
 
 
 sorted_segment_sum.launches = 0
 
 
+class SortedFold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, acc, plan, seg, mask):
+        if data.device.type == "cpu":
+            out = sorted_segment_sum_plain(data, seg, plan.num_segments, mask)
+            if acc is not None:
+                out = acc + out
+        elif data.device.type == "cuda":
+            out = _sorted_segsum_cuda(data, plan, _plan_mask(plan, mask), acc)
+        else:
+            raise ValueError(f"sorted_fold: unsupported device {data.device}")
+        ctx.save_for_backward(seg, mask)
+        ctx.has_acc = acc is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        seg, mask = ctx.saved_tensors
+        return (_masked(g[seg], mask), g if ctx.has_acc else None, None, None,
+                None)
+
+
 def sorted_fold(data: torch.Tensor, segment_ids: torch.Tensor,
-                plan: SegmentPlan,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The masked segment sum of ``data`` ``[T, D]`` over ascending
-    ``segment_ids`` into ``[plan.num_segments, D]``, ``plan`` being
-    ``ascending_plan(segment_ids, S)``: K3 on the card (one launch, masked
-    rows zeroed first), the plain sum on the CPU; differentiable in
-    ``data``."""
-    return sorted_segment_sum(_masked(data, mask), plan, segment_ids, mask)
+                plan: SegmentPlan, mask: Optional[torch.Tensor] = None,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc`` (optional, ``[plan.num_segments, D]``) plus the masked
+    segment sum of ``data`` ``[T, D]`` over ascending ``segment_ids``,
+    ``plan`` being ``ascending_plan(segment_ids, S)``: K3 on the card, one
+    launch that skips the masked rows and adds ``acc`` (the same additions,
+    in the same order, as ``acc + fold``); the plain sum on the CPU;
+    differentiable in ``data`` and ``acc``."""
+    return SortedFold.apply(data, acc, plan, segment_ids, mask)
 
 
 class SortedGather(torch.autograd.Function):
@@ -246,9 +381,7 @@ class SortedGather(torch.autograd.Function):
         if g.device.type == "cpu":
             dh = sorted_segment_sum_plain(g, idx, plan.num_segments, mask)
         elif g.device.type == "cuda":
-            # a plan built with the mask leaves masked-off rows out already
-            dh = _sorted_segsum_cuda(g if plan.masked else _masked(g, mask),
-                                     plan)
+            dh = _sorted_segsum_cuda(g, plan, _plan_mask(plan, mask))
         else:
             raise ValueError(f"sorted_gather: unsupported device {g.device}")
         return dh, None, None, None
@@ -258,8 +391,33 @@ def sorted_gather(h: torch.Tensor, idx: torch.Tensor, plan: SegmentPlan,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``h[idx]`` whose backward is the masked segment sum of the cotangent
     over ``idx``: K3 on the card, through ``plan`` (``build_segment_plan(idx,
-    h.shape[0], mask)``)."""
+    h.shape[0], mask)``, or the plan without the mask, read then in the
+    kernel)."""
     return SortedGather.apply(h, idx, plan, mask)
+
+
+def _segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int,
+                      mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4 on the card, by ``segsum_route``: the scan route (one launch) or
+    a stable device sort into a CSR and the CSR route."""
+    data = data.contiguous()
+    _check_cuda(data, None, None, "segment_sum")
+    _check_rows(data, segment_ids, "segment_ids", "segment_sum")
+    _check_rows(data, mask, "mask", "segment_sum")
+    out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
+                      device=data.device)
+    route, _ = segsum_route(data.shape[0], num_segments)
+    if route == "scan":
+        ids = segment_ids
+        if ids.dtype not in (torch.int32, torch.int64):
+            ids = ids.long()
+        launch_scan_segsum(data, ids.contiguous(), _mask_bytes(mask), out)
+    else:
+        order, rowptr = receiver_csr(segment_ids, mask, num_segments)
+        _check_cuda(data, rowptr, order, "segment_sum")
+        launch_csr_segsum(data, order, rowptr, out)
+    return out
 
 
 class SegmentSum(torch.autograd.Function):
@@ -268,14 +426,7 @@ class SegmentSum(torch.autograd.Function):
         if data.device.type == "cpu":
             out = sorted_segment_sum_plain(data, segment_ids, num_segments, mask)
         elif data.device.type == "cuda":
-            data = data.contiguous()
-            live = (torch.ones_like(segment_ids, dtype=torch.bool)
-                    if mask is None else mask)
-            order, rowptr = receiver_csr(segment_ids, live, num_segments)
-            _check_cuda(data, rowptr, order, "segment_sum")
-            out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
-                              device=data.device)
-            launch_csr_segsum(data, order, rowptr, out)
+            out = _segment_sum_cuda(data, segment_ids, num_segments, mask)
             segment_sum.launches += 1
         else:
             raise ValueError(f"segment_sum: unsupported device {data.device}")
@@ -293,9 +444,10 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked segment sum over unsorted ids, ``[E, D] -> [num_segments,
     D]`` (the JAX package's ``segment_sum_pallas``); differentiable in
-    ``data``.  On the card: a stable device sort of the masked-in ids into a
-    CSR, then the kernel (K4, one launch); ids outside ``[0, num_segments)``
-    are dropped there.  On the CPU: ``sorted_segment_sum_plain``."""
+    ``data``.  On the card: K4, by ``segsum_route`` one launch with no sort
+    (up to ``SCAN_MAX_ROWS`` rows) or a stable device sort of the masked-in
+    ids into a CSR and then the kernel; ids outside ``[0, num_segments)``
+    are dropped either way.  On the CPU: ``sorted_segment_sum_plain``."""
     return SegmentSum.apply(data, segment_ids, num_segments, mask)
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -64,18 +65,24 @@ def build_triplets(edge_index: np.ndarray, num_nodes: int,
     return tri + (t[keep].astype(np.int32), kn[keep].astype(np.int32))
 
 
-_TRIPLET_CACHE: dict = {}
+# graph -> {with_quads: triplets}; an entry goes when its graph is collected
+_TRIPLET_CACHE = weakref.WeakKeyDictionary()
 
 
 def graph_triplets(g: Graph, with_quads: bool):
-    """``build_triplets`` of ``g``, cached per graph object (the cache holds
-    the graph too, so its id is not reused)."""
-    key = (id(g), with_quads)
-    hit = _TRIPLET_CACHE.get(key)
+    """``build_triplets`` of ``g``, cached per graph object under a weak
+    key: the cache keeps no graph alive, and a new graph never meets the
+    triplets of a collected one.  A graph whose type takes no weak
+    reference (the JAX package's ``Graph``) is not cached."""
+    try:
+        hit = _TRIPLET_CACHE.get(g)
+    except TypeError:
+        return build_triplets(g.edge_index, g.num_nodes, with_quads)
     if hit is None:
-        hit = (g, build_triplets(g.edge_index, g.num_nodes, with_quads))
-        _TRIPLET_CACHE[key] = hit
-    return hit[1]
+        hit = _TRIPLET_CACHE[g] = {}
+    if with_quads not in hit:
+        hit[with_quads] = build_triplets(g.edge_index, g.num_nodes, with_quads)
+    return hit[with_quads]
 
 
 def _round_up(x: int, m: int) -> int:

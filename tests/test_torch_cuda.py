@@ -1046,3 +1046,231 @@ def test_dimenet_plain_route_step_is_bitwise_repeatable(cuda_device):
     second = _dimenet_step_grads(batch, cuda_device)
     for name, g in first.items():
         assert torch.equal(g, second[name]), name
+
+
+# ---------------------------------------------------------------------------
+# K4's scan route (no plan, no sort), long segments split inside a block,
+# narrow rows, and the fold's mask and accumulator inside K3
+# ---------------------------------------------------------------------------
+
+
+def _k4_routes(data, seg, n, mask):
+    """K4 twice on the scan route and once on the CSR route (a device sort,
+    then the kernel), under no_grad."""
+    saved = sss.SCAN_MAX_ROWS
+    try:
+        sss.SCAN_MAX_ROWS = 1 << 30
+        with torch.no_grad():
+            first = sss.segment_sum(data, seg, n, mask)
+            second = sss.segment_sum(data, seg, n, mask)
+        sss.SCAN_MAX_ROWS = -1
+        with torch.no_grad():
+            csr = sss.segment_sum(data, seg, n, mask)
+    finally:
+        sss.SCAN_MAX_ROWS = saved
+    torch.cuda.synchronize()
+    return first, second, csr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,d,masked,all_in,dtype,index_dtype", [
+    (800, 1, 128, 0.0, 0, torch.float32, torch.int32),     # embedding grad
+    (808, 95, 128, 0.0, 0, torch.float32, torch.int32),    # DimeNet++'s
+    (808, 101, 128, 0.01, None, torch.float32, torch.int64),  # star pool
+    (1408, 808, 64, 0.15, None, torch.float32, torch.int32),  # message sums
+    (1408, 808, 3, 0.15, None, torch.float32, torch.int64),   # positions
+    (1408, 808, 1, 0.15, None, torch.float32, torch.int32),   # counts
+    (1408, 808, 4, 0.15, None, torch.float32, torch.int32),
+    (1408, 808, 8, 0.15, None, torch.float32, torch.int64),
+    (1400, 300, 130, 0.1, None, torch.float32, torch.int32),  # scalar lanes
+    (1400, 300, 256, 0.1, None, torch.float32, torch.int64),  # two passes
+    (5000, 700, 16, 0.1, None, torch.float64, torch.int64),   # float64
+    (24576, 6000, 128, 0.1, None, torch.float32, torch.int32),  # the limit
+    (3000, 7, 32, 0.1, None, torch.float32, torch.int32),   # long, some masked
+    (1500, 300, 32, 1.0, None, torch.float32, torch.int32),  # all masked
+    (0, 20, 16, 0.0, None, torch.float32, torch.int64),      # no rows
+])
+def test_k4_scan_route_matches_plain(cuda_device, e, n, d, masked, all_in,
+                                     dtype, index_dtype):
+    """The scan route against the plain version at SEG_TOL, two runs
+    bitwise equal; bitwise equal to the CSR route where no segment reaches
+    LONG_SEG rows (both add a segment's rows in ascending order in one lane
+    group), within SEG_TOL where one does (split across the block)."""
+    data, seg, mask = _seg_case(e, n, d, 61, masked, False, cuda_device)
+    if all_in is not None:
+        seg = torch.full_like(seg, all_in)
+    data, seg = data.to(dtype), seg.to(index_dtype)
+    before = sss.segment_sum.launches
+    first, second, csr = _k4_routes(data, seg, n, mask)
+    assert sss.segment_sum.launches == before + 3
+    want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    tol = SEG_TOL if dtype == torch.float32 else 1e-12
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(first, want, atol=tol * scale, rtol=tol)
+    assert torch.equal(first, second)
+    longest = int(torch.bincount(seg[mask].long(), minlength=n).max()) if e else 0
+    if longest < sss.LONG_SEG:
+        assert torch.equal(first, csr)
+    else:
+        torch.testing.assert_close(first, csr, atol=tol * scale, rtol=tol)
+    if masked == 1.0 or e == 0:
+        assert torch.equal(first, torch.zeros_like(first))
+
+
+@pytest.mark.cuda
+def test_k4_scan_route_drops_ids_outside_the_segments(cuda_device):
+    data, seg, mask = _seg_case(2000, 300, 64, 62, 0.1, False, cuda_device)
+    seg[::7] = -3
+    seg[::11] = 300 + 5
+    first, second, csr = _k4_routes(data, seg, 300, mask)
+    keep = mask & (seg >= 0) & (seg < 300)
+    want = sss.sorted_segment_sum_plain(data, seg.clamp(0, 299), 300, keep)
+    torch.testing.assert_close(first, want, atol=SEG_TOL, rtol=SEG_TOL)
+    assert torch.equal(first, second) and torch.equal(first, csr)
+
+
+@pytest.mark.cuda
+def test_k4_scan_route_is_one_kernel_and_no_sort(cuda_device):
+    """At the embedding gradient's shape the scan route is one device
+    kernel a call and no sort."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    data, seg, _ = _seg_case(800, 1, 128, 63, 0.0, False, cuda_device)
+    seg = torch.zeros_like(seg, dtype=torch.int32)
+    with torch.no_grad():
+        sss.segment_sum(data, seg, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sss.segment_sum(data, seg, 1)
+            torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "segsum" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,d,sort", [(3000, 64, True), (3000, 128, False),
+                                      (3000, 3, False), (3000, 8, True),
+                                      (40_000, 128, True), (40_000, 64, False)])
+def test_k3_long_segments_split_inside_the_block(cuda_device, e, d, sort):
+    """K3 over a plan with a segment of 900 rows among short ones (masked
+    rows left out of the plan, and a plan without the mask, which the
+    kernel reads), split across a cluster of blocks (E 3000) or one block
+    (E 40k, above SCAN_MAX_ROWS): within SEG_TOL of the plain version,
+    bitwise repeatable, one launch each."""
+    n = e // 15
+    data, seg, mask = _seg_case(e, n, d, 64, 0.1, sort, cuda_device)
+    seg[:900] = 5
+    if sort:
+        seg = torch.sort(seg).values
+    want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    for plan in (sss.build_segment_plan(seg, n, mask=mask, device=cuda_device),
+                 sss.build_segment_plan(seg, n, device=cuda_device)):
+        assert bool(sss.long_segments(plan.rowptr)[5])
+        before = sss.sorted_segment_sum.launches
+        with torch.no_grad():
+            first = sss.sorted_segment_sum(data, plan, seg, mask)
+            second = sss.sorted_segment_sum(data, plan, seg, mask)
+        torch.cuda.synchronize()
+        assert sss.sorted_segment_sum.launches == before + 2
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(first, want, atol=SEG_TOL * scale,
+                                   rtol=SEG_TOL)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_fold_mask_and_accumulator_inside_k3(cuda_device, d):
+    """The fold with its mask and an accumulator read by K3 is bitwise
+    equal to the previous formula ``acc + sorted_fold`` (the kernel over
+    masked-zeroed rows, then an add), and to the plain sum within 1e-5."""
+    batch = _triplet_star_batch(100, cuda_device)
+    tri = batch.triplets
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
+    y = torch.randn((tri.num_triplets, d), generator=gen, device=cuda_device)
+    acc = torch.randn((batch.num_edges, d), generator=gen, device=cuda_device)
+    plan = sss.ascending_plan(tri.idx_ji, batch.num_edges)
+    before = sss.sorted_segment_sum.launches
+    with torch.no_grad():
+        got = sss.sorted_fold(y, tri.idx_ji, plan, tri.t_mask, acc=acc)
+        again = sss.sorted_fold(y, tri.idx_ji, plan, tri.t_mask, acc=acc)
+        alone = sss.sorted_fold(y, tri.idx_ji, plan, tri.t_mask)
+        zeroed = torch.where(tri.t_mask[:, None], y, torch.zeros_like(y))
+        fold = torch.empty_like(acc)
+        sss.launch_csr_segsum(zeroed, None, plan.rowptr, fold)
+    torch.cuda.synchronize()
+    assert sss.sorted_segment_sum.launches - before == 3
+    assert torch.equal(got, again)
+    assert torch.equal(alone, fold)
+    assert torch.equal(got, acc + fold)
+    want = acc + sss.sorted_segment_sum_plain(y, tri.idx_ji, batch.num_edges,
+                                              tri.t_mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_chunked_fold_accumulates_in_the_kernel(cuda_device):
+    """TripletFold over 3 chunks: one K3 launch each, no other kernel but
+    the rows' own, within 1e-5 of the plain sum; gradients as the plain
+    version's."""
+    from geometric_message_passing_tpu_torch.models.dimenet import TripletFold
+    batch = _triplet_star_batch(100, cuda_device)
+    tri = batch.triplets
+    chunk = -(-tri.num_triplets // 3)
+    fold = TripletFold(tri.idx_ji, tri.t_mask, batch.num_edges, chunk=chunk)
+    gen = torch.Generator(device=cuda_device).manual_seed(71)
+    y = torch.randn((tri.num_triplets, 64), generator=gen, device=cuda_device,
+                    requires_grad=True)
+    before = sss.sorted_segment_sum.launches
+    got = fold.sum(lambda s: y[s])
+    assert sss.sorted_segment_sum.launches - before == 3
+    want = sss.sorted_segment_sum_plain(y.detach(), tri.idx_ji,
+                                        batch.num_edges, tri.t_mask)
+    torch.testing.assert_close(got.detach(), want, atol=1e-5, rtol=1e-5)
+    (g,) = torch.autograd.grad(got.sum(), [y])
+    assert torch.equal(g[:, 0], tri.t_mask.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["scan", "csr"])
+@pytest.mark.parametrize("bad", ["short_ids", "short_mask", "ids_2d",
+                                 "cpu_ids", "cpu_mask"])
+def test_k4_rejects_ids_or_mask_that_do_not_fit_the_rows(cuda_device, route,
+                                                        bad):
+    """K4 raises, on either route, unless the ids and the mask have one
+    entry a row on the data's device: the kernels read them by row."""
+    data, seg, mask = _seg_case(1000, 50, 64, 65, 0.1, False, cuda_device)
+    if bad == "short_ids":
+        seg = seg[:-1]
+    elif bad == "short_mask":
+        mask = mask[:-1]
+    elif bad == "ids_2d":
+        seg = seg[:, None]
+    elif bad == "cpu_ids":
+        seg = seg.cpu()
+    else:
+        mask = mask.cpu()
+    saved = sss.SCAN_MAX_ROWS
+    sss.SCAN_MAX_ROWS = 1 << 30 if route == "scan" else -1
+    try:
+        with pytest.raises(ValueError), torch.no_grad():
+            sss.segment_sum(data, seg, 50, mask)
+    finally:
+        sss.SCAN_MAX_ROWS = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["short_mask", "long_mask", "cpu_mask"])
+def test_k3_rejects_a_mask_that_does_not_fit_the_rows(cuda_device, bad):
+    """K3 reads the mask of a plan built without it in the kernel: a mask
+    of another length, or on the CPU, raises."""
+    batch = _triplet_star_batch(100, cuda_device)
+    tri = batch.triplets
+    y = torch.randn((tri.num_triplets, 64), device=cuda_device)
+    plan = sss.ascending_plan(tri.idx_ji, batch.num_edges)
+    mask = {"short_mask": tri.t_mask[:-1],
+            "long_mask": torch.cat([tri.t_mask, tri.t_mask[:1]]),
+            "cpu_mask": tri.t_mask.cpu()}[bad]
+    with pytest.raises(ValueError), torch.no_grad():
+        sss.sorted_fold(y, tri.idx_ji, plan, mask)

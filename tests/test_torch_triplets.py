@@ -12,6 +12,9 @@ Tolerances: indices exact; segment reductions and bases 1e-5 absolute /
 1e-4 relative of the float32 JAX value (sums in another order, ``pow`` and
 ``sin`` rounding); gradients at the origin exact (0 or 1)."""
 
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +45,7 @@ def fresh_jax_triplet_cache():
     """The JAX package caches each graph's triplets under ``id(graph)``
     without keeping the graph alive, so a graph freed by an earlier test can
     hand its id, and its stale triplets, to a new one.  Start each test with
-    that cache empty (the port's cache holds its graphs)."""
+    that cache empty (the port's cache keys on the graph itself, weakly)."""
     jtri._TRIPLET_CACHE.clear()
     yield
     jtri._TRIPLET_CACHE.clear()
@@ -166,6 +169,40 @@ def test_attach_triplets_maps_real_edges_back_ascending():
         assert _ascending(ta.triplets.idx_ji)
         live = ta.triplets.idx_ji[ta.triplets.t_mask].numpy()
         assert em[live].all()
+
+
+def test_triplet_cache_keeps_no_graph_alive(monkeypatch):
+    """The cache empties once its graphs are freed and collected, and a new
+    graph (at a reused id or not) gets its own triplets."""
+    cache = weakref.WeakKeyDictionary()
+    monkeypatch.setattr(ttri, "_TRIPLET_CACHE", cache)
+    graphs = tds.create_star_graphs(num=6, fold=(4, 5), seed=8)
+    for g in graphs:
+        ttri.graph_triplets(g, False)
+        ttri.graph_triplets(g, True)
+    assert len(cache) == 6
+    probe = weakref.ref(graphs[0])
+    old_id, old = id(graphs[0]), ttri.graph_triplets(graphs[0], True)
+    del g, graphs
+    gc.collect()
+    assert probe() is None and len(cache) == 0
+    for seed in range(20):        # CPython hands a freed slot out again
+        new = tds.create_star_graphs(num=1, fold=(7,), seed=seed)[0]
+        if id(new) == old_id:
+            break
+    got = ttri.graph_triplets(new, True)
+    want = ttri.build_triplets(new.edge_index, new.num_nodes, True)
+    assert len(got) == len(want) and len(got[0]) != len(old[0])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert len(cache) == 1
+    # a graph type without weak references (the JAX package's) is served
+    # and not cached
+    jg = jds.create_star_graphs(num=1, fold=[5], seed=3)[0]
+    for a, b in zip(ttri.graph_triplets(jg, False),
+                    ttri.build_triplets(jg.edge_index, jg.num_nodes)):
+        np.testing.assert_array_equal(a, b)
+    assert len(cache) == 1
 
 
 def test_builders_reject_unsorted_idx_ji(monkeypatch):
