@@ -98,7 +98,11 @@ Phases; any failure raises and the script exits non-zero:
      bf16 W, all five groups in one launch per direction, held to the same
      tolerances group by group, timed against the groups' plain versions
      and ``torch.bmm`` calls summed and against the five one-group launches
-     back to back;
+     back to back.  Then MACE's group sets (``bench.MACE_STAR``: ungated, so
+     the TP output is exactly the hidden irreps 64x0e+64x1o+64x2e+64x3o) at
+     its train bucket (E 1400), f32 W: layer 0 (64x0e in) and the hidden
+     layer, four groups each in one grouped launch per direction, held the
+     same way (``check_k7_layer``), with the per-edge weight tensor's size;
   4. serve: star graphs (1400, fold 5/6/7, seed 0) through
      ``Predictor(EGNNFusedModel(4 layers, 128 wide, pool "first"))``, with
      the launch counters set to 0 just before and read just after; the
@@ -231,7 +235,11 @@ Phases; any failure raises and the script exits non-zero:
      ``torch.segment_reduce`` timed beside the bound;
   3f. K4 and the fold at every shape the star models launch: one train
      step and one predict batch of each of egnn (per layer), egnn_stack,
-     gvp, tfn, dimenet and spherenet at their main paths' configurations
+     gvp, tfn, mace, dimenet and spherenet at their main paths'
+     configurations, and of the expressivity arms' models on their batches
+     (``bench_kernels.EXPRESSIVITY_MODELS``: MPNN and EGNN on the k = 4
+     chains, SchNet on the two-body pair, MACE correlation 3 on the
+     three-body pair; integer labels, cross-entropy), all
      run under ``bench_kernels.capture_star_shapes``, which records every
      ``segment_sum`` (K4) and ``sorted_fold`` call; each distinct shape
      held to the plain version (SEG_TOL of max(|ref|, 1)), two runs bitwise
@@ -273,10 +281,40 @@ Phases; any failure raises and the script exits non-zero:
      then the 10k-atom box at ``bench_scale.config('dimenet', 10_000)`` (4
      layers, triplet_chunk 262144: 7 chunks): a warm step and 4 timed, K3
      4 x 7 and K4 7 per step, ms per step and peak device memory;
+  4g. MACE serving: ``Predictor(MACEModel)`` at ``bench.MACE_STAR`` (2
+     layers, max_ell 3, correlation 3, emb_dim 64, mlp_dim 256, batch norm,
+     residual, pool "first") over its 1500 star graphs (fold [7], seed 0),
+     counters set to 0 just before and read just after: per batch K7 and K4
+     once a layer and nothing else; finite (1500, 1), within atol = rtol =
+     1e-4 of the CPU plain path; median of 5 calls;
+  5g. MACE one ``train_step``: at full width the card (exactly 2 K7
+     launches each way and 3 K4) against the CPU's plain f32 step, gradients
+     within 1e-3 of each parameter's largest entry (phase 5d's rule for two
+     f32 runs), peak device memory printed; at emb_dim 16 the card against
+     the CPU in float64, within 1e-2; a planted fault, the symmetric
+     contraction's nu = 3 weights detached (``weights_nu3_detached``), must
+     fail that check;
+  6l. MACE training, the main path: ``fit_regression`` of the phase-4g
+     model under the protocol of the JAX package's number (1500 graphs, lr
+     5e-4, cosine, 200 epochs; weights and shuffle from seed 0), counters
+     set to 0 just before and read just after: K7 2 per forward and 2 per
+     train step backward, K4 2 per forward and 1 per train step, nothing
+     else; test MAE finite and below 0.09 (the JAX package 0.0766 +-
+     0.0013);
+  6m. the expressivity table on the card (``EXPRESSIVITY``):
+     ``fit_classification`` at the JAX tests' settings (lr 1e-3; k-chains
+     400 epochs, rotsym 150, the environment pairs 200), weights from
+     ``seed_everything(seed)``: k = 4 chains, EGNN (3 layers) 100% at some
+     seed of 0-4 with a mean above 50%, MPNN at most 50% at seeds 0-2;
+     rotsym fold 3, EGNN at most 50%, TFN (max_ell 3, gate off) 100%, MACE
+     (max_ell 3) printed; two-body SchNet at most 50%, EGNN 100%;
+     three-body MACE correlation 1 at most 50%, correlation 3 100%; each
+     arm's K4 launches at least one per train step;
   7. summary: one JSON line of kernels, then the device line last.
 
-Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f, 5,
-5b, 5c, 5d, 5e, 5f, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j, 6k, 7.
+Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f,
+4g, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j, 6k, 6l,
+6m, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
@@ -304,19 +342,22 @@ from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
     cuda_time_ms, segsum_bound_ms as seg_bound_ms)
 from geometric_message_passing_tpu_torch.experiments import train
 from geometric_message_passing_tpu_torch.experiments.bench import (
-    DIMENET_STAR, LR, N_EPOCHS as EPOCHS, SPHERENET_STAR, TFN_STAR,
-    bench_data, card_line, tfn_data, tfn_model as _tfn_model,
+    DIMENET_STAR, LR, MACE_EPOCHS, MACE_LR, MACE_STAR, N_EPOCHS as EPOCHS,
+    SPHERENET_STAR, TFN_STAR, bench_data, card_line, mace_data,
+    mace_model as _mace_model, tfn_data, tfn_model as _tfn_model,
     triplet_star_data)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.experiments.train import (
-    fit_regression, make_tx, seed_everything, train_step)
+    fit_classification, fit_regression, make_tx, seed_everything, train_step)
 from geometric_message_passing_tpu_torch.graph import (
     GraphLoader, assemble_batch, build_slot_data, pad_sizes)
+from geometric_message_passing_tpu_torch import datasets
 from geometric_message_passing_tpu_torch.models import (
     DimeNetPPModel, EGNNFusedModel, GVPGNNModel, SphereNetModel, TFNModel,
-    egnn_fused, gvpgnn)
+    egnn_fused, gvpgnn, model_registry)
 from geometric_message_passing_tpu_torch.models import dimenet as dimenet_mod
 from geometric_message_passing_tpu_torch.nn import conv as tfn_conv
+from geometric_message_passing_tpu_torch.nn import symmetric_contraction
 from geometric_message_passing_tpu_torch.nn import tensor_product
 from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
 from geometric_message_passing_tpu_torch.ops import _build
@@ -1736,6 +1777,139 @@ def train_triplet(name: str, loaders, epochs: int, mae_max: float,
     return res, got
 
 
+# ---------------------------------------------------------------------------
+# MACE (K7 and K4 in its convolutions, the symmetric contraction in PyTorch
+# products) and the expressivity path (classification on K4)
+# ---------------------------------------------------------------------------
+
+MACE_NARROW = dict(emb_dim=16)      # a step held to float64 (2 layers)
+MACE_MAE_MAX = 0.09
+MACE_JAX_MAE, MACE_JAX_SD = 0.0766, 0.0013    # RESULTS.md:189
+MACE_SERVE_CALLS = 5
+
+
+def mace_model(device, **kw):
+    """MACE at its star configuration (``kw`` overrides), weights from
+    seed 0 (``run_experiment_reg``'s first repeat)."""
+    return _mace_model(seed_everything(0), device, **kw)
+
+
+def mace_launches(layers: int, forwards: int, train_steps: int) -> dict:
+    """MACE's launches (pool "first"): per forward K7 and K4 (the message
+    sum onto the senders) once a layer; per train step K7's backward once a
+    layer and K4 once more (the embedding's gradient)."""
+    return {"edge_contract": layers * forwards,
+            "edge_contract_bwd": layers * train_steps,
+            "segment_sum": layers * forwards + train_steps}
+
+
+_SC_WEIGHTS = symmetric_contraction.SymmetricContraction.weights
+
+
+def weights_nu3_detached(self):
+    """The planted fault of phase 5g: the symmetric contraction's nu = 3
+    weights cut off from the gradient (no ``contraction_*_w3`` learns)."""
+    w = _SC_WEIGHTS(self)
+    w[3] = w[3].detach()
+    return w
+
+
+def expressivity_arm(name: str, kw: dict, graphs, seed: int, epochs: int,
+                     dev) -> dict:
+    """One arm of the expressivity table: ``fit_classification`` of the
+    port's ``name`` model (weights from ``seed_everything(seed)``) on the
+    two graphs (train = validation = test, one batch of 2, lr 1e-3, the
+    JAX tests' settings) on ``dev``, counters set to 0 just before and read
+    just after.  One train step an epoch; each step launches K4 at least
+    once (the embedding's gradient)."""
+    loader = GraphLoader(graphs, batch_size=2, y_dtype=np.int32)
+    model = model_registry[name](**kw, generator=seed_everything(seed),
+                                 device=dev)
+    reset_counts()
+    t = time.perf_counter()
+    res = fit_classification(model, None, loader, loader, loader,
+                             n_epochs=epochs, lr=1e-3, seed=seed, device=dev)
+    got = counts()
+    if dev.type == "cuda" and got["segment_sum"] < epochs:
+        raise AssertionError(f"{name}: {got['segment_sum']} K4 launches in "
+                             f"{epochs} train steps")
+    return {"test": res.test, "best_val": res.best_val,
+            "seconds": time.perf_counter() - t,
+            "launches": {k: v for k, v in got.items() if v}}
+
+
+# the JAX package's behavioral tests (tests/test_training.py:42-103,
+# tests/test_incompleteness.py:38-75): arm -> (model, config, data, seeds,
+# epochs, outcome); outcome "solves": 100% at some seed (and a mean above
+# 50% over several), "fails": never above 50%, None: printed only
+KCHAIN_KW = dict(num_layers=3, emb_dim=32, in_dim=1, out_dim=2)
+ROTSYM_SPH = dict(num_layers=1, emb_dim=8, max_ell=3, mlp_dim=32, in_dim=1,
+                  out_dim=2, equivariant_pred=True, pool="first")
+EXPRESSIVITY = {
+    "kchains k=4 egnn": ("egnn", KCHAIN_KW, ("kchains", 4), range(5), 400,
+                         "solves"),
+    "kchains k=4 mpnn": ("mpnn", KCHAIN_KW, ("kchains", 4), range(3), 400,
+                         "fails"),
+    "rotsym fold 3 egnn": ("egnn", dict(num_layers=1, emb_dim=32, in_dim=1,
+                                        out_dim=2, equivariant_pred=True,
+                                        pool="sum"),
+                           ("rotsym", 3), [0], 150, "fails"),
+    "rotsym fold 3 tfn": ("tfn", dict(ROTSYM_SPH, gate=False), ("rotsym", 3),
+                          [0], 150, "solves"),
+    "rotsym fold 3 mace": ("mace", dict(ROTSYM_SPH, correlation=2),
+                           ("rotsym", 3), [0], 150, None),
+    "two_body schnet": ("schnet", dict(num_layers=1, hidden_channels=32,
+                                       in_dim=1, out_dim=2),
+                        ("two_body",), [0], 200, "fails"),
+    "two_body egnn": ("egnn", dict(num_layers=1, emb_dim=32, in_dim=1,
+                                   out_dim=2, equivariant_pred=True,
+                                   pool="sum"),
+                      ("two_body",), [0], 200, "solves"),
+    "three_body mace correlation 1": (
+        "mace", dict(num_layers=1, emb_dim=8, max_ell=2, correlation=1,
+                     mlp_dim=32, in_dim=1, out_dim=2, pool="sum"),
+        ("three_body",), [0], 200, "fails"),
+    "three_body mace correlation 3": (
+        "mace", dict(num_layers=1, emb_dim=8, max_ell=3, correlation=3,
+                     mlp_dim=32, in_dim=1, out_dim=2, pool="sum"),
+        ("three_body",), [0], 200, "solves"),
+}
+
+
+def expressivity_graphs(spec):
+    kind, *args = spec
+    if kind == "kchains":
+        return datasets.create_kchains(*args)
+    if kind == "rotsym":
+        return datasets.create_rotsym_envs(fold=args[0])
+    return getattr(datasets, f"create_{kind}_envs")()
+
+
+def expressivity_table(dev, card: str) -> dict:
+    """Phase 6m: every arm of ``EXPRESSIVITY`` on ``dev``; raises where an
+    outcome differs from the JAX tests'."""
+    table = {}
+    for arm, (name, kw, spec, seeds, epochs, outcome) in EXPRESSIVITY.items():
+        graphs = expressivity_graphs(spec)
+        runs = [expressivity_arm(name, kw, graphs, seed, epochs, dev)
+                for seed in seeds]
+        accs = [r["test"] for r in runs]
+        table[arm] = {"model": name, "seeds": list(seeds), "epochs": epochs,
+                      "test_acc": accs, "expected": outcome,
+                      "seconds": sum(r["seconds"] for r in runs),
+                      "launches_first_seed": runs[0]["launches"]}
+        log(f"[expressivity] {arm}: test accuracy {accs} over seeds "
+            f"{list(seeds)}, {epochs} epochs (expected: {outcome or 'printed'}); "
+            f"{table[arm]['seconds']:.1f} s; launches (seed {seeds[0]}) "
+            f"{runs[0]['launches']} [{card}]")
+        if outcome == "solves" and (max(accs) != 100.0 or (
+                len(accs) > 1 and not np.mean(accs) > 50.0)):
+            raise AssertionError(f"{arm}: {accs}, expected 100% at some seed")
+        if outcome == "fails" and max(accs) > 50.0:
+            raise AssertionError(f"{arm}: {accs}, expected at most 50%")
+    return table
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
@@ -2123,9 +2297,33 @@ def main() -> int:
             f"back to back: forward {g['fwd']['ms']:.4f} / "
             f"{g['fwd']['one_group_ms']:.4f} ms, backward {g['bwd']['ms']:.4f} / "
             f"{g['bwd']['one_group_ms']:.4f} ms [{card}]")
+    # MACE's group sets (ungated: the hidden irreps exactly) at its train
+    # bucket, f32 W: layer 0 (64x0e in) and the hidden layer, one grouped
+    # launch per direction each
+    mace_graphs, mace_loaders = mace_data()
+    mace_cpu = mace_model("cpu")
+    mace_slot = build_slot_data(mace_loaders[0].graphs, device=dev)
+    mace_e = assemble_batch(mace_slot, torch.arange(BATCH, device=dev)).num_edges
+    del mace_slot
+    k7_mace = {}
+    for layer, conv in (("MACE layer 0", mace_cpu.convs[0]),
+                        ("MACE hidden", mace_cpu.convs[1])):
+        k7_mace[layer] = check_k7_layer(
+            f"{layer} grouped at E {mace_e} (groups (K, m, w) "
+            f"{conv.tp.group_shapes})", [
+                k7_case(mace_e, k, w, m, torch.float32, seed=80 + g, dev=dev)
+                for g, (k, m, w) in enumerate(conv.tp.group_shapes)])
+        torch.cuda.empty_cache()
+    mace_w_bytes = {layer: 4 * mace_e * sum(conv.tp.group_weight_numels)
+                    for layer, conv in (("layer 0", mace_cpu.convs[0]),
+                                        ("hidden", mace_cpu.convs[1]))}
+    log(f"  MACE per-edge weights at E {mace_e}: layer 0 "
+        f"{mace_w_bytes['layer 0'] / 1e6:.1f} MB, hidden "
+        f"{mace_w_bytes['hidden'] / 1e6:.1f} MB "
+        f"({sum(mace_cpu.convs[1].tp.group_weight_numels)} weights an edge)")
     k7_err = max(r["max_abs_err"] for r in k7_small + [k7_bf16] + [
         x for rs in k7_groups.values() for x in rs] + list(k7_grouped.values())
-        + list(k7_g3.values()))
+        + list(k7_g3.values()) + list(k7_mace.values()))
     del tfn_slot
     torch.cuda.empty_cache()
 
@@ -2158,9 +2356,10 @@ def main() -> int:
 
     # 3f. K4 and the fold at every shape the star models launch
     log(f"[kernels] segment sums at the star models' shapes (a train step "
-        f"and a predict batch of egnn, egnn_stack, gvp, tfn, dimenet and "
-        f"spherenet): K4 and the fold vs plain (SEG_TOL {SEG_TOL} of "
-        f"max(|ref|, 1)) [{card}]")
+        f"and a predict batch of egnn, egnn_stack, gvp, tfn, mace, dimenet "
+        f"and spherenet, and of the expressivity arms "
+        f"{list(bench_kernels.EXPRESSIVITY_MODELS)}): K4 and the fold vs "
+        f"plain (SEG_TOL {SEG_TOL} of max(|ref|, 1)) [{card}]")
     t = time.perf_counter()
     star_cap = bench_kernels.capture_star_shapes(dev)
     log(f"  {len(star_cap.shapes)} shapes captured in "
@@ -2341,6 +2540,51 @@ def main() -> int:
     triplet_serve = {"dimenet": serve_triplet("dimenet", dn_data, dev, card),
                      "spherenet": serve_triplet("spherenet", sn_data, dev,
                                                 card)}
+
+    # 4g. MACE serving at the star configuration's full width
+    mace_cuda = mace_model(dev)
+    for key, value in mace_cuda.state_dict().items():
+        if not torch.equal(value.cpu(), mace_cpu.state_dict()[key]):
+            raise AssertionError(f"CPU and CUDA MACE models differ at {key}")
+    mace_pred = Predictor(mace_cuda, batch_size=BATCH)
+    reset_counts()
+    y_mace = mace_pred.predict(mace_graphs)
+    mace_serve = counts()
+    mace_n = len(mace_graphs)
+    mace_batches = -(-mace_n // BATCH)
+    mace_layers = MACE_STAR["num_layers"]
+    mace_serve_want = dict({k: 0 for k in mace_serve}, **{
+        k: v for k, v in mace_launches(mace_layers, mace_batches, 0).items()
+        if v})
+    log(f"[serve] MACE {MACE_STAR} predict({mace_n} star graphs, fold [7]): "
+        f"launches {mace_serve} (want {mace_serve_want}: per batch K7 and K4 "
+        f"once a layer)")
+    if y_mace.shape != (mace_n, 1) or not np.isfinite(y_mace).all():
+        raise AssertionError(f"MACE predict gave shape {y_mace.shape}, "
+                             f"finite={np.isfinite(y_mace).all()}")
+    if mace_serve != mace_serve_want:
+        raise AssertionError(f"MACE predict launched {mace_serve}")
+    t = time.perf_counter()
+    y_mace_cpu = Predictor(mace_cpu, batch_size=BATCH,
+                           device="cpu").predict(mace_graphs)
+    mace_cpu_s = time.perf_counter() - t
+    mace_serve_err = float(np.abs(y_mace - y_mace_cpu).max())
+    log(f"  vs the CPU plain path ({mace_cpu_s:.1f} s on the host): "
+        f"max_abs_err={mace_serve_err:.3e} (atol = rtol = 1e-4)")
+    if not np.allclose(y_mace, y_mace_cpu, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"MACE predict differs from the CPU run by "
+                             f"{mace_serve_err}")
+    times = []
+    for _ in range(MACE_SERVE_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mace_pred.predict(mace_graphs)
+        times.append(time.perf_counter() - t)
+    mace_ms = statistics.median(times) * 1e3
+    log(f"[serve] MACE predict: median {mace_ms:.2f} ms per call of "
+        f"{MACE_SERVE_CALLS} ({mace_n / mace_ms * 1e3:.0f} graphs/s) [{card}]")
+    del mace_pred
+    torch.cuda.empty_cache()
 
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
@@ -2538,6 +2782,67 @@ def main() -> int:
         "dimenet": step_triplet("dimenet", dn_batch, card),
         "spherenet": step_triplet("spherenet", next(iter(sn_loaders[0])),
                                   card)}
+
+    # 5g. MACE one step: at full width the card (K7/K4) against the CPU's
+    # plain f32 step; at emb_dim 16 the card against the CPU in float64,
+    # with a planted fault (the nu = 3 weights of the symmetric contraction
+    # detached)
+    mace_order = torch.from_numpy(np.random.default_rng(9).permutation(
+        mace_loaders[0].num_examples))
+    mace_row, mace_train_graphs = mace_order[:BATCH], mace_loaders[0].graphs
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mace_step = {"card": first_step(mace_cpu, "cuda", torch.float32,
+                                    mace_train_graphs, mace_row)}
+    mace_step_launches = counts()
+    mace_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    mace_step["cpu f32"] = first_step(mace_cpu, "cpu", torch.float32,
+                                      mace_train_graphs, mace_row)
+    mace_cpu_step_s = time.perf_counter() - t
+    full = step_reading(mace_step["card"], mace_step["cpu f32"])
+    step_want = dict({k: 0 for k in mace_step_launches},
+                     **mace_launches(mace_layers, 1, 1))
+    log(f"[train] MACE one train_step at full width (graphs order[:{BATCH}]): "
+        f"the card against the CPU's plain f32 step ({mace_cpu_step_s:.1f} s "
+        f"on the host), gradients within {full[0]:.3e} of each parameter's "
+        f"largest entry ({full[3]}; {full[1]} signs differ; tol "
+        f"{K7_PLAIN_TOL:g}); launches {mace_step_launches} (want {step_want}); "
+        f"peak device memory {mace_peak_gb:.2f} GB [{card}]")
+    if mace_step_launches != step_want:
+        raise AssertionError(f"the MACE step launched {mace_step_launches}")
+    if full[0] > K7_PLAIN_TOL:
+        raise AssertionError("the MACE step on the card does not match the "
+                             "CPU's plain f32 step")
+    narrow_cpu = mace_model("cpu", **MACE_NARROW)
+    narrow = {}
+    for run, d_, dtype, fn in (
+            ("card", "cuda", torch.float32, _SC_WEIGHTS),
+            ("card, planted fault", "cuda", torch.float32,
+             weights_nu3_detached),
+            ("cpu f32", "cpu", torch.float32, _SC_WEIGHTS),
+            ("cpu f64", "cpu", torch.float64, _SC_WEIGHTS)):
+        with patched(symmetric_contraction.SymmetricContraction, "weights",
+                     fn):
+            narrow[run] = first_step(narrow_cpu, d_, dtype, mace_train_graphs,
+                                     mace_row, cast_data=True)
+    mace_check = {"full_width_vs_cpu_f32": full[0]}
+    for run in ("card", "card, planted fault", "cpu f32"):
+        g_err, flips, moved, worst = step_reading(narrow[run], narrow["cpu f64"])
+        mace_check[run] = {"grad_err": g_err, "sign_flips": flips,
+                           "step_lr": moved, "worst": worst}
+    log(f"[train] MACE one train_step at emb_dim {MACE_NARROW['emb_dim']}, "
+        f"{mace_layers} layers, max_ell {MACE_STAR['max_ell']}, correlation "
+        f"{MACE_STAR['correlation']} against the CPU float64 run, tol "
+        f"{GRAD_TOL:g} of each parameter's largest entry: " + ", ".join(
+            f"{run} {c['grad_err']:.3e} ({c['worst']}; {c['sign_flips']} signs "
+            "differ)" for run, c in mace_check.items() if isinstance(c, dict)))
+    if mace_check["card"]["grad_err"] > GRAD_TOL:
+        raise AssertionError("the MACE gradients on the card do not match the "
+                             "CPU")
+    if mace_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
+        raise AssertionError("phase 5g's check passed the planted fault")
+    del narrow, mace_step
 
     # 6. train, the main path
     reset_counts()
@@ -2885,6 +3190,39 @@ def main() -> int:
     del box_model, step_fn, tri_box
     torch.cuda.empty_cache()
 
+    # 6l. MACE star run, the main path: the protocol of the JAX package's
+    # number (run_experiment_reg's first repeat: weights and shuffle from
+    # seed 0; lr 5e-4, cosine, 200 epochs)
+    msteps, mval_b, mtest_b = (len(ld) for ld in mace_loaders)
+    reset_counts()
+    mres = fit_regression(mace_cuda, None, *mace_loaders,
+                          n_epochs=MACE_EPOCHS, lr=MACE_LR, cosine=True,
+                          seed=0, device="cuda")
+    mace_train = counts()
+    mfired = fired_epochs(mres.perf_per_epoch)
+    mace_train_want = dict({k: 0 for k in mace_train}, **mace_launches(
+        mace_layers, MACE_EPOCHS * (msteps + mval_b) + mfired * mtest_b,
+        MACE_EPOCHS * msteps))
+    log(f"[train] MACE fit_regression {MACE_EPOCHS} epochs (fold [7], "
+        f"{mace_n} graphs, lr {MACE_LR}, cosine): train_time "
+        f"{mres.train_time:.3f} s, test MAE {mres.test:.5f} (the JAX package "
+        f"{MACE_JAX_MAE} +- {MACE_JAX_SD}), best val MAE {mres.best_val:.5f}; "
+        f"launches {mace_train} (want {mace_train_want}; {mfired} test "
+        f"passes) [{card}]")
+    if mace_train != mace_train_want:
+        raise AssertionError(f"MACE training launched {mace_train}, expected "
+                             f"{mace_train_want}")
+    if not (np.isfinite(mres.test) and mres.test < MACE_MAE_MAX):
+        raise AssertionError(f"MACE test MAE {mres.test} is not finite and "
+                             f"below {MACE_MAE_MAX}")
+    del mace_cuda
+    torch.cuda.empty_cache()
+
+    # 6m. the expressivity table on the card
+    t = time.perf_counter()
+    expressivity = expressivity_table(dev, card)
+    expressivity_s = time.perf_counter() - t
+
     # 7. summary
     kernels = [{
         "name": "egnn_message", "ok": True, "route": "cuda",
@@ -2964,6 +3302,9 @@ def main() -> int:
             # fold, K4 their edge -> node sums and pools
             "triplet_launches": {"dimenet": dn_train[name],
                                  "spherenet": sn_train[name]},
+            "mace_launches": {"serve": mace_serve[name],
+                              "train_step": mace_step_launches[name],
+                              "train": mace_train[name]},
             "star_shapes": [r for r in star_segsum
                             if (r["kind"] == "fold") == (name == "sorted_segment_sum")],
             **({"triplet_fold": k3_fold} if name == "sorted_segment_sum"
@@ -2989,7 +3330,12 @@ def main() -> int:
             "groups": [dict(r[direction], K=r["K"], m=r["m"], w=r["w"])
                        for r in k7_groups["hidden"]],
             "bf16_group": k7_bf16[direction],
-            "group_3_grouped": {name: r[direction] for name, r in k7_g3.items()}})
+            "group_3_grouped": {name: r[direction] for name, r in k7_g3.items()},
+            "mace": {"launches": mace_train[name],
+                     "serve_launches": mace_serve[name],
+                     "train_step_launches": mace_step_launches[name],
+                     "layer_0": k7_mace["MACE layer 0"][direction],
+                     "hidden": k7_mace["MACE hidden"][direction]}})
     log(json.dumps({"kernels": kernels, "card": card,
                     "predict_ms": ms, "predict_graphs_per_s": N_GRAPHS / ms * 1e3,
                     "host_batch_ms": host_ms, "train_time_s": res.train_time,
@@ -3024,7 +3370,18 @@ def main() -> int:
                     "spherenet_test_mae": sres.test,
                     "spherenet_best_val_mae": sres.best_val,
                     "dimenet_box_check": dimenet_box_check,
-                    "dimenet_box": dn_box}))
+                    "dimenet_box": dn_box,
+                    "mace_edge_weight_bytes": mace_w_bytes,
+                    "mace_predict_ms": mace_ms,
+                    "mace_serve_err": mace_serve_err,
+                    "mace_step_peak_gb": mace_peak_gb,
+                    "mace_train_check": mace_check,
+                    "mace_train_time_s": mres.train_time,
+                    "mace_train_epochs": MACE_EPOCHS,
+                    "mace_test_mae": mres.test,
+                    "mace_best_val_mae": mres.best_val,
+                    "expressivity": expressivity,
+                    "expressivity_s": expressivity_s}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -35,7 +35,7 @@ import torch
 from .. import datasets as ds
 from ..graph import GraphLoader, pad_sizes, random_split
 from ..triplets import triplet_pad_sizes
-from ..models import EGNNFusedModel, EGNNModel, TFNModel
+from ..models import EGNNFusedModel, EGNNModel, MACEModel, TFNModel
 from .train import fit_regression, seed_everything
 
 BASELINE_TRAIN_TIME_S = 26.0   # the reference implementation's train_time
@@ -73,6 +73,32 @@ def tfn_model(generator: torch.Generator, device="cuda", **kw) -> TFNModel:
     """``TFNModel`` at ``TFN_STAR`` (entries overridden by ``kw``)."""
     return TFNModel(**dict(TFN_STAR, **kw), in_dim=1, out_dim=1,
                     generator=generator, device=device)
+
+
+# MACE's star configuration, the protocol of the JAX package's MACE star
+# number (scripts/validate_accuracy.py: 2 layers, pool "first", 200 epochs;
+# lr 5e-4, cosine, 1500 graphs, fold [7], max_ell 3; the CLI's correlation
+# 3 and batch 100) at the model's default widths (emb_dim 64, mlp_dim 256).
+MACE_STAR = dict(num_layers=2, max_ell=3, correlation=3, emb_dim=64,
+                 mlp_dim=256, pool="first", batch_norm=True, residual=True)
+MACE_N_DATA, MACE_LR, MACE_EPOCHS = 1500, 5e-4, 200
+
+
+def mace_data():
+    """MACE's star data: 1500 star graphs with seven spokes (fold [7]),
+    target max angle, seed 0; split 50/20/30 (seed 0), batch 100."""
+    data = ds.create_star_graphs(num=MACE_N_DATA, fold=[7], dim=3,
+                                 target="max", seed=0)
+    tr, va, te = random_split(data, [0.5, 0.2, 0.3], seed=0)
+    kw = dict(batch_size=BATCH_SIZE, pad=pad_sizes(data, BATCH_SIZE))
+    return data, (GraphLoader(tr, shuffle=True, seed=0, **kw),
+                  GraphLoader(va, **kw), GraphLoader(te, **kw))
+
+
+def mace_model(generator: torch.Generator, device="cuda", **kw) -> MACEModel:
+    """``MACEModel`` at ``MACE_STAR`` (entries overridden by ``kw``)."""
+    return MACEModel(**dict(MACE_STAR, **kw), in_dim=1, out_dim=1,
+                     generator=generator, device=device)
 
 
 # The triplet models' star configurations.  DimeNet++: the JAX CLI's

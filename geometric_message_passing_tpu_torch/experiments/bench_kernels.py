@@ -61,7 +61,8 @@ and K4 took their scan route and in-kernel mask.
 * ``segsum``: every K4 (``sorted_segsum.segment_sum``) and fold
   (``sorted_fold``) call of one train step and one predict batch of each
   star model at its main path's configuration (egnn per layer and whole
-  stack, gvp, tfn, dimenet, spherenet; ``capture_star_shapes``), each
+  stack, gvp, tfn, mace, dimenet, spherenet) and of the expressivity arms'
+  batches (``EXPRESSIVITY_MODELS``; ``capture_star_shapes``), each
   distinct shape once: E, N, D, live rows, the longest segment; the call
   by the profiler (device ms and launches a call, the segment-sum kernels
   apart), by events (whole call) and by the host clock (microseconds a
@@ -782,14 +783,31 @@ class SegsumCapture:
                 setattr(mod, name, fn)
 
 
+# The expressivity arms' batches (the JAX package's behavioral tests'
+# configurations, as ``chip_smoke.py`` phase 6m trains them): each task's
+# two graphs in one batch with integer labels, and the model that reads them.
+EXPRESSIVITY_MODELS = {
+    "mpnn kchains": ("mpnn", dict(num_layers=3, emb_dim=32), "kchains"),
+    "egnn kchains": ("egnn", dict(num_layers=3, emb_dim=32), "kchains"),
+    "schnet two_body": ("schnet", dict(num_layers=1, hidden_channels=32),
+                        "two_body"),
+    "mace three_body": ("mace", dict(num_layers=1, emb_dim=8, max_ell=3,
+                                     correlation=3, mlp_dim=32, pool="sum"),
+                        "three_body")}
+
+
 def star_models(dev) -> dict:
     """Each star model at its main path's configuration with weights from
-    seed 0, and its (train batch, predict batch) on the card."""
+    seed 0, and its (train batch, predict batch) on the card; then each
+    ``EXPRESSIVITY_MODELS`` entry with its one batch (k = 4 chains, the
+    environment pairs) as both."""
+    from geometric_message_passing_tpu_torch import datasets
     from geometric_message_passing_tpu_torch.experiments import (
         bench_throughput as bt)
     from geometric_message_passing_tpu_torch.experiments.bench import (
-        DIMENET_STAR, SPHERENET_STAR, bench_model, tfn_data, tfn_model,
+        DIMENET_STAR, SPHERENET_STAR, bench_model, mace_data, mace_model,
         triplet_star_data)
+    from geometric_message_passing_tpu_torch.models import model_registry
 
     def gen():
         return torch.Generator().manual_seed(0)
@@ -804,24 +822,35 @@ def star_models(dev) -> dict:
            "gvp": (GVPGNNModel(num_layers=4, in_dim=1, out_dim=1,
                                use_pallas=True, device=dev, generator=gen()),
                    batches(egnn_loaders)),
-           "tfn": (tfn_model(gen(), dev), batches(tfn_data()[1]))}
+           "tfn": (tfn_model(gen(), dev), batches(tfn_data()[1])),
+           "mace": (mace_model(gen(), dev), batches(mace_data()[1]))}
     for name, cfg in (("dimenet", DIMENET_STAR), ("spherenet", SPHERENET_STAR)):
         model = bt.build(name, gen(), dev)
         out[name] = (model, batches(triplet_star_data(**cfg)[1]))
+    for label, (name, kw, task) in EXPRESSIVITY_MODELS.items():
+        graphs = (datasets.create_kchains(4) if task == "kchains"
+                  else getattr(datasets, f"create_{task}_envs")())
+        batch = next(iter(GraphLoader(graphs, batch_size=2,
+                                      y_dtype=np.int32))).to(dev)
+        model = model_registry[name](**kw, in_dim=1, out_dim=2,
+                                     generator=gen(), device=dev)
+        out[label] = (model, (batch, batch))
     return out
 
 
 def capture_star_shapes(dev) -> SegsumCapture:
-    """Run one train step (forward and backward, L1-sum loss) and one
-    predict batch (eval, no grad) of every star model under a capture."""
-    from geometric_message_passing_tpu_torch.experiments.train import (
-        l1_sum_loss)
+    """Run one train step (forward and backward; the L1-sum loss, or the
+    cross-entropy for integer labels) and one predict batch (eval, no grad)
+    of every ``star_models`` entry under a capture."""
+    from geometric_message_passing_tpu_torch.experiments.train import LOSSES
     cap = SegsumCapture()
     for name, (model, (train_b, pred_b)) in star_models(dev).items():
+        task = ("regression" if train_b.y.is_floating_point()
+                else "classification")
         with cap.active():
             cap.phase = f"{name} train step"
             model.train()
-            l1_sum_loss(model(train_b), train_b).backward()
+            LOSSES[task](model(train_b), train_b).backward()
             cap.phase = f"{name} predict batch"
             model.eval()
             with torch.no_grad():

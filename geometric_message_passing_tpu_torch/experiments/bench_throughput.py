@@ -8,10 +8,11 @@ Models and depths are the JAX script's ``MODELS`` table; the port builds
 ``schnet``, ``egnn``, ``egnn_fused`` (per-layer kernels K1/K2), ``egnn_stack``
 (``EGNNFusedModel(fuse_stack=True)``, the whole-stack kernel K6), ``gvp`` and
 ``tfn`` (4 layers, max_ell 3 at its default widths: the per-edge CG
-contraction kernel K7 and the segment sum K4), ``dimenet`` (DimeNet++, 4
+contraction kernel K7 and the segment sum K4), ``mace`` (2 layers, max_ell
+3, correlation 3 at its default widths: K7 and K4 in its convolutions, the
+symmetric contraction in PyTorch products), ``dimenet`` (DimeNet++, 4
 layers) and ``spherenet`` (2 layers) at their default widths (the triplet
-fold on K3, the other sums on K4), and runs them all by default.  ``mace``
-is not ported yet: naming it raises.
+fold on K3, the other sums on K4), and runs them all by default.
 
 Data: 100 star graphs (fold 5/6/7, target max angle, seed 0) as one padded
 batch of 100 on the card, with its triplets for ``dimenet`` and its triplets
@@ -25,6 +26,10 @@ calls on the host clock.  The JAX script scans its 100 steps inside one
 device program; the port runs them as eager steps, so its number includes
 the host's launches and is not comparable with the JAX script's TPU
 numbers.
+
+``--output-layer`` instead times a model's output layer alone
+(``output_layer_cost``): ``nn.basic.OutputLinear`` against
+``torch.nn.Linear`` at the batch's pooled shape.
 
 Prints one JSON line per model with the JAX script's keys (``model``,
 ``num_layers``, ``edges_per_batch``, ``steps_per_sec``,
@@ -45,6 +50,7 @@ import torch
 from .. import datasets as ds
 from ..graph import GraphBatch, GraphLoader, pad_sizes
 from ..models import EGNNFusedModel, model_registry
+from ..nn.basic import OutputLinear, linear
 from .bench import card_line
 from .train import l1_sum_loss, make_tx, seed_everything
 
@@ -60,21 +66,16 @@ MODELS = {
     "dimenet": dict(num_layers=4),
     "spherenet": dict(num_layers=2),
 }
-PORTED = ("schnet", "egnn", "egnn_fused", "egnn_stack", "gvp", "tfn",
-          "dimenet", "spherenet")
 TRIPLETS = {"dimenet": False, "spherenet": True}   # name -> with quads
 STEPS, REPS, WARM, LR = 100, 3, 2, 5e-4
 
 
 def check_names(names) -> None:
-    """Raise on a name outside the table or not ported yet."""
+    """Raise on a name outside the table."""
     for name in names:
         if name not in MODELS:
             raise ValueError(f"unknown model {name!r}; the table has "
                              f"{sorted(MODELS)}")
-        if name not in PORTED:
-            raise NotImplementedError(f"{name!r} is not ported yet; ported: "
-                                      f"{', '.join(PORTED)}")
 
 
 def build(name: str, generator: torch.Generator, device="cuda"):
@@ -145,14 +146,61 @@ def bench_one(name: str, batch: GraphBatch, steps: int = STEPS,
             "device": card_line()}
 
 
+def output_layer_cost(rows: int = 100, width: int = 128, out: int = 1,
+                      iters: int = 2000) -> dict:
+    """A model's output layer alone, forward and backward (``y.sum()``'s
+    gradient into the input and the parameters) on the card at ``[rows,
+    width] -> out`` (the star batch's 100 pooled graphs, 128 wide):
+    ``OutputLinear`` (W^T copied, one ``addmm``) against ``torch.nn.Linear``
+    (``F.linear``).  Host microseconds a call over ``iters`` calls ending
+    in a synchronize, in the order Linear, OutputLinear, OutputLinear,
+    Linear; device kernels and ms a call by the profiler."""
+    from .bench_kernels import kernel_launches
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(rows, width, generator=gen).cuda().requires_grad_()
+    layers = {cls.__name__: linear(width, out, torch.Generator().manual_seed(1),
+                                   cls).cuda()
+              for cls in (torch.nn.Linear, OutputLinear)}
+
+    def call(layer):
+        layer(x).sum().backward()
+
+    def host_us(layer) -> float:
+        for _ in range(20):
+            call(layer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call(layer)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    res = {name: {"host_us": []} for name in layers}
+    for name in ("Linear", "OutputLinear", "OutputLinear", "Linear"):
+        res[name]["host_us"].append(host_us(layers[name]))
+    for name, layer in layers.items():
+        split = kernel_launches(lambda layer=layer: call(layer), 50)
+        res[name].update(device_ms=sum(v["ms"] for v in split.values()),
+                         kernels=sum(v["launches"] for v in split.values()),
+                         split=split)
+    return dict(res, shape=[rows, width, out], iters=iters,
+                device=card_line())
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("models", nargs="*", default=list(PORTED))
+    ap.add_argument("models", nargs="*", default=list(MODELS))
+    ap.add_argument("--output-layer", action="store_true",
+                    help="time the output layer alone (output_layer_cost)")
     args = ap.parse_args(argv)
     check_names(args.models)
     if not torch.cuda.is_available():
         raise SystemExit("bench_throughput: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.output_layer:
+        res = output_layer_cost()
+        print(json.dumps(res), flush=True)
+        return [res]
     batches = {}
     rows = []
     for name in args.models:

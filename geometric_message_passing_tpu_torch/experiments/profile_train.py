@@ -2,13 +2,15 @@
 CUDA card.
 
     python -m geometric_message_passing_tpu_torch.experiments.profile_train \
-        [--fuse-stack | --tfn | --dimenet]
+        [--fuse-stack | --tfn | --mace | --dimenet]
 
 Trains the bench configuration (EGNN 4 layers x 128, pool "first", 1400
 star graphs split 50/20/30, batch 100, lr 5e-4; see ``experiments/bench.py``;
 ``--fuse-stack`` runs its whole-stack strategy, K6, in place of the
 per-layer kernels K1/K2; ``--tfn`` trains TFN's star configuration instead,
-``bench.TFN_STAR`` on ``bench.tfn_data``; ``--dimenet`` DimeNet++'s star
+``bench.TFN_STAR`` on ``bench.tfn_data``; ``--mace`` MACE's,
+``bench.MACE_STAR`` on ``bench.mace_data`` (lr 5e-4, 8 train steps an
+epoch); ``--dimenet`` DimeNet++'s star
 configuration, ``bench.DIMENET_STAR`` on ``bench.triplet_star_data``: 4
 layers at the default widths, fold [7], 1000 graphs, lr 1e-4, 5 train
 steps an epoch) through ``fit_regression`` for a few warm epochs,
@@ -26,7 +28,12 @@ its best-val rule fires on a first epoch, the test pass) with
   * the top kernels by device time, with launch counts;
   * one train step on the first train batch (``train_step``): the mean
     wall time of 20 untraced steps, each ending in a synchronise, and the
-    device time and idle share of 5 traced steps.
+    device time and idle share of 5 traced steps;
+  * with ``--mace``, the parts no kernel name tells apart, each run alone
+    forward and backward on its inputs of that step (captured by forward
+    hooks) and traced: per layer the symmetric contraction and the edge
+    MLP's weight heads (``fc`` and ``fc_out``), device ms and share of the
+    step's device time.
 The last line is one JSON object of these numbers with the card's name and
 power limit.  It needs a card and raises without one.
 """
@@ -43,10 +50,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..graph import build_slot_data
+from ..graph import assemble_batch, build_slot_data
 from ..models import DimeNetPPModel
-from .bench import (BATCH_SIZE, DIMENET_STAR, LR, bench_data, bench_model,
-                    card_line, tfn_data, tfn_model, triplet_star_data)
+from .bench import (BATCH_SIZE, DIMENET_STAR, LR, MACE_LR, bench_data,
+                    bench_model, card_line, mace_data, mace_model, tfn_data,
+                    tfn_model, triplet_star_data)
 from .train import fit_regression, make_tx, seed_everything, train_step
 
 # kernel-name fragments of each group, checked in this order
@@ -116,6 +124,52 @@ def step_reading(model, loaders, steps: int = 20, traced: int = 5,
             "device_events": sum(r[1] for r in rows) / traced}
 
 
+def part_device_ms(fn, iters: int = 10) -> float:
+    """Device ms of one call of ``fn`` (3 warm calls, then ``iters`` traced
+    ones)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof)) / 1e3 / iters
+
+
+def mace_parts(model, loaders) -> dict:
+    """Device ms, forward and backward, of each layer's symmetric
+    contraction and weight heads on their inputs of a train-mode forward of
+    the first ``BATCH_SIZE`` training graphs (a copy of ``model``)."""
+    work = copy.deepcopy(model).train()
+    slot = build_slot_data(loaders[0].graphs, device="cuda")
+    batch = assemble_batch(slot, torch.arange(BATCH_SIZE, device="cuda"))
+    seen = {}
+    hooks = []
+    for i, (conv, prod) in enumerate(zip(work.convs, work.prods)):
+        hooks.append(prod.symmetric_contraction.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(("sc", i), inp[0])))
+        hooks.append(conv.fc.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(("fc", i), inp[0])))
+    with torch.no_grad():
+        work(batch)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for i, (conv, prod) in enumerate(zip(work.convs, work.prods)):
+        x = seen[("sc", i)].detach().requires_grad_()
+        sc = prod.symmetric_contraction
+        g = torch.randn_like(sc(x))
+        out[f"symmetric_contraction_{i}"] = part_device_ms(
+            lambda: torch.autograd.backward(sc(x), g))
+        ef = seen[("fc", i)].detach()
+        gs = [torch.randn_like(w) for w in conv.heads(ef)]
+        out[f"heads_{i}"] = part_device_ms(
+            lambda: torch.autograd.backward(conv.heads(ef), gs))
+    return out
+
+
 def main(argv=None, warm_epochs: int = 3) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = ap.add_mutually_exclusive_group()
@@ -123,6 +177,8 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
                        help="the whole-stack strategy (K6)")
     which.add_argument("--tfn", action="store_true",
                        help="TFN's star configuration (K7)")
+    which.add_argument("--mace", action="store_true",
+                       help="MACE's star configuration (K7, K4)")
     which.add_argument("--dimenet", action="store_true",
                        help="DimeNet++'s star configuration (K3 fold, K4)")
     args = ap.parse_args(argv)
@@ -133,6 +189,10 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
     if args.tfn:
         _, loaders = tfn_data()
         model = tfn_model(seed_everything(0))
+    elif args.mace:
+        _, loaders = mace_data()
+        model = mace_model(seed_everything(0))
+        lr = MACE_LR
     elif args.dimenet:
         _, loaders = triplet_star_data(**DIMENET_STAR)
         model = DimeNetPPModel(num_layers=DIMENET_STAR["num_layers"],
@@ -173,9 +233,13 @@ def main(argv=None, warm_epochs: int = 3) -> dict:
     print(f"one train step: {step['step_ms']:.3f} ms untraced (mean of 20), "
           f"device {step['device_ms']:.3f} ms, idle share "
           f"{step['idle_share']:.3f}, {step['device_events']:.0f} device events")
+    parts = mace_parts(model, loaders) if args.mace else {}
+    for name, ms in parts.items():
+        print(f"  {name}: {ms:.3f} device ms forward and backward, "
+              f"{ms / step['device_ms']:.1%} of the step's device time")
     res = {
         "card": card_line(), "fuse_stack": args.fuse_stack, "tfn": args.tfn,
-        "dimenet": args.dimenet,
+        "mace": args.mace, "dimenet": args.dimenet, "mace_parts_ms": parts,
         "epoch_ms_untraced": epoch_ms,
         "idle_share_untraced": 1 - device_ms / epoch_ms,
         "traced_wall_ms": traced_wall_ms, "device_ms": device_ms,

@@ -1,6 +1,6 @@
-"""Regression training over a device-resident dataset (port of the JAX
-package's ``experiments/train.py``: ``fit_regression`` -> ``fit_resident``,
-the single-device path).
+"""Training over a device-resident dataset (port of the JAX package's
+``experiments/train.py``: ``fit_regression`` and ``fit_classification`` ->
+``fit_resident``, the single-device path, and the two repeat protocols).
 
 The JAX engine runs a whole experiment as one jit-compiled scan.  The port
 runs the same protocol eagerly, epoch by epoch, with the data on the device
@@ -11,19 +11,23 @@ in slot layout (``graph.SlotData``):
     the last batch with the sentinel index M and assembles every batch on
     the device (``graph.assemble_batch``), with its triplets (and quads)
     when the loaders carry them (DimeNet++, SphereNet);
-  * a train step is the L1-sum loss, ``backward`` (through the EGNN kernels'
-    autograd function) and an Adam step;
+  * a train step is the task's loss (regression: the L1 sum; classification:
+    the mean cross-entropy over real graphs), ``backward`` and an Adam step;
   * the learning rate is set from the plateau scheduler (or, with
     ``cosine``, from the cosine schedule) before the epoch's steps; after
-    them the validation MAE is read to the host (one read per epoch) and the
-    test set is evaluated only when validation is at least as good as the
-    best so far: the JAX package's best-val rule.
+    them the validation metric (MAE, or accuracy in percent) is read to the
+    host (one read per epoch) and the test set is evaluated only when
+    validation is at least as good as the best so far: the JAX package's
+    best-val rule (``<=`` from +inf for regression, ``>=`` from -inf for
+    classification).
 
-Protocol quirks kept from the JAX package (and its reference): losses are
-sums over the batch, metrics sum / num_examples, the plateau scheduler runs
-in ``mode='max'`` on the validation MAE, and regression re-instantiates the
-model every repeat.  The JAX engine's checkpointing, NaN recovery, ``mesh=``
-and ``loss_mask`` are not ported yet and raise ``NotImplementedError``.
+Protocol quirks kept from the JAX package (and its reference): regression
+losses are sums over the batch, metrics sum / num_examples, the plateau
+scheduler runs in ``mode='max'`` on the validation metric, regression
+re-instantiates the model every repeat and classification carries the
+trained parameters from one repeat into the next.  The JAX engine's
+checkpointing, NaN recovery, ``mesh=`` and ``loss_mask`` are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,29 @@ def l1_sum_loss(pred: torch.Tensor, batch: GraphBatch,
     if mask_cols is not None:
         pred, y = pred[:, :mask_cols], y[:, :mask_cols]
     return ((pred - y).abs() * batch.graph_mask[:, None]).sum()
+
+
+def cross_entropy_mean_loss(pred: torch.Tensor,
+                            batch: GraphBatch) -> torch.Tensor:
+    """Mean cross-entropy of the logits ``pred`` against the integer labels
+    ``batch.y`` over the real graphs (pad graphs weigh 0)."""
+    labels = batch.y.reshape(-1).long()
+    logp = torch.log_softmax(pred, dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0] * batch.graph_mask
+    return nll.sum() / torch.clamp_min(batch.graph_mask.sum(), 1)
+
+
+def accuracy_count(pred: torch.Tensor, batch: GraphBatch) -> tuple:
+    """``(correct, real)``: how many real graphs the logits ``pred``
+    classify right (argmax, first of equal maxima) and how many real graphs
+    the batch holds, as device integers."""
+    labels = batch.y.reshape(-1).long()
+    correct = (torch.argmax(pred, dim=-1) == labels) & batch.graph_mask
+    return correct.sum(), batch.graph_mask.sum()
+
+
+LOSSES = {"regression": l1_sum_loss,
+          "classification": cross_entropy_mean_loss}
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +165,12 @@ def reseed_dropout(model: torch.nn.Module, seed: int) -> None:
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
-               slot: SlotData, idx_row: torch.Tensor) -> torch.Tensor:
-    """One optimizer step on the batch of graphs ``idx_row``; returns the
-    loss as a device scalar (no host read)."""
+               slot: SlotData, idx_row: torch.Tensor,
+               task: str = "regression") -> torch.Tensor:
+    """One optimizer step on the batch of graphs ``idx_row`` under the
+    ``task``'s loss; returns the loss as a device scalar (no host read)."""
     batch = assemble_batch(slot, idx_row)
-    loss = l1_sum_loss(model(batch), batch)
+    loss = LOSSES[task](model(batch), batch)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     opt.step()
@@ -151,14 +179,22 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
 
 @torch.no_grad()
 def eval_metric(model: torch.nn.Module, slot: SlotData, plan: torch.Tensor,
-                num_examples: int) -> torch.Tensor:
-    """Summed L1 over the rows of ``plan`` divided by ``num_examples``, as a
-    device scalar (forward only)."""
+                num_examples: int, task: str = "regression") -> torch.Tensor:
+    """Over the rows of ``plan``, as a device scalar (forward only): the
+    summed L1 divided by ``num_examples`` (regression), or the count of
+    right answers divided by ``num_examples`` times 100 (classification),
+    in float32."""
     total = torch.zeros((), dtype=torch.float32, device=plan.device)
     for idx_row in plan:
         batch = assemble_batch(slot, idx_row)
-        total = total + l1_sum_loss(model(batch), batch)
-    return total / num_examples
+        pred = model(batch)
+        if task == "regression":
+            total = total + l1_sum_loss(pred, batch)
+        else:
+            total = total + accuracy_count(pred, batch)[0].to(torch.float32)
+    if task == "regression":
+        return total / num_examples
+    return total / num_examples * 100.0
 
 
 def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
@@ -172,8 +208,10 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
                  epoch_order: Optional[Callable[[int], torch.Tensor]] = None,
                  ) -> FitResult:
     """Train ``model`` in place for ``n_epochs`` over device-resident slot
-    copies of the three loaders' graphs.  The model's parameters must be on
-    ``device`` (default ``"cuda"``; raises without CUDA).
+    copies of the three loaders' graphs; ``task`` is ``"regression"`` or
+    ``"classification"`` (integer labels: loaders with
+    ``y_dtype=np.int32``).  The model's parameters must be on ``device``
+    (default ``"cuda"``; raises without CUDA).
 
     ``epoch_order(epoch) -> LongTensor[m]`` replaces the epoch's shuffle of
     the m training graphs.  It is a test seam, not a feature: the tests feed
@@ -182,8 +220,8 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     Matrix products outside the kernels (the update MLP, the readout) run
     in full float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay
     False, its default; this raises otherwise."""
-    if task != "regression":
-        raise NotImplementedError("classification is not ported yet")
+    if task not in LOSSES:
+        raise ValueError(f"task must be one of {sorted(LOSSES)}, got {task!r}")
     if checkpoint_dir or checkpoint_every or nan_recovery:
         raise NotImplementedError(
             "checkpointing and NaN recovery are not ported yet")
@@ -208,7 +246,8 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
 
     opt = make_tx(model.parameters(), lr)
     sched = plateau_init(lr)
-    best_val = np.float32(np.inf)
+    regression = task == "regression"
+    best_val = np.float32(np.inf if regression else -np.inf)
     test_metric = torch.zeros((), dtype=torch.float32, device=dev)
     tests: List[torch.Tensor] = []
     vals: List[np.float32] = []
@@ -224,16 +263,17 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
         slots = torch.cat([perm.to(device=dev, dtype=torch.long),
                            pad_row]).reshape(steps, b)
         model.train()
-        step_losses = [train_step(model, opt, slot_train, row)
+        step_losses = [train_step(model, opt, slot_train, row, task)
                        for row in slots]
         model.eval()
-        val = eval_metric(model, slot_val, val_plan, val_loader.num_examples)
+        val = eval_metric(model, slot_val, val_plan, val_loader.num_examples,
+                          task)
         read = torch.cat([val[None], torch.stack(step_losses)]).tolist()
         val_f = np.float32(read[0])     # the epoch's one host read
         losses.append(read[1:])
-        if val_f <= best_val:
+        if (val_f <= best_val) if regression else (val_f >= best_val):
             test_metric = eval_metric(model, slot_test, test_plan,
-                                      test_loader.num_examples)
+                                      test_loader.num_examples, task)
             best_val = val_f
         if not cosine:
             sched = plateau_update(sched, val_f, plateau)
@@ -250,6 +290,16 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
         variables={k: v.detach().clone() for k, v in model.state_dict().items()},
         train_losses=np.asarray(losses, np.float32).reshape(n_epochs, steps),
     )
+
+
+def _working_copy(model: torch.nn.Module, variables,
+                  dev: torch.device) -> torch.nn.Module:
+    """A copy of ``model`` on ``dev`` loaded with ``variables`` (a state
+    dict, buffers included; None keeps the model's own)."""
+    work = copy.deepcopy(model).to(dev)
+    if variables is not None:
+        work.load_state_dict(variables, strict=True)
+    return work
 
 
 def fit_regression(model: torch.nn.Module, variables, train_loader,
@@ -270,9 +320,7 @@ def fit_regression(model: torch.nn.Module, variables, train_loader,
     if loss_mask:
         raise NotImplementedError("loss_mask is not ported yet")
     dev = resolve_device(device)
-    work = copy.deepcopy(model).to(dev)
-    if variables is not None:
-        work.load_state_dict(variables, strict=True)
+    work = _working_copy(model, variables, dev)
     plateau = PlateauConfig(mode="max", factor=0.9, patience=15, min_lr=1e-4)
     return fit_resident(work, train_loader, val_loader, test_loader,
                         n_epochs=n_epochs, lr=lr, cosine=cosine,
@@ -281,6 +329,55 @@ def fit_regression(model: torch.nn.Module, variables, train_loader,
                         checkpoint_every=checkpoint_every,
                         nan_recovery=nan_recovery, device=dev,
                         epoch_order=epoch_order)
+
+
+def fit_classification(model: torch.nn.Module, variables, train_loader,
+                       val_loader, test_loader, n_epochs: int = 100,
+                       lr: float = 1e-4, seed: int = 0, device=None,
+                       epoch_order=None) -> FitResult:
+    """Classification protocol: Adam at ``lr``, plateau scheduler in mode
+    'max' on the validation accuracy (factor 0.9, patience 25, min_lr
+    1e-5), no cosine; mean cross-entropy loss, accuracy in percent,
+    best-val test rule ``>=``.  Like ``fit_regression`` it trains a copy
+    of ``model`` loaded with ``variables`` and leaves ``model`` untouched.
+    The loaders carry integer labels (``y_dtype=np.int32``)."""
+    dev = resolve_device(device)
+    work = _working_copy(model, variables, dev)
+    plateau = PlateauConfig(mode="max", factor=0.9, patience=25, min_lr=1e-5)
+    return fit_resident(work, train_loader, val_loader, test_loader,
+                        n_epochs=n_epochs, lr=lr, task="classification",
+                        cosine=False, plateau=plateau, seed=seed, device=dev,
+                        epoch_order=epoch_order)
+
+
+def run_experiment(model: torch.nn.Module, train_loader, val_loader,
+                   test_loader, n_epochs: int = 100, n_times: int = 10,
+                   verbose: bool = False, lr: float = 1e-4, device=None):
+    """Classification repeat protocol: the same parameters go on training
+    across repeats (the reference's quirk).  Repeat ``idx`` calls
+    ``seed_everything(idx)`` and fits with
+    ``seed=idx`` and a fresh Adam, starting from the previous repeat's
+    trained state (parameters and batch-norm statistics).  The first
+    repeat starts from ``model``'s own weights: a port model draws them
+    when it is built (build it with ``generator=seed_everything(0)`` for
+    the JAX protocol's initialisation).  Returns (best_vals, test_accs,
+    times)."""
+    dev = resolve_device(device)
+    variables = None
+    best_val, test_acc, times = [], [], []
+    for idx in range(n_times):
+        seed_everything(idx)
+        res = fit_classification(model, variables, train_loader, val_loader,
+                                 test_loader, n_epochs=n_epochs, lr=lr,
+                                 seed=idx, device=dev)
+        variables = res.variables
+        best_val.append(res.best_val)
+        test_acc.append(res.test)
+        times.append(res.train_time)
+        if verbose:
+            print(f"run {idx}: best val {res.best_val:.3f} "
+                  f"test {res.test:.3f} ({res.train_time:.2f}s)")
+    return best_val, test_acc, times
 
 
 def run_experiment_reg(model_func, model_args, train_loader, val_loader,

@@ -5,8 +5,10 @@ models as constants.
 The port keeps its own copy, as it imports nothing of the JAX package:
 ``Irrep``/``Irreps``, the real-basis Wigner 3j tensors, the Wigner D
 matrices of real irreps (for the equivariance tests) and the fully connected
-tensor product's path table (``tp_paths``).  MACE's 'uvu' paths, the
-generalised CG (U) matrices and their disk cache wait for the MACE slice.
+tensor product's path table (``tp_paths``) and the generalised CG (U)
+matrices of MACE's symmetric contraction (``u_matrix_real``) with their
+opt-in disk cache (``set_disk_cache``).  MACE's 'uvu' paths
+(``tp_paths_uvu``) wait for the force-field slice.
 
 Conventions, as in the JAX package:
   * Real irreps of O(3) indexed by (l, p) with p in {+1, -1}, written "0e", "1o", ...
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+import tempfile
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Iterator, List, Sequence, Tuple, Union
@@ -32,8 +36,10 @@ __all__ = [
     "TPPath",
     "irrep_rep",
     "irreps_rep",
+    "set_disk_cache",
     "sh_basis_change_matrix",
     "tp_paths",
+    "u_matrix_real",
     "wigner_3j",
     "wigner_D_from_matrix",
 ]
@@ -396,3 +402,107 @@ def tp_paths(in1: Irreps, in2: Irreps, out: Irreps) -> List[TPPath]:
         alpha = math.sqrt(ir_o.dim / fan_in[io])
         paths.append(TPPath(i1, i2, io, mul1, mul2, mul_o, ir1, ir2, ir_o, alpha))
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Generalized coupling (U tensors) for the MACE symmetric contraction
+# ---------------------------------------------------------------------------
+
+
+def _wigner_nj(irreps_list: List[Irreps]) -> List[Tuple[Irrep, np.ndarray]]:
+    """Recursive n-fold coupling of a list of Irreps into generalized Wigner
+    tensors; returns ``[(ir_out, E)]`` with E of shape
+    ``[ir_out.dim, d1, d2, ..., dn]``, sorted by (l, -p).
+
+    Component normalization: each recursion step multiplies the unit-norm
+    3j tensor by sqrt(ir_out.dim)."""
+    if len(irreps_list) == 1:
+        (irreps,) = irreps_list
+        ret = []
+        e = np.eye(irreps.dim)
+        i = 0
+        for mul, ir in irreps:
+            for _ in range(mul):
+                ret.append((ir, e[i:i + ir.dim]))
+                i += ir.dim
+        return ret
+
+    *left_list, right = irreps_list
+    ret = []
+    for ir_left, C_left in _wigner_nj(left_list):
+        i = 0
+        for mul, ir in right:
+            for ir_out in ir_left * ir:
+                C = wigner_3j(ir_out.l, ir_left.l, ir.l) * math.sqrt(ir_out.dim)
+                # C[m_out, m_left, m] ; C_left[m_left, d1..dk]
+                C_full = np.einsum("oLm,L...->o...m", C, C_left)
+                # the last factor spread over the full right-irreps dimension
+                for u in range(mul):
+                    E = np.zeros((ir_out.dim,) + C_left.shape[1:] + (right.dim,))
+                    sl = slice(i + u * ir.dim, i + (u + 1) * ir.dim)
+                    E[..., sl] = C_full
+                    ret.append((ir_out, E))
+            i += mul * ir.dim
+    return sorted(ret, key=lambda x: (x[0].l, -x[0].p))
+
+
+_DISK_CACHE_DIR = None
+
+
+def set_disk_cache(path: str) -> None:
+    """Keep the U matrices as ``.npy`` files under ``path`` (created if
+    missing) and read them from there: opt-in, off by default.  Writes go
+    through a temporary file and an atomic rename, so processes may share
+    the directory."""
+    global _DISK_CACHE_DIR
+    os.makedirs(path, exist_ok=True)
+    _DISK_CACHE_DIR = path
+
+
+def _disk_cache_load(key: str):
+    if _DISK_CACHE_DIR is None:
+        return None
+    f = os.path.join(_DISK_CACHE_DIR, f"{key}.npy")
+    return np.load(f) if os.path.exists(f) else None
+
+
+def _disk_cache_store(key: str, arr: np.ndarray) -> None:
+    if _DISK_CACHE_DIR is None:
+        return
+    fd, tmp = tempfile.mkstemp(dir=_DISK_CACHE_DIR, suffix=".npy")
+    with os.fdopen(fd, "wb") as fh:
+        np.save(fh, arr)
+    os.replace(tmp, os.path.join(_DISK_CACHE_DIR, f"{key}.npy"))
+
+
+@functools.lru_cache(maxsize=None)
+def _u_matrix_cached(irreps_in_str: str, ir_out_str: str,
+                     correlation: int) -> np.ndarray:
+    key = (f"U_{irreps_in_str}_{ir_out_str}_{correlation}"
+           .replace("+", "_").replace("x", ""))
+    hit = _disk_cache_load(key)
+    if hit is not None:
+        return hit
+    irreps_in = Irreps(irreps_in_str)
+    ir_out = Irrep.parse(ir_out_str)
+    coupled = _wigner_nj([irreps_in] * correlation)
+    stack = [E for ir, E in coupled if ir == ir_out]
+    if not stack:
+        U = np.zeros((ir_out.dim,) + (irreps_in.dim,) * correlation + (0,))
+    else:
+        U = np.stack(stack, axis=-1)  # [ir_out.dim, d^corr ..., n_paths]
+    if ir_out.dim == 1:
+        U = U[0]  # scalar output: the d_out axis omitted
+    U = np.ascontiguousarray(U)
+    _disk_cache_store(key, U)
+    return U
+
+
+def u_matrix_real(irreps_in: Irreps, ir_out: Irrep,
+                  correlation: int) -> np.ndarray:
+    """The U tensor of the generalized CG paths that couple ``correlation``
+    copies of ``irreps_in`` (one channel each) to ``ir_out``: shape
+    ``[ir_out.dim (omitted when 1), d, ..., d, n_paths]`` with d =
+    ``irreps_in.dim``, float64, cached per process (one array shared by
+    every caller: do not write to it)."""
+    return _u_matrix_cached(str(irreps_in), str(ir_out), correlation)

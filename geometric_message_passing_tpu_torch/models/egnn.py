@@ -1,5 +1,6 @@
-"""E(n)-equivariant GNN (port of ``models/egnn.py``: ``EGNNLayer`` and
-``EGNNModel``; the MPNN baseline is not ported yet).
+"""E(n)-equivariant GNN and the positions-blind MPNN baseline (port of
+``models/egnn.py``: ``EGNNLayer``, ``EGNNModel``, ``MPNNLayer``,
+``MPNNModel``).
 
 Two paths through a layer, as in the JAX package:
 
@@ -11,7 +12,9 @@ Two paths through a layer, as in the JAX package:
 
 Module names follow the flax tree (``emb_in``, ``convs[i]`` for ``conv_i``
 with ``mlp_msg``/``mlp_pos``/``mlp_upd``, ``dense_0``/``dense_1`` or
-``pred``), so ``weights.egnn_from_jax`` carries a JAX model's values over.
+``pred``), so ``weights.egnn_from_jax`` and ``weights.mpnn_from_jax`` carry
+a JAX model's values over.  The MPNN's sums are ``ops.scatter.segment_sum``
+(K4 on the card).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphBatch
-from ..nn.basic import MLP, Embedding, linear
+from ..nn.basic import Embedding, MLP, OutputLinear, linear
 from ..ops.norms import safe_norm
 from ..ops.scatter import segment_max, segment_mean, segment_sum
 from ..ops.sorted_segsum import SegmentPlan, sorted_gather, sorted_segment_sum
@@ -123,10 +126,10 @@ class EGNNModel(nn.Module):
             EGNNLayer(emb_dim, activation, norm, aggr, generator=generator)
             for _ in range(num_layers))
         if equivariant_pred:
-            self.pred = linear(emb_dim + 3, out_dim, generator)
+            self.pred = linear(emb_dim + 3, out_dim, generator, OutputLinear)
         else:
             self.dense_0 = linear(emb_dim, emb_dim, generator)
-            self.dense_1 = linear(emb_dim, out_dim, generator)
+            self.dense_1 = linear(emb_dim, out_dim, generator, OutputLinear)
         self.to(dev)
 
     def forward(self, batch: GraphBatch,
@@ -142,3 +145,68 @@ class EGNNModel(nn.Module):
         if self.equivariant_pred:
             return self.pred(pool(torch.cat([h, pos], dim=-1), batch))
         return self.dense_1(torch.relu(self.dense_0(pool(h, batch))))
+
+
+class MPNNLayer(nn.Module):
+    """One MPNN layer: message ``MLP([h_i, h_j])`` (i the receiver),
+    ``aggr`` of the messages at each receiver, update
+    ``MLP([h, m_agg])``."""
+
+    def __init__(self, emb_dim: int, activation: str = "relu",
+                 norm: Optional[str] = "layer", aggr: str = "add", *,
+                 generator: torch.Generator):
+        super().__init__()
+        if aggr not in _AGGR:
+            raise ValueError(f"aggr must be one of {sorted(_AGGR)}, got {aggr!r}")
+        d = emb_dim
+        self.aggr = aggr
+        self.mlp_msg = MLP(2 * d, (d, d), activation, norm, generator=generator)
+        self.mlp_upd = MLP(2 * d, (d, d), activation, norm, generator=generator)
+
+    def forward(self, h: torch.Tensor, senders: torch.Tensor,
+                receivers: torch.Tensor, edge_mask: torch.Tensor
+                ) -> torch.Tensor:
+        msg = self.mlp_msg(torch.cat([h[receivers], h[senders]], dim=-1))
+        msg_aggr = _AGGR[self.aggr](msg, receivers, h.shape[0], mask=edge_mask)
+        return self.mlp_upd(torch.cat([h, msg_aggr], dim=-1))
+
+
+class MPNNModel(nn.Module):
+    """The positions-blind MPNN with the JAX package's constructor surface
+    (and defaults); ``forward(batch)`` returns ``[num_graphs, out_dim]``
+    through the pool and Linear-ReLU-Linear.
+
+    Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
+    None), then moved to ``device`` (default ``"cuda"``, which raises when
+    CUDA is absent)."""
+
+    def __init__(self, num_layers: int = 4, emb_dim: int = 64,
+                 in_dim: int = 1, out_dim: int = 1, activation: str = "relu",
+                 norm: Optional[str] = "layer", aggr: str = "sum",
+                 pool: str = "sum", residual: bool = True, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        if pool not in POOL:
+            raise ValueError(f"pool must be one of {sorted(POOL)}, got {pool!r}")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.num_layers, self.emb_dim, self.out_dim = num_layers, emb_dim, out_dim
+        self.pool, self.residual = pool, residual
+        self.emb_in = Embedding(in_dim, emb_dim)
+        with torch.no_grad():
+            self.emb_in.weight.normal_(0.0, 1.0, generator=generator)
+        self.convs = nn.ModuleList(
+            MPNNLayer(emb_dim, activation, norm, aggr, generator=generator)
+            for _ in range(num_layers))
+        self.dense_0 = linear(emb_dim, emb_dim, generator)
+        self.dense_1 = linear(emb_dim, out_dim, generator, OutputLinear)
+        self.to(dev)
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        h = self.emb_in(batch.atoms)
+        for conv in self.convs:
+            h_update = conv(h, batch.senders, batch.receivers, batch.edge_mask)
+            h = h + h_update if self.residual else h_update
+        out = POOL[self.pool](h, batch)
+        return self.dense_1(torch.relu(self.dense_0(out)))

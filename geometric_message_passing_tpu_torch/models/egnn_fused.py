@@ -25,7 +25,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..graph import GraphBatch
-from ..nn.basic import Embedding, linear, torch_linear_init_
+from ..nn.basic import Embedding, OutputLinear, linear, torch_linear_init_
 from ..ops.edge import egnn_message, layernorm, pack_egnn_weights
 from ..ops.egnn_stack import egnn_stack
 from .pooling import POOL
@@ -142,10 +142,10 @@ class EGNNFusedModel(nn.Module):
         self.convs = nn.ModuleList(
             FusedEGNNLayer(emb_dim, generator) for _ in range(num_layers))
         if equivariant_pred:
-            self.pred = linear(emb_dim + 3, out_dim, generator)
+            self.pred = linear(emb_dim + 3, out_dim, generator, OutputLinear)
         else:
             self.dense_0 = linear(emb_dim, emb_dim, generator)
-            self.dense_1 = linear(emb_dim, out_dim, generator)
+            self.dense_1 = linear(emb_dim, out_dim, generator, OutputLinear)
         self.to(dev)
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..graph import GraphBatch
 from ..nn import gvp
-from ..nn.basic import Embedding, linear, torch_linear_init_
+from ..nn.basic import Embedding, OutputLinear, linear, torch_linear_init_
 from ..ops.gvp_message import gvp_message, gvp_message_plain
 from ..ops.norms import safe_norm
 from ..ops.radial import radial_embedding
@@ -293,10 +293,11 @@ class GVPGNNModel(nn.Module):
                          remat=remat, generator=generator)
             for _ in range(num_layers))
         if equivariant_pred:
-            self.pred = linear(s_dim + 3 * v_dim, out_dim, generator)
+            self.pred = linear(s_dim + 3 * v_dim, out_dim, generator,
+                               OutputLinear)
         else:
             self.dense_0 = linear(s_dim, s_dim, generator)
-            self.dense_1 = linear(s_dim, out_dim, generator)
+            self.dense_1 = linear(s_dim, out_dim, generator, OutputLinear)
         self.to(dev)
 
     def embed_edges(self, batch: GraphBatch):

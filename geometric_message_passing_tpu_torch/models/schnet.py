@@ -25,7 +25,7 @@ from torch.nn import functional as F
 
 from .. import resolve_device
 from ..graph import GraphBatch
-from ..nn.basic import Embedding
+from ..nn.basic import Embedding, OutputLinear
 from ..ops.norms import safe_norm
 from ..ops.radial import gaussian_smearing
 from ..ops.scatter import segment_sum
@@ -38,10 +38,12 @@ def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _xavier_linear(in_features: int, out_features: int,
-                   generator: torch.Generator, bias: bool = True) -> nn.Linear:
-    """A Linear with a Glorot-uniform weight from ``generator`` and a zero
-    bias (PyG SchNet's ``reset_parameters``)."""
-    layer = nn.Linear(in_features, out_features, bias=bias)
+                   generator: torch.Generator, bias: bool = True,
+                   cls=nn.Linear) -> nn.Linear:
+    """A ``cls`` (``nn.Linear`` or ``OutputLinear``) with a Glorot-uniform
+    weight from ``generator`` and a zero bias (PyG SchNet's
+    ``reset_parameters``)."""
+    layer = cls(in_features, out_features, bias=bias)
     bound = math.sqrt(6.0 / (in_features + out_features))
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)
@@ -114,7 +116,8 @@ class SchNetModel(nn.Module):
             for _ in range(num_layers))
         self.dense_0 = _xavier_linear(hidden_channels, hidden_channels // 2,
                                       generator)
-        self.dense_1 = _xavier_linear(hidden_channels // 2, out_dim, generator)
+        self.dense_1 = _xavier_linear(hidden_channels // 2, out_dim, generator,
+                                      cls=OutputLinear)
         self.to(dev)
 
     def forward(self, batch: GraphBatch,

@@ -33,10 +33,26 @@ def torch_linear_init_(t: torch.Tensor, fan_in: int,
         return t.uniform_(-bound, bound, generator=generator)
 
 
+class OutputLinear(nn.Linear):
+    """A model's output layer: ``torch.nn.Linear`` computed as ``b + x @
+    W^T`` in one ``addmm`` with ``W^T`` made contiguous, so every row of the
+    result is computed alike and equal input rows give bitwise-equal outputs
+    wherever they sit in the batch.  On the CPU, ``F.linear``'s product with
+    the transposed weight rounds the rows of a 2- or 3-column output
+    differently (a third of random cases), which decides the argmax between
+    two logits that a model cannot tell apart: a position-blind MPNN would
+    "separate" the two isomorphic k-chains by rounding alone.  Same
+    parameters and names; ``x`` is ``[rows, in_features]``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.addmm(self.bias, x, self.weight.t().contiguous())
+
+
 def linear(in_features: int, out_features: int,
-           generator: torch.Generator) -> torch.nn.Linear:
-    """A ``torch.nn.Linear`` with its default init drawn from ``generator``."""
-    layer = torch.nn.Linear(in_features, out_features)
+           generator: torch.Generator, cls=torch.nn.Linear) -> torch.nn.Linear:
+    """A ``cls`` (``torch.nn.Linear`` or ``OutputLinear``) with the default
+    init of a torch Linear drawn from ``generator``."""
+    layer = cls(in_features, out_features)
     torch_linear_init_(layer.weight, in_features, generator)
     torch_linear_init_(layer.bias, in_features, generator)
     return layer

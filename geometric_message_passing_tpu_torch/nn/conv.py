@@ -1,5 +1,6 @@
-"""``TensorProductConvLayer``, TFN's equivariant graph convolution (port of
-``nn/conv.py``, without ``tp_axis``).
+"""``TensorProductConvLayer``, the equivariant graph convolution of TFN and
+MACE, and MACE's ``EquivariantProductBasisBlock`` (port of ``nn/conv.py``,
+without ``tp_axis`` and ``node_chunk``).
 
 Per edge: the edge tensor product of ``node_feats[receivers]``, the edge's
 spherical harmonics and per-edge weights from an edge MLP; the messages are
@@ -15,6 +16,9 @@ as a free view.  ``weights_bf16``: the heads compute and emit bf16 (flax
 ``Dense(dtype=bfloat16)``) and K7 converts them to f32 inside the kernel.
 ``tp_precision`` is accepted and has no effect on the card: every product
 there is exact f32 (TF32 stays off).
+
+``EquivariantProductBasisBlock``: the symmetric contraction, then an
+``IrrepsLinear``, then the self-connection added.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from torch.nn import functional as F
 from ..irreps import Irreps
 from ..ops.scatter import segment_mean, segment_sum
 from .basic import MLP, linear
-from .equivariant import Activation, EquivariantBatchNorm, Gate, irreps2gate
+from .equivariant import (Activation, EquivariantBatchNorm, Gate,
+                          IrrepsLinear, irreps2gate)
+from .symmetric_contraction import SymmetricContraction
 from .tensor_product import EdgeTensorProduct
 
 
@@ -93,3 +99,47 @@ class TensorProductConvLayer(nn.Module):
             out = self.bn(out, mask=node_mask)
         return out
 
+
+
+class EquivariantProductBasisBlock(nn.Module):
+    """``forward(node_feats [N, c, sum d], sc=None, node_attrs=None)``:
+    ``SymmetricContraction`` (``symmetric_contraction``, flax
+    ``SymmetricContraction_0``) -> ``IrrepsLinear`` (``linear``, flax
+    ``IrrepsLinear_0``) -> ``+ sc`` when ``use_sc``; returns flat
+    ``[N, target_irreps.dim]``.  ``precision`` is accepted for the JAX
+    surface (exact f32 here).  ``node_chunk`` (box scale) and ``tp_axis``
+    (tensor parallelism) are not ported yet and raise
+    ``NotImplementedError``."""
+
+    def __init__(self, node_feats_irreps: Irreps, target_irreps: Irreps,
+                 correlation: int, use_sc: bool = True,
+                 element_dependent: bool = False,
+                 num_elements: Optional[int] = None,
+                 tp_axis: Optional[str] = None, tp_size: int = 1,
+                 precision: Optional[str] = None,
+                 node_chunk: Optional[int] = None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if node_chunk is not None:
+            raise NotImplementedError(
+                "EquivariantProductBasisBlock(node_chunk=...) (box scale) is "
+                "not ported yet")
+        if tp_axis is not None or tp_size != 1:
+            raise NotImplementedError(
+                "EquivariantProductBasisBlock(tp_axis=...) (tensor "
+                "parallelism) is not ported yet")
+        self.use_sc = use_sc
+        self.symmetric_contraction = SymmetricContraction(
+            Irreps(node_feats_irreps), Irreps(target_irreps), correlation,
+            element_dependent=element_dependent, num_elements=num_elements,
+            chain_precision=precision, generator=generator)
+        self.linear = IrrepsLinear(Irreps(target_irreps), Irreps(target_irreps),
+                                   precision=precision, generator=generator)
+
+    def forward(self, node_feats: torch.Tensor,
+                sc: Optional[torch.Tensor] = None,
+                node_attrs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = self.linear(self.symmetric_contraction(node_feats, node_attrs))
+        if self.use_sc and sc is not None:
+            out = out + sc
+        return out

@@ -4,10 +4,12 @@
 Features are flat ``[N, irreps.dim]`` in e3nn's layout: per irrep block,
 multiplicity-major (``[mul, 2l+1]`` row-major).  Ported here: the block
 helpers, ``Gate`` and ``Activation`` (e3nn's gated nonlinearity, activations
-rescaled to keep the second moment) and ``EquivariantBatchNorm`` (e3nn's
+rescaled to keep the second moment), ``EquivariantBatchNorm`` (e3nn's
 ``nn.BatchNorm``: running statistics as buffers, ``mask`` keeps pad rows out
-of them).  ``IrrepsLinear``, ``reshape_irreps`` and the tensor-parallel
-helpers wait for the MACE and parallel slices.
+of them), MACE's channel layout (``reshape_irreps`` /
+``inverse_reshape_irreps``) and ``IrrepsLinear`` (e3nn's ``o3.Linear``).
+The tensor-parallel helpers (``scale_mul``, ``shard_mul_slice``) wait for
+the parallel slice.
 """
 
 from __future__ import annotations
@@ -41,6 +43,24 @@ def merge_blocks(blocks: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(flat, dim=-1)
 
 
+def reshape_irreps(x: torch.Tensor, irreps: Irreps) -> torch.Tensor:
+    """Flat ``[N, sum mul*d]`` -> ``[N, mul, sum d]`` for irreps of one
+    multiplicity: MACE's feature layout."""
+    if len({mul for mul, _ in irreps}) != 1:
+        raise ValueError(f"needs one multiplicity for every irrep, got {irreps}")
+    return torch.cat(split_blocks(x, irreps), dim=-1)
+
+
+def inverse_reshape_irreps(x: torch.Tensor, irreps: Irreps) -> torch.Tensor:
+    """``[N, mul, sum d]`` -> flat ``[N, sum mul*d]``."""
+    out, ix = [], 0
+    for mul, ir in irreps:
+        blk = x[..., ix:ix + ir.dim]
+        out.append(blk.reshape(blk.shape[:-2] + (mul * ir.dim,)))
+        ix += ir.dim
+    return torch.cat(out, dim=-1)
+
+
 def pad_to_irreps(x: torch.Tensor, target_dim: int) -> torch.Tensor:
     """Zero-pad the last axis to ``target_dim`` (the residual of a layer
     whose output irreps extend its input's)."""
@@ -48,6 +68,63 @@ def pad_to_irreps(x: torch.Tensor, target_dim: int) -> torch.Tensor:
     if pad == 0:
         return x
     return torch.nn.functional.pad(x, (0, pad))
+
+
+class IrrepsLinear(nn.Module):
+    """Per-irrep block linear map (e3nn ``o3.Linear``): output block k is
+    ``sum_{i: ir_i == ir_k} x_i W_ik / sqrt(fan)``, fan the total input
+    multiplicity feeding irrep k (times ``fan_mult``), weights drawn from
+    N(0, 1) (``generator``).
+
+    Parameters ``w{i}_{k}`` of shape ``[mul_in, mul_out]``, the flax names;
+    when both sides list the same irreps with one multiplicity each (MACE's
+    square map) only the diagonal ``w{k}_{k}`` exist, with fan ``mul_in``,
+    as in the JAX package's fast path.  ``precision`` is accepted for the
+    JAX surface: the products here are exact f32 (TF32 off) whatever its
+    value."""
+
+    def __init__(self, irreps_in: Irreps, irreps_out: Irreps,
+                 fan_mult: int = 1, precision: Optional[str] = None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
+        ins, outs = self.irreps_in, self.irreps_out
+        square = ([ir for _, ir in ins] == [ir for _, ir in outs]
+                  and len({m for m, _ in ins}) == 1
+                  and len({m for m, _ in outs}) == 1)
+        # per output block: its [(input block, parameter name)] and its fan
+        self.paths: List[List[Tuple[int, str]]] = []
+        self.fans: List[int] = []
+        for ko, (mul_out, ir_out) in enumerate(outs):
+            if square:
+                pairs = [ko]
+                fan = fan_mult * ins[ko][0]
+            else:
+                pairs = [ki for ki, (_, ir_in) in enumerate(ins) if ir_in == ir_out]
+                fan = fan_mult * sum(ins[ki][0] for ki in pairs)
+            names = []
+            for ki in pairs:
+                name = f"w{ki}_{ko}"
+                w = torch.empty(ins[ki][0], mul_out)
+                with torch.no_grad():
+                    w.normal_(0.0, 1.0, generator=generator)
+                setattr(self, name, nn.Parameter(w))
+                names.append((ki, name))
+            self.paths.append(names)
+            self.fans.append(fan)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = split_blocks(x, self.irreps_in)
+        outs = []
+        for (mul_out, ir_out), names, fan in zip(self.irreps_out, self.paths,
+                                                 self.fans):
+            if not names:
+                outs.append(x.new_zeros(x.shape[:-1] + (mul_out, ir_out.dim)))
+                continue
+            y = sum(torch.einsum("...ud,uw->...wd", xs[ki], getattr(self, name))
+                    for ki, name in names)
+            outs.append(y / math.sqrt(max(fan, 1)))
+        return merge_blocks(outs)
 
 
 @functools.lru_cache(maxsize=None)

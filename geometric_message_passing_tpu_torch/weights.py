@@ -58,6 +58,22 @@ def egnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def mpnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.egnn.MPNNModel`` from the variables of the
+    JAX ``MPNNModel``: ``params/emb_in/embedding``,
+    ``params/conv_i/{mlp_msg,mlp_upd}/{Dense_k,LayerNorm_k}`` and
+    ``params/Dense_0``, ``params/Dense_1``."""
+    params = variables["params"]
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("conv_"))
+    for i in range(n_layers):
+        for mlp in ("mlp_msg", "mlp_upd"):
+            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp])
+    for k in range(2):
+        _dense(sd, f"dense_{k}", params[f"Dense_{k}"])
+    return sd
+
+
 def schnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.schnet.SchNetModel`` from the variables of the
     JAX ``SchNetModel``: ``params/embedding/embedding [100, d]``,
@@ -149,6 +165,31 @@ def gvp_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _tp_conv(sd: Dict[str, torch.Tensor], prefix: str,
+             conv: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    """A JAX ``TensorProductConvLayer`` (``fc``, ``fc_out{g}``, ``_bn`` and
+    its ``batch_stats``) as the port's at ``prefix``."""
+    for name, value in conv.items():
+        if name == "fc":
+            _mlp(sd, f"{prefix}.fc", value)
+        elif name.startswith("fc_out"):
+            _dense(sd, f"{prefix}.fc_out.{name[len('fc_out'):]}", value)
+        elif name == "_bn":
+            for key, leaf in value.items():
+                sd[f"{prefix}.bn.{key}"] = _t(leaf)
+        else:
+            raise ValueError(f"unexpected entry {prefix}/{name}")
+    for key, leaf in stats.get("_bn", {}).items():
+        sd[f"{prefix}.bn.{key}"] = _t(leaf)
+
+
+def _readout(sd: Dict[str, torch.Tensor], params: Mapping[str, Any]) -> None:
+    for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
+                                  ("pred", "pred")):
+        if flax_name in params:
+            _dense(sd, torch_name, params[flax_name])
+
+
 def tfn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.tfn.TFNModel`` from the variables of the JAX
     ``TFNModel``: ``params/emb_in/embedding``, ``params/conv_i/fc/Dense_0``,
@@ -161,24 +202,45 @@ def tfn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
     n_layers = sum(1 for k in params if k.startswith("conv_"))
     for i in range(n_layers):
-        conv = params[f"conv_{i}"]
-        prefix = f"convs.{i}"
-        for name, value in conv.items():
-            if name == "fc":
-                _mlp(sd, f"{prefix}.fc", value)
-            elif name.startswith("fc_out"):
-                _dense(sd, f"{prefix}.fc_out.{name[len('fc_out'):]}", value)
-            elif name == "_bn":
-                for key, leaf in value.items():
-                    sd[f"{prefix}.bn.{key}"] = _t(leaf)
-            else:
-                raise ValueError(f"unexpected entry conv_{i}/{name}")
-        for key, leaf in stats.get(f"conv_{i}", {}).get("_bn", {}).items():
-            sd[f"{prefix}.bn.{key}"] = _t(leaf)
-    for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
-                                  ("pred", "pred")):
-        if flax_name in params:
-            _dense(sd, torch_name, params[flax_name])
+        _tp_conv(sd, f"convs.{i}", params[f"conv_{i}"],
+                 stats.get(f"conv_{i}", {}))
+    _readout(sd, params)
+    return sd
+
+
+def mace_from_jax(variables: Mapping[str, Any],
+                  model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """State dict for ``model`` (a ``models.mace.MACEModel``) from the
+    variables of the JAX ``MACEModel``: ``params/emb_in/embedding``,
+    ``params/conv_i`` and ``batch_stats/conv_i`` (as in ``tfn_from_jax``),
+    ``params/prod_i/IrrepsLinear_0/w{a}_{b}``,
+    ``params/prod_i/SymmetricContraction_0/contraction_{ir}_w{nu}`` and the
+    readout.  The JAX ``u_tables`` collection (the stacked U tensors) must
+    equal ``model``'s U buffers to 1e-6; ``ValueError`` otherwise.
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    tables = variables.get("u_tables", {})
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    n_layers = sum(1 for k in params if k.startswith("conv_"))
+    for i in range(n_layers):
+        _tp_conv(sd, f"convs.{i}", params[f"conv_{i}"],
+                 stats.get(f"conv_{i}", {}))
+        prod = params[f"prod_{i}"]
+        for key, leaf in prod["IrrepsLinear_0"].items():
+            sd[f"prods.{i}.linear.{key}"] = _t(leaf)
+        for key, leaf in prod["SymmetricContraction_0"].items():
+            sd[f"prods.{i}.symmetric_contraction.{key}"] = _t(leaf)
+        sc = model.prods[i].symmetric_contraction
+        jax_u = tables.get(f"prod_{i}", {}).get("SymmetricContraction_0", {})
+        for nu in sc.names:
+            mine = getattr(sc, f"u{nu}").detach().cpu().double().numpy()
+            theirs = np.asarray(jax_u.get(f"u{nu}", np.zeros(0)), np.float64)
+            if theirs.shape != mine.shape or np.abs(theirs - mine).max() > 1e-6:
+                raise ValueError(f"prod_{i}: the JAX U table u{nu} "
+                                 f"{theirs.shape} differs from the port's "
+                                 f"{mine.shape}")
+    _readout(sd, params)
     return sd
 
 

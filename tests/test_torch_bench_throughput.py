@@ -1,8 +1,8 @@
 """The port's ``experiments/bench_throughput.py`` against the JAX script
 ``scripts/bench_throughput.py`` (its table and its batch, with triplets and
 quads for the directional rows), its train step at full width on the CPU,
-the row that is not ported yet (``mace``), and the bench's
-``GMP_BENCH_MODEL`` switch (``experiments/bench.py``)."""
+the rows ported after the table (``mace``, ``dimenet``, ``spherenet``), and
+the bench's ``GMP_BENCH_MODEL`` switch (``experiments/bench.py``)."""
 
 import importlib.util
 from pathlib import Path
@@ -19,7 +19,7 @@ from geometric_message_passing_tpu_torch.experiments import bench_throughput as 
 from geometric_message_passing_tpu_torch.models import (DimeNetPPModel,
                                                         EGNNFusedModel,
                                                         EGNNModel, GVPGNNModel,
-                                                        SchNetModel,
+                                                        MACEModel, SchNetModel,
                                                         SphereNetModel,
                                                         TFNModel)
 
@@ -36,7 +36,6 @@ def _jax_script():
 
 def test_table_is_the_jax_scripts():
     assert bt.MODELS == _jax_script().MODELS
-    assert set(bt.PORTED) < set(bt.MODELS)
 
 
 def test_batch_is_the_jax_scripts():
@@ -53,17 +52,17 @@ def test_batch_is_the_jax_scripts():
 
 @pytest.mark.parametrize("name", ["mace", "dimenet", "spherenet"])
 def test_unported_rows_raise_by_name(name):
-    """``mace`` is not ported yet and raises by name; ``dimenet`` and
-    ``spherenet`` (not ported before the triplet models) now build at their
-    full default widths and take one CPU step on their triplet batch."""
-    if name == "mace":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            bt.build(name, torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            bt.main([name])
-        return
+    """The rows that were not ported when the table came (``mace``, then
+    ``dimenet`` and ``spherenet``) now build at their full default widths
+    (``mace``: 2 layers, max_ell 3, correlation 3) and take one CPU step on
+    their batch."""
     model = bt.build(name, torch.Generator().manual_seed(0), "cpu")
-    batch = bt.star_batch(num=4, batch_size=4, device="cpu", name=name)
+    if name == "mace":
+        assert isinstance(model, MACEModel)
+        assert (len(model.convs), model.max_ell, model.correlation,
+                model.emb_dim) == (2, 3, 3, 64)
+    num = 2 if name == "mace" else 4
+    batch = bt.star_batch(num=num, batch_size=num, device="cpu", name=name)
     loss = bt.make_step(model, batch)()
     assert np.isfinite(loss.item())
 

@@ -16,7 +16,8 @@ from geometric_message_passing_tpu_torch.experiments import (
     bench_scale, bench_throughput, train)
 from geometric_message_passing_tpu_torch.experiments.infer import Predictor
 from geometric_message_passing_tpu_torch.models import (EGNNFusedModel,
-                                                        GVPGNNModel, TFNModel)
+                                                        GVPGNNModel, MACEModel,
+                                                        TFNModel)
 from geometric_message_passing_tpu_torch.ops import edge
 from geometric_message_passing_tpu_torch.ops import edge_contract as ec
 from geometric_message_passing_tpu_torch.ops import scatter
@@ -1274,3 +1275,85 @@ def test_k3_rejects_a_mask_that_does_not_fit_the_rows(cuda_device, bad):
             "cpu_mask": tri.t_mask.cpu()}[bad]
     with pytest.raises(ValueError), torch.no_grad():
         sss.sorted_fold(y, tri.idx_ji, plan, mask)
+
+
+# ---------------------------------------------------------------------------
+# MACE: K7 at its group shapes, a train step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_grouped_contract_at_mace_group_shapes_matches_plain(cuda_device):
+    """MACE's ungated group sets at its star configuration (layer 0 and the
+    hidden layer, E 1400, f32 W): one grouped launch each way, within the
+    JAX test's 2e-5 of max(|ref|, 1) of the plain version group by group,
+    two runs bitwise equal."""
+    model = MACEModel(num_layers=2, max_ell=3, correlation=3, device="cpu")
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    for conv in model.convs:
+        Ts, Ws, dOs = [], [], []
+        for k, m, w in conv.tp.group_shapes:
+            Ts.append(torch.randn((1400, k, m), generator=gen,
+                                  device=cuda_device))
+            Ws.append(torch.randn((1400, k, w), generator=gen,
+                                  device=cuda_device))
+            dOs.append(torch.randn((1400, w, m), generator=gen,
+                                   device=cuda_device))
+        before = (ec.edge_weighted_contract_grouped.launches,
+                  ec.edge_weighted_contract_grouped.bwd_launches)
+        with torch.no_grad():
+            got, again = (ec.edge_weighted_contract_grouped(Ts, Ws)
+                          for _ in range(2))
+        grads, grads2 = (ec.edge_weighted_contract_grouped_bwd(Ts, Ws, dOs)
+                         for _ in range(2))
+        assert (ec.edge_weighted_contract_grouped.launches - before[0],
+                ec.edge_weighted_contract_grouped.bwd_launches
+                - before[1]) == (2, 2)
+        for g, (T, W, dO) in enumerate(zip(Ts, Ws, dOs)):
+            wdT, wdW = ec.edge_weighted_contract_bwd_plain(T, W, dO)
+            for a, b, r in ((got[g], again[g],
+                             ec.edge_weighted_contract_plain(T, W)),
+                            (grads[0][g], grads2[0][g], wdT),
+                            (grads[1][g], grads2[1][g], wdW)):
+                assert torch.equal(a, b)
+                scale = max(r.abs().max().item(), 1.0)
+                torch.testing.assert_close(a, r, atol=2e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mace_train_step_on_card_matches_cpu(cuda_device):
+    """A narrow MACE (2 layers, emb_dim 8, max_ell 3, correlation 3, batch
+    norm, sum pool): the first step's loss and gradients on the card (K7
+    both ways once a layer, K4 for the two message sums, the pool and the
+    embedding's gradient) against the CPU's
+    plain path, gradients within 1e-4 of each parameter's max(|ref|, 1), and
+    the batch-norm statistics after it within 1e-5."""
+    graphs = datasets.create_star_graphs(num=12, fold=(5, 6, 7), seed=3)
+    host = graph.batch_graphs(graphs, *graph.pad_sizes(graphs, 12))
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        batch = host.to(dev)
+        model = MACEModel(num_layers=2, emb_dim=8, max_ell=3, correlation=3,
+                          mlp_dim=32, device=dev,
+                          generator=torch.Generator().manual_seed(4))
+        step = bench_throughput.make_step(model, batch)
+        before = (ec.edge_weighted_contract_grouped.launches,
+                  ec.edge_weighted_contract_grouped.bwd_launches,
+                  sss.segment_sum.launches)
+        loss = step().item()
+        launched = (ec.edge_weighted_contract_grouped.launches - before[0],
+                    ec.edge_weighted_contract_grouped.bwd_launches - before[1],
+                    sss.segment_sum.launches - before[2])
+        results[dev.type] = (loss, launched, {
+            n: p.grad.cpu() for n, p in model.named_parameters()}, {
+            n: b.cpu() for n, b in model.named_buffers()})
+    assert results["cuda"][1] == (2, 2, 4)
+    assert results["cpu"][1] == (0, 0, 0)
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0],
+                               rtol=1e-5)
+    for name, ref in results["cpu"][2].items():
+        torch.testing.assert_close(results["cuda"][2][name], ref, rtol=0,
+                                   atol=1e-4 * max(ref.abs().max().item(), 1))
+    for name, ref in results["cpu"][3].items():
+        torch.testing.assert_close(results["cuda"][3][name], ref, rtol=1e-5,
+                                   atol=1e-5)

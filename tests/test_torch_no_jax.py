@@ -67,7 +67,14 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.triplets",
                    "geometric_message_passing_tpu_torch.ops.dimenet_basis",
                    "geometric_message_passing_tpu_torch.models.dimenet",
-                   "geometric_message_passing_tpu_torch.models.spherenet"):
+                   "geometric_message_passing_tpu_torch.models.spherenet",
+                   "geometric_message_passing_tpu_torch.transforms",
+                   "geometric_message_passing_tpu_torch.nn.symmetric_contraction",
+                   "geometric_message_passing_tpu_torch.models.mace",
+                   "geometric_message_passing_tpu_torch.examples",
+                   "geometric_message_passing_tpu_torch.examples.kchains",
+                   "geometric_message_passing_tpu_torch.examples.rotsym",
+                   "geometric_message_passing_tpu_torch.examples.incompleteness"):
         assert module in res["imported"]
 
 
