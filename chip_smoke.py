@@ -164,14 +164,15 @@ Phases; any failure raises and the script exits non-zero:
      the CPU in float32 and float64, gradients within 1e-2 of each
      parameter's largest float64 entry; a planted fault, K7's dT dropped
      (``without_contract_dT``), must fail that check;
-  6. train, the main path: one 200-epoch ``fit_regression`` on the card with
+  6. train, the main path: one 100-epoch ``fit_regression`` (``EPOCHS``;
+     bench.py's configuration at half its 200 epochs) on the card with
      the launch counters set to 0 just before and read just after: K2 must
      have launched 4 x (train steps) times, K1 4 x (train steps + validation
      batches + test batches of the epochs whose best-val rule fired), K4
      once per train step (the embedding's gradient, ``nn.basic.Embedding``);
      the test MAE must be finite and below 0.2;
-  6f. whole-stack training, the main path: phase 6's run with
-     ``fuse_stack=True``, counters set to 0 just before and read just after
+  6f. whole-stack training, the main path: phase 6's run at 50 epochs
+     (``STACK_EPOCHS``) with ``fuse_stack=True``, counters set to 0 just before and read just after
      (K4 once per train step, the embedding's gradient):
      K6 forward (train steps + validation batches + test batches of the
      fired epochs) times, K6 backward (train steps) times, nothing else;
@@ -184,7 +185,7 @@ Phases; any failure raises and the script exits non-zero:
      else; test MAE finite and below 0.09,
      printed beside the JAX package's 0.0637 +- 0.0010 and the reference's
      0.0667;
-  6d. GVP training, the main path: a 100-epoch ``fit_regression`` of the
+  6d. GVP training, the main path: a 50-epoch ``fit_regression`` of the
      phase-4b model with dropout on, counters set to 0 just before and read
      just after: K5 forward 4 x (train steps + validation batches + test
      batches of the fired epochs), backward 4 x train steps, K4 once per
@@ -248,7 +249,15 @@ Phases; any failure raises and the script exits non-zero:
      the
      kernel by the profiler, the whole call, the host microseconds a call,
      the CSR-sort route the previous design took, ``index_add_``,
-     ``segment_reduce`` and the bound printed;
+     ``segment_reduce`` and the bound printed.  Then the force fields'
+     shapes (``capture_ff_shapes``): one bench_scale step of ``mace_ff`` and
+     ``tfn_ff`` at ``bench_scale.config(name, 10_000)`` on the unsorted
+     10k-atom box, every K4 call recorded; each layer's chunk sum (16384
+     rows; D ``tp.irreps_out.dim``: 1024 and 6336 for MACE-FF, 576 and 2240
+     for TFN-FF) at a full chunk and at the padded tail chunk held the same
+     way (one scan-route kernel a call), the pools and TFN-FF's embedding
+     gradient (few long segments: the CSR route) by ``check_segsum``
+     against float64, all timed (kernel, whole call, ``index_add_``, bound);
   4e / 4f. DimeNet++ (4 layers) and SphereNet (2 layers) serving at their
      full default widths: ``Predictor(needs_triplets=True)`` over the 1000
      fold-7 star graphs and ``Predictor(with_quads=True)`` over 1500 fold
@@ -301,6 +310,32 @@ Phases; any failure raises and the script exits non-zero:
      train step backward, K4 2 per forward and 1 per train step, nothing
      else; test MAE finite and below 0.09 (the JAX package 0.0766 +-
      0.0013);
+  4h. MACE-FF serving: ``Predictor(MACEForceField(in_dim=1))`` at full
+     width (2 layers, emb 64, max_ell 3, correlation 3, pool "sum") over
+     MACE's 1500 star graphs (E 1400 a batch: the combined 'uvu' form),
+     counters set to 0 just before and read just after: per batch K4 4
+     times (each layer's message sum and readout pool) and nothing else;
+     finite (1500, 1), within atol = rtol = 1e-4 of the CPU plain path;
+     median of 5 calls;
+  5h. one bench_scale step (L1-sum loss, Adam 1e-4) of ``mace_ff`` (edge
+     chunks of 5000: the bcast form and a padded tail; node blocks of 300;
+     the post-conv linear folded into the chunks, ``FOLD_ACC_ELEMS`` 0 on
+     the model's interaction blocks) and ``tfn_ff`` (edge chunks of 5000) at
+     full width on a 1000-atom box: every gradient on the card within 1e-2
+     of that parameter's largest entry of the CPU float64 run.  A planted
+     fault, ``node_feats`` detached in every chunk
+     (``chunk_node_feats_detached``: no gradient through the convolution to
+     ``linear_up`` and below), must fail that check.  Printed beside it: the
+     card with the chunk sums' masks dropped (``segment_sum_without_mask``):
+     the padded tail's messages are exact zeros, so it is no fault;
+  6n. the force-field box, the main path: ``mace_ff`` and ``tfn_ff`` at
+     ``bench_scale.config(name, 10_000)`` on the unsorted 10k-atom box
+     (edge chunks of 16384): two steps from one state give bitwise-equal
+     gradients; then after that warm step 4 timed steps, counters set to 0
+     just before and read just after: K4 exactly
+     ``bench_scale.ff_k4_launches_per_step`` per step (18 and 34 at 8
+     chunks), nothing else; every loss finite; ms per step, edges/s and
+     peak device memory printed;
   6m. the expressivity table on the card (``EXPRESSIVITY``):
      ``fit_classification`` at the JAX tests' settings (lr 1e-3; k-chains
      400 epochs, rotsym 150, the environment pairs 200), weights from
@@ -313,8 +348,8 @@ Phases; any failure raises and the script exits non-zero:
   7. summary: one JSON line of kernels, then the device line last.
 
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f,
-4g, 5, 5b, 5c, 5d, 5e, 5f, 5g, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j, 6k, 6l,
-6m, 7.
+4g, 4h, 5, 5b, 5c, 5d, 5e, 5f, 5g, 5h, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j,
+6k, 6l, 6n, 6m, 7.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
@@ -342,7 +377,7 @@ from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
     cuda_time_ms, segsum_bound_ms as seg_bound_ms)
 from geometric_message_passing_tpu_torch.experiments import train
 from geometric_message_passing_tpu_torch.experiments.bench import (
-    DIMENET_STAR, LR, MACE_EPOCHS, MACE_LR, MACE_STAR, N_EPOCHS as EPOCHS,
+    DIMENET_STAR, LR, MACE_EPOCHS, MACE_LR, MACE_STAR,
     SPHERENET_STAR, TFN_STAR, bench_data, card_line, mace_data,
     mace_model as _mace_model, tfn_data, tfn_model as _tfn_model,
     triplet_star_data)
@@ -353,10 +388,11 @@ from geometric_message_passing_tpu_torch.graph import (
     GraphLoader, assemble_batch, build_slot_data, pad_sizes)
 from geometric_message_passing_tpu_torch import datasets
 from geometric_message_passing_tpu_torch.models import (
-    DimeNetPPModel, EGNNFusedModel, GVPGNNModel, SphereNetModel, TFNModel,
-    egnn_fused, gvpgnn, model_registry)
+    DimeNetPPModel, EGNNFusedModel, GVPGNNModel, MACEForceField,
+    SphereNetModel, TFNModel, egnn_fused, gvpgnn, model_registry)
 from geometric_message_passing_tpu_torch.models import dimenet as dimenet_mod
 from geometric_message_passing_tpu_torch.nn import conv as tfn_conv
+from geometric_message_passing_tpu_torch.nn import mace_blocks
 from geometric_message_passing_tpu_torch.nn import symmetric_contraction
 from geometric_message_passing_tpu_torch.nn import tensor_product
 from geometric_message_passing_tpu_torch.nn.gvp import GVPDropout
@@ -371,6 +407,10 @@ from geometric_message_passing_tpu_torch.ops.edge import (
     egnn_message, egnn_message_bwd, egnn_message_bwd_plain, egnn_message_plain,
     msg_rows)
 
+# phases 6 and 6f: the bench configuration at fewer epochs than bench.py's
+# 200, to keep the script well inside its time limit (test MAE below 0.2 at
+# either depth: 0.1149 at 100 epochs, 0.1234 at 50 on the CPU plain path)
+EPOCHS, STACK_EPOCHS = 100, 50
 F32_FLOPS = 67e12          # H100 SXM, f32 on CUDA cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 ATOL = RTOL = 1e-4
@@ -781,7 +821,7 @@ def sender_backward_on_receiver_plan(b):
 # GVP-GNN and its message kernels (K5)
 # ---------------------------------------------------------------------------
 
-GVP_LAYERS, GVP_EPOCHS = 4, 100
+GVP_LAYERS, GVP_EPOCHS = 4, 50
 GVP_BOX_ATOMS = 10_000      # K5's large shape: the unsorted 10k box
 FLIP_MARGIN = 1e-5          # ReLU pre-activations closer to 0 may flip
 W_TOL, W_TOL_BOX = 1e-5, 1e-3   # K5's dW against its plain version
@@ -1910,6 +1950,301 @@ def expressivity_table(dev, card: str) -> dict:
     return table
 
 
+# ---------------------------------------------------------------------------
+# MACE's force-field family (MACE-FF, TFN-FF): the 'uvu' product, the weight
+# MLP, the self-connection and the symmetric contraction are PyTorch
+# products; every sum is K4
+# ---------------------------------------------------------------------------
+
+FF_BOX_ATOMS = 10_000        # the main path's box (6n) and 3f's box shapes
+FF_CHECK_ATOMS = 1_000       # 5h's box, held to float64 on the CPU
+# 5h: edge chunks of 5000 (above COMBINED_MAX_EDGES: the bcast form; not a
+# divisor of E), MACE-FF's symmetric contraction in node blocks of 300
+FF_CHECK = {"mace_ff": dict(edge_chunk=5000, node_chunk=300),
+            "tfn_ff": dict(edge_chunk=5000)}
+FF_SERVE_CALLS = 5
+
+
+def ff_model(name: str, cfg: dict, box, device):
+    """``bench_scale``'s force field ``name`` at ``cfg``, weights from seed
+    0, ``avg_num_neighbors`` the mean degree of ``box``."""
+    return bench_scale.build(name, cfg, torch.Generator().manual_seed(0),
+                             device, avg_deg=bench_scale.mean_degree(box))
+
+
+def capture_ff_shapes(box, dev):
+    """Phase 3f's force-field shapes: one bench_scale step of each force
+    field at ``bench_scale.config(name, FF_BOX_ATOMS)`` on ``box`` with
+    every K4 call recorded, the first of each (model, D, E, N, padded tail)
+    kept with its inputs: each layer's chunk sum at a full chunk and at the
+    padded tail chunk, the pools and TFN-FF's embedding gradient.  Returns
+    the scan-route shapes as a ``bench_kernels.SegsumCapture`` (for
+    ``check_star_segsum``), the others (few long segments: the CSR route)
+    as {label: inputs}, and each model's K4 widths by layer."""
+    cap, csr, widths = bench_kernels.SegsumCapture(), {}, {}
+    real = sss.segment_sum
+    for name in bench_scale.FORCE_FIELDS:
+        cfg = bench_scale.config(name, FF_BOX_ATOMS)
+        model = ff_model(name, cfg, box, dev)
+        widths[name] = [blk.tp.irreps_out.dim for blk in model.interactions]
+        kept = {}
+
+        def k4(data, ids, n, mask=None, _name=name, _kept=kept):
+            tail = mask is not None and not bool(mask.all())
+            key = (data.shape[1], data.shape[0], n, tail)
+            if key not in _kept:
+                shape = bench_kernels.segsum_shape("k4", data, ids, n, mask)
+                inputs = (data.detach().clone(), ids.clone(), n,
+                          None if mask is None else mask.clone())
+                label = (f"{_name} E {data.shape[0]} N {n} D {data.shape[1]}"
+                         f"{' tail' if tail else ''}")
+                _kept[key] = (shape, inputs, label)
+            shape, inputs, label = _kept[key]
+            if sss.segsum_route(data.shape[0], n)[0] == "scan":
+                skey = tuple(shape.values())
+                cap.shapes[skey] = (shape, inputs)
+                cap.calls[(f"{_name} box step", skey)] += 1
+            else:
+                csr[label] = inputs
+            return real(data, ids, n, mask)
+
+        k4.launches = real.launches
+        with patched(sss, "segment_sum", k4):
+            bench_scale.make_step(model, box)()
+        torch.cuda.synchronize()
+        del model
+    return cap, csr, widths
+
+
+_FF_CHUNK = mace_blocks._InteractionBase._chunk
+
+
+def chunk_node_feats_detached(self, node_feats, *args):
+    """The planted fault of phase 5h: every edge chunk gathers
+    ``node_feats`` detached, so no gradient crosses a chunk back to the
+    layer's ``linear_up``, the embedding or the layers below."""
+    return _FF_CHUNK(self, node_feats.detach(), *args)
+
+
+def segment_sum_without_mask(data, ids, n, mask=None):
+    """Phase 5h's witness: the convolutions' sums without their masks.  The
+    padded tail of the last chunk has zero spherical harmonics and radial
+    features, so its messages are exact zeros; the batch's own pad edges
+    join the pad node to itself, outside every graph's sum.  So the step's
+    gradients move by rounding at most: no fault."""
+    return scatter.segment_sum(data, ids, n)
+
+
+def no_plans(batch):
+    return None
+
+
+def check_ff_segsum(dev, card: str):
+    """Phase 3f's force-field part: K4 at every shape a ``mace_ff`` and a
+    ``tfn_ff`` bench_scale step launch on the unsorted 10k box
+    (``capture_ff_shapes``).  Each layer's chunk sum at a full chunk and at
+    the padded tail chunk (the scan route) through ``check_star_segsum``;
+    the pools and TFN-FF's embedding gradient (few long segments: the CSR
+    route) through ``check_segsum`` against float64.  Returns the box (on
+    ``dev``) and the readings."""
+    t = time.perf_counter()
+    ff_box = bench_scale.box_batch(FF_BOX_ATOMS, sort=False).to(dev)
+    ff_cap, ff_csr, ff_widths = capture_ff_shapes(ff_box, dev)
+    log(f"[kernels] segment sums at the force fields' shapes on the "
+        f"{FF_BOX_ATOMS}-atom box ({int(ff_box.edge_mask.sum())} edges, bucket "
+        f"E {ff_box.num_edges}, configs "
+        f"{ {n: bench_scale.config(n, FF_BOX_ATOMS) for n in bench_scale.FORCE_FIELDS} }): "
+        f"K4 chunk widths by layer (tp.irreps_out.dim) {ff_widths}; "
+        f"{len(ff_cap.shapes)} scan-route and {len(ff_csr)} CSR-route shapes "
+        f"captured in {time.perf_counter() - t:.2f} s; vs plain (SEG_TOL "
+        f"{SEG_TOL} of max(|ref|, 1); the CSR-route shapes against float64) "
+        f"[{card}]")
+    ff_segsum = check_star_segsum(ff_cap)
+    ff_segsum += [check_segsum(label, data, ids, mask, n, long_rows=True)
+                  for label, (data, ids, n, mask) in ff_csr.items()]
+    del ff_cap, ff_csr
+    torch.cuda.empty_cache()
+    return ff_box, ff_segsum
+
+
+def serve_mace_ff(graphs, dev, card: str) -> dict:
+    """Phase 4h: ``Predictor(MACEForceField(in_dim=1))`` at full width (2
+    layers, emb 64, max_ell 3, correlation 3, pool "sum") over ``graphs``
+    (MACE's star graphs: E 1400 a batch, the combined 'uvu' form), counters
+    set to 0 just before and read just after: K4 twice a layer and batch
+    (the message sum and the readout's pool), nothing else; finite, within
+    atol = rtol = 1e-4 of the CPU plain path; median of ``FF_SERVE_CALLS``
+    calls."""
+    mace_n = len(graphs)
+    mace_batches = -(-mace_n // BATCH)
+    mff_cpu = MACEForceField(in_dim=1, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    mff_cuda = MACEForceField(in_dim=1,
+                              generator=torch.Generator().manual_seed(0),
+                              device=dev)
+    for key, value in mff_cuda.state_dict().items():
+        if not torch.equal(value.cpu(), mff_cpu.state_dict()[key]):
+            raise AssertionError(f"CPU and CUDA MACE-FF models differ at {key}")
+    mff_pred = Predictor(mff_cuda, batch_size=BATCH)
+    reset_counts()
+    y_mff = mff_pred.predict(graphs)
+    mff_serve = counts()
+    mff_layers = len(mff_cuda.interactions)
+    mff_serve_want = dict({k: 0 for k in mff_serve},
+                          segment_sum=2 * mff_layers * mace_batches)
+    log(f"[serve] MACE-FF (in_dim 1, full width) predict({mace_n} star graphs, "
+        f"fold [7]): launches {mff_serve} (want {mff_serve_want}: per batch K4 "
+        f"twice a layer, the message sum and the readout's pool)")
+    if y_mff.shape != (mace_n, 1) or not np.isfinite(y_mff).all():
+        raise AssertionError(f"MACE-FF predict gave shape {y_mff.shape}, "
+                             f"finite={np.isfinite(y_mff).all()}")
+    if mff_serve != mff_serve_want:
+        raise AssertionError(f"MACE-FF predict launched {mff_serve}")
+    t = time.perf_counter()
+    y_mff_cpu = Predictor(mff_cpu, batch_size=BATCH,
+                          device="cpu").predict(graphs)
+    mff_cpu_s = time.perf_counter() - t
+    mff_serve_err = float(np.abs(y_mff - y_mff_cpu).max())
+    log(f"  vs the CPU plain path ({mff_cpu_s:.1f} s on the host): "
+        f"max_abs_err={mff_serve_err:.3e} of {np.abs(y_mff_cpu).max():.3g} "
+        "(atol = rtol = 1e-4)")
+    if not np.allclose(y_mff, y_mff_cpu, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"MACE-FF predict differs from the CPU run by "
+                             f"{mff_serve_err}")
+    times = []
+    for _ in range(FF_SERVE_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mff_pred.predict(graphs)
+        times.append(time.perf_counter() - t)
+    mff_ms = statistics.median(times) * 1e3
+    log(f"[serve] MACE-FF predict: median {mff_ms:.2f} ms per call of "
+        f"{FF_SERVE_CALLS} ({mace_n / mff_ms * 1e3:.0f} graphs/s) [{card}]")
+    del mff_pred, mff_cuda, mff_cpu
+    torch.cuda.empty_cache()
+    return {"launches": mff_serve, "ms": mff_ms, "err": mff_serve_err,
+            "cpu_s": mff_cpu_s}
+
+
+def step_ff_vs_cpu(card: str) -> dict:
+    """Phase 5h: one bench_scale step (L1-sum loss, Adam 1e-4) of each force
+    field at full width on a ``FF_CHECK_ATOMS``-atom box (``FF_CHECK``: edge
+    chunks of 5000, the bcast form and a padded tail; MACE-FF in node
+    blocks of 300 with the post-conv linear folded into the chunks,
+    ``FOLD_ACC_ELEMS`` 0 on its interaction blocks) on the card against the
+    CPU in float64: every gradient within ``GRAD_TOL`` of that parameter's
+    largest entry.  The planted fault (``chunk_node_feats_detached``) must
+    fail that check; the card with the sums' masks dropped
+    (``segment_sum_without_mask``) is printed beside it."""
+    ff_small = bench_scale.box_batch(FF_CHECK_ATOMS, sort=False)
+    f32, f64 = torch.float32, torch.float64
+    ff_check = {}
+    for name, over in FF_CHECK.items():
+        cfg = dict(bench_scale.config(name, FF_CHECK_ATOMS), **over)
+        cpu_model = ff_model(name, cfg, ff_small, "cpu")
+        if name == "mace_ff":
+            for blk in cpu_model.interactions:
+                blk.FOLD_ACC_ELEMS = 0          # the fold, forced
+        grads = {"card": box_grads(cpu_model, ff_small, no_plans, "cuda", f32)}
+        with patched(mace_blocks._InteractionBase, "_chunk",
+                     chunk_node_feats_detached):
+            grads["card, planted fault"] = box_grads(cpu_model, ff_small,
+                                                     no_plans, "cuda", f32)
+        with patched(mace_blocks, "segment_sum", segment_sum_without_mask):
+            grads["card, chunk masks dropped"] = box_grads(
+                cpu_model, ff_small, no_plans, "cuda", f32)
+        t = time.perf_counter()
+        exact = box_grads(cpu_model, ff_small, no_plans, "cpu", f64)
+        cpu_s = time.perf_counter() - t
+        errs = {run: grad_error(g, exact) for run, g in grads.items()}
+        same = all(torch.equal(g, grads["card"][n]) for n, g in
+                   grads["card, chunk masks dropped"].items())
+        ff_check[name] = dict(errs, masks_dropped_bitwise_equal=same,
+                              cpu_f64_s=cpu_s, cfg=cfg,
+                              chunks=bench_scale.edge_chunks(cfg, ff_small),
+                              edges=int(ff_small.edge_mask.sum()))
+        log(f"[box] {name} {cfg} one step on a {FF_CHECK_ATOMS}-atom box "
+            f"({ff_check[name]['edges']} edges, bucket E {ff_small.num_edges}, "
+            f"{ff_check[name]['chunks']} chunks"
+            f"{', the linear folded' if name == 'mace_ff' else ''}), gradients "
+            f"against the CPU float64 run ({cpu_s:.1f} s on the host; tol "
+            f"{GRAD_TOL:g} of each parameter's largest entry): " + ", ".join(
+                f"{run} {e:.3e}" for run, e in errs.items())
+            + f"; with the chunk masks dropped bitwise equal to the card's: "
+              f"{same}")
+        if errs["card"] > GRAD_TOL:
+            raise AssertionError(f"{name}: the box step on the card does not "
+                                 "match the CPU")
+        if errs["card, planted fault"] <= GRAD_TOL:
+            raise AssertionError(f"{name}: phase 5h's check passed the "
+                                 "planted fault")
+    return ff_check
+
+
+def train_ff_box(ff_box, dev, card: str) -> dict:
+    """Phase 6n, the main path: ``mace_ff`` and ``tfn_ff`` at
+    ``bench_scale.config(name, FF_BOX_ATOMS)`` on ``ff_box``: a warm step
+    and its twin from the same state (bitwise-equal gradients), then
+    ``BOX_STEPS`` timed steps with the counters set to 0 just before and
+    read just after: K4 exactly ``bench_scale.ff_k4_launches_per_step`` a
+    step and nothing else; every loss finite."""
+    ff_runs = {}
+    for name in bench_scale.FORCE_FIELDS:
+        cfg = bench_scale.config(name, FF_BOX_ATOMS)
+        model = ff_model(name, cfg, ff_box, dev)
+        twin = copy.deepcopy(model)
+        first = []
+        for m in (model, twin):          # the warm step, and its twin
+            bench_scale.make_step(m, ff_box)()
+            first.append({n: p.grad.clone() for n, p in m.named_parameters()
+                          if p.grad is not None})
+        differ = [n for n, g in first[0].items()
+                  if not torch.equal(g, first[1][n])]
+        n_params = len(first[0])
+        del twin, first
+        step_fn = bench_scale.make_step(model, ff_box)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, losses = [], []
+        for _ in range(BOX_STEPS):
+            t = time.perf_counter()
+            losses.append(step_fn().item())
+            times.append(time.perf_counter() - t)
+        got = counts()
+        chunks = bench_scale.edge_chunks(cfg, ff_box)
+        per_step = bench_scale.ff_k4_launches_per_step(name, cfg["num_layers"],
+                                                       chunks)
+        want = dict({k: 0 for k in got}, segment_sum=BOX_STEPS * per_step)
+        edges = int(ff_box.edge_mask.sum())
+        step_ms = statistics.median(times) * 1e3
+        ff_runs[name] = {"cfg": cfg, "launches": got, "chunks": chunks,
+                         "step_ms": step_ms,
+                         "step_times_ms": [x * 1e3 for x in times],
+                         "edges_per_s": edges / step_ms * 1e3,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "losses": losses, "edges": edges,
+                         "grads_bitwise_equal": not differ}
+        log(f"[box] {name} {cfg} on the {FF_BOX_ATOMS}-atom box ({edges} edges, "
+            f"{chunks} chunks of {cfg['edge_chunk']}): two steps from one state "
+            f"give bitwise-equal gradients at {n_params - len(differ)} of "
+            f"{n_params} parameters; {BOX_STEPS} steps after a warm one, median "
+            f"{step_ms:.2f} ms per step ({ff_runs[name]['edges_per_s']:.0f} "
+            f"edges/s), peak {ff_runs[name]['peak_mem_gb']:.3f} GB; losses "
+            f"{losses}; launches {got} (want K4 {per_step} per step: "
+            f"bench_scale.ff_k4_launches_per_step) [{card}]")
+        if differ:
+            raise AssertionError(f"{name}: two box steps differ at {differ}")
+        if got != want:
+            raise AssertionError(f"{name} box steps launched {got}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name} box: a loss is not finite")
+        del model, step_fn
+        torch.cuda.empty_cache()
+    return ff_runs
+
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
@@ -2368,6 +2703,10 @@ def main() -> int:
     del star_cap
     torch.cuda.empty_cache()
 
+    # 3f, the force fields: K4 at every shape a mace_ff and a tfn_ff step
+    # launch on the unsorted 10k box
+    ff_box, ff_segsum = check_ff_segsum(dev, card)
+
     # 4. serve
     model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                            generator=torch.Generator().manual_seed(0),
@@ -2585,6 +2924,9 @@ def main() -> int:
         f"{MACE_SERVE_CALLS} ({mace_n / mace_ms * 1e3:.0f} graphs/s) [{card}]")
     del mace_pred
     torch.cuda.empty_cache()
+
+    # 4h. MACE-FF serving at full width over MACE's star graphs
+    mff_serve = serve_mace_ff(mace_graphs, dev, card)
 
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
@@ -2844,6 +3186,10 @@ def main() -> int:
         raise AssertionError("phase 5g's check passed the planted fault")
     del narrow, mace_step
 
+    # 5h. one bench_scale step of each force field on a 1000-atom box
+    # against the CPU in float64, with a planted fault
+    ff_check = step_ff_vs_cpu(card)
+
     # 6. train, the main path
     reset_counts()
     res = fit_regression(model, None, *loaders, n_epochs=EPOCHS, lr=LR,
@@ -2872,15 +3218,18 @@ def main() -> int:
 
     # 6f. whole-stack training, the main path
     reset_counts()
-    sres = fit_regression(stack_model, None, *loaders, n_epochs=EPOCHS, lr=LR,
-                          seed=1, device="cuda")
+    sres = fit_regression(stack_model, None, *loaders, n_epochs=STACK_EPOCHS,
+                          lr=LR, seed=1, device="cuda")
     stack_train = counts()
     sfired = fired_epochs(sres.perf_per_epoch)
-    stack_train_want = dict({k: 0 for k in stack_train}, egnn_stack=EPOCHS * (
-        steps + val_b) + sfired * test_b, egnn_stack_bwd=EPOCHS * steps,
-        segment_sum=EPOCHS * steps)     # the embedding's gradient
-    log(f"[train] EGNN whole stack fit_regression {EPOCHS} epochs: train_time "
-        f"{sres.train_time:.3f} s (per layer, phase 6: {res.train_time:.3f} s), "
+    stack_train_want = dict({k: 0 for k in stack_train},
+                            egnn_stack=STACK_EPOCHS * (steps + val_b)
+                            + sfired * test_b,
+                            egnn_stack_bwd=STACK_EPOCHS * steps,
+                            segment_sum=STACK_EPOCHS * steps)   # embedding grad
+    log(f"[train] EGNN whole stack fit_regression {STACK_EPOCHS} epochs: "
+        f"train_time {sres.train_time:.3f} s (per layer, phase 6, {EPOCHS} "
+        f"epochs: {res.train_time:.3f} s), "
         f"test MAE {sres.test:.5f} (per layer {res.test:.5f}), best val MAE "
         f"{sres.best_val:.5f}; launches {stack_train} (want K6 "
         f"{stack_train_want['egnn_stack']} forward, "
@@ -3115,7 +3464,7 @@ def main() -> int:
     dres, dn_train = train_triplet("dimenet", dn_loaders, DIMENET_EPOCHS,
                                    DIMENET_MAE_MAX, DIMENET_JAX_MAE,
                                    DIMENET_JAX_SD, card)
-    sres, sn_train = train_triplet("spherenet", sn_loaders, SPHERENET_EPOCHS,
+    spres, sn_train = train_triplet("spherenet", sn_loaders, SPHERENET_EPOCHS,
                                    SPHERENET_MAE_MAX, SPHERENET_JAX_MAE,
                                    SPHERENET_JAX_SD, card)
 
@@ -3218,6 +3567,10 @@ def main() -> int:
     del mace_cuda
     torch.cuda.empty_cache()
 
+    # 6n. the force-field box, the main path
+    ff_runs = train_ff_box(ff_box, dev, card)
+    del ff_box
+
     # 6m. the expressivity table on the card
     t = time.perf_counter()
     expressivity = expressivity_table(dev, card)
@@ -3308,7 +3661,12 @@ def main() -> int:
             "star_shapes": [r for r in star_segsum
                             if (r["kind"] == "fold") == (name == "sorted_segment_sum")],
             **({"triplet_fold": k3_fold} if name == "sorted_segment_sum"
-               else {})})
+               else {"force_field": {
+                   "mace_ff_serve_launches": mff_serve["launches"][name],
+                   "box_step_launches": {
+                       n: r["launches"][name] // BOX_STEPS
+                       for n, r in ff_runs.items()},
+                   "shapes": ff_segsum}})})
     # K7: one hidden layer's five groups in one launch at the TFN train
     # bucket; beside it layer 0, bf16 W and each group in a launch of its own
     for name, direction, replaces in (
@@ -3351,6 +3709,7 @@ def main() -> int:
                     "gvp_train_check": gvp_check,
                     "stack_predict_ms": stack_ms,
                     "stack_train_time_s": sres.train_time,
+                    "stack_train_epochs": STACK_EPOCHS,
                     "stack_test_mae": sres.test,
                     "stack_best_val_mae": sres.best_val,
                     "stack_train_check": stack_check,
@@ -3365,10 +3724,10 @@ def main() -> int:
                     "dimenet_train_epochs": DIMENET_EPOCHS,
                     "dimenet_test_mae": dres.test,
                     "dimenet_best_val_mae": dres.best_val,
-                    "spherenet_train_time_s": sres.train_time,
+                    "spherenet_train_time_s": spres.train_time,
                     "spherenet_train_epochs": SPHERENET_EPOCHS,
-                    "spherenet_test_mae": sres.test,
-                    "spherenet_best_val_mae": sres.best_val,
+                    "spherenet_test_mae": spres.test,
+                    "spherenet_best_val_mae": spres.best_val,
                     "dimenet_box_check": dimenet_box_check,
                     "dimenet_box": dn_box,
                     "mace_edge_weight_bytes": mace_w_bytes,
@@ -3380,6 +3739,8 @@ def main() -> int:
                     "mace_train_epochs": MACE_EPOCHS,
                     "mace_test_mae": mres.test,
                     "mace_best_val_mae": mres.best_val,
+                    "mace_ff_serve": mff_serve,
+                    "ff_train_check": ff_check, "ff_box": ff_runs,
                     "expressivity": expressivity,
                     "expressivity_s": expressivity_s}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Box-scale training throughput of the port on one CUDA card (port of the
-repository's ``scripts/bench_scale.py``, its SchNet, EGNN, GVP-GNN and
-DimeNet++ models).
+repository's ``scripts/bench_scale.py``, its SchNet, EGNN, GVP-GNN,
+DimeNet++ and force-field models).
 
     python -m geometric_message_passing_tpu_torch.experiments.bench_scale \\
         [--sizes 10000,30000,100000] \\
-        [--models schnet,schnet_sorted,egnn,egnn_sorted,gvp,gvp_sorted,dimenet] \\
+        [--models schnet,schnet_sorted,egnn,egnn_sorted,gvp,gvp_sorted,dimenet,mace_ff,tfn_ff] \\
         [--steps N]
 
 Data: one synthetic molecular box per size
@@ -22,13 +22,19 @@ widths, with ``remat`` from 30k atoms on, the JAX script's rule), ``in_dim``
 262144) takes the box with its triplets (about 1.7M at 10k atoms); its
 triplet fold runs K3 per chunk over the ascending ``idx_ji``, its other sums
 K4. Its 50k/100k settings (edge chunks, remat) are not ported yet:
-``config`` raises from 50k atoms on. The models train in training mode
+``config`` raises from 50k atoms on. ``mace_ff`` (``MACEForceField``: 2
+layers, emb 64, max_ell 3, correlation 3) and ``tfn_ff`` (``TFNForceField``:
+4 layers, emb 64, max_ell 2) take the plain box with ``avg_num_neighbors``
+its mean degree, ``node_chunk`` 16384 and ``edge_chunk`` 8192, 16384 below
+100k atoms (the JAX script's rule); every sum of theirs is K4
+(``ff_k4_launches_per_step``). The models train in training mode
 (GVP-GNN's dropout on), as the JAX script applies them with ``train=True``.
 
 Step: L1-sum loss, backward, Adam (lr 1e-4).  A call is
-``max(4, min(40, 1_500_000 // n))`` steps ending in a host read of the loss;
-two warm calls, then 3 timed calls on the host clock.  The box, the plans and
-the copy to the card come before the timed window.
+``max(4, min(40, 1_500_000 // n))`` steps ending in a host read of the loss
+(a tenth of that, at least 2, for the models in ``HEAVY``:
+``model_steps``); two warm calls, then 3 timed calls on the host clock.  The
+box, the plans and the copy to the card come before the timed window.
 
 Prints one JSON line per (model, size) with the JAX script's keys
 (``triplets`` and ``triplets_per_sec`` for ``dimenet``) plus
@@ -66,16 +72,38 @@ MODELS = {
     "gvp": dict(num_layers=4),
     "gvp_sorted": dict(num_layers=4),
     "dimenet": dict(num_layers=4, triplet_chunk=262144),
+    "mace_ff": dict(num_layers=2, emb_dim=64, max_ell=3, correlation=3,
+                    edge_chunk=8192),
+    "tfn_ff": dict(num_layers=4, emb_dim=64, max_ell=2, edge_chunk=8192),
 }
 SORTED = {"egnn_sorted": "egnn", "schnet_sorted": "schnet",
           "gvp_sorted": "gvp"}
+FORCE_FIELDS = ("mace_ff", "tfn_ff")
+HEAVY = ("dimenet",) + FORCE_FIELDS   # a tenth of the steps per call
 REMAT_FROM = 30_000   # GVP-GNN atoms from which the chain is rematerialised
 DIMENET_MAX = 50_000  # DimeNet++'s settings from here on are not ported yet
+FF_WIDE_CHUNK_BELOW = 100_000   # force fields: 16384-edge chunks below this
 LR = 1e-4
 
 
-def build(name: str, cfg: dict, generator: torch.Generator, device="cuda"):
-    """The registry model behind ``name`` (``_sorted`` names its plain one)."""
+def mean_degree(batch: GraphBatch) -> float:
+    """Live edges per live node: the force fields' ``avg_num_neighbors``."""
+    return int(batch.edge_mask.sum()) / max(int(batch.node_mask.sum()), 1)
+
+
+def build(name: str, cfg: dict, generator: torch.Generator, device="cuda",
+          avg_deg: Optional[float] = None):
+    """The registry model behind ``name`` (``_sorted`` names its plain one);
+    a force field takes ``avg_deg`` (``mean_degree`` of its box) as its
+    ``avg_num_neighbors``, and ``MACEForceField`` has no ``out_dim``."""
+    if name in FORCE_FIELDS:
+        if avg_deg is None:
+            raise ValueError(f"{name} needs avg_deg, the box's mean degree")
+        extra = dict(avg_num_neighbors=avg_deg)
+        if name == "tfn_ff":
+            extra["out_dim"] = 1
+        return model_registry[name](in_dim=8, **extra, **cfg,
+                                    generator=generator, device=device)
     return model_registry[SORTED.get(name, name)](
         out_dim=1, in_dim=8, **cfg, generator=generator, device=device)
 
@@ -97,17 +125,21 @@ def steps_per_call(n_nodes: int) -> int:
     return max(4, min(40, 1_500_000 // n_nodes))
 
 
-def dimenet_steps(steps: int) -> int:
-    """DimeNet++'s steps per call: a tenth, at least 2 (the JAX script's)."""
-    return max(2, steps // 10)
+def model_steps(name: str, steps: int) -> int:
+    """Steps per call of ``name``: ``steps``, or for the models in ``HEAVY``
+    a tenth, at least 2 (the JAX script's rule)."""
+    return max(2, steps // 10) if name in HEAVY else steps
 
 
 def config(name: str, n_nodes: int) -> dict:
     """``MODELS[name]`` at a box of ``n_nodes`` atoms: GVP-GNN rematerialises
-    its message chain from ``REMAT_FROM`` atoms on."""
+    its message chain from ``REMAT_FROM`` atoms on; the force fields take
+    16384-edge chunks below ``FF_WIDE_CHUNK_BELOW`` atoms."""
     cfg = dict(MODELS[name])
     if name in ("gvp", "gvp_sorted") and n_nodes >= REMAT_FROM:
         cfg["remat"] = True
+    if name in FORCE_FIELDS and n_nodes < FF_WIDE_CHUNK_BELOW:
+        cfg["edge_chunk"] = 16384
     if name == "dimenet" and n_nodes >= DIMENET_MAX:
         raise NotImplementedError(
             f"dimenet at {n_nodes} atoms (edge chunks, remat) is not ported "
@@ -136,6 +168,29 @@ def sorted_launches_per_step(name: str, num_layers: int,
     raise ValueError(f"{name!r} is not a sorted model")
 
 
+def ff_k4_launches_per_step(name: str, num_layers: int, n_chunks: int) -> int:
+    """K4 launches in one training step of a force field on the card (pool
+    "sum"), with ``n_chunks`` edge chunks a convolution (1 when it runs in
+    one pass).  Forward: every layer's convolution sums each chunk once;
+    the backward reruns each chunk's checkpointed body but not its sum
+    (``_InteractionBase._conv``), and a sum's backward is a gather, so no
+    more.  ``mace_ff`` pools each layer's readout (one sum a layer);
+    ``tfn_ff`` pools once and its embedding's gradient is one sum
+    (``nn.basic.Embedding``); ``mace_ff``'s embedding is a product."""
+    if name == "mace_ff":
+        return num_layers * (n_chunks + 1)
+    if name == "tfn_ff":
+        return num_layers * n_chunks + 2
+    raise ValueError(f"{name!r} is not a force field")
+
+
+def edge_chunks(cfg: dict, batch: GraphBatch) -> int:
+    """Edge chunks of each convolution of a force field on ``batch``."""
+    c = cfg.get("edge_chunk")
+    e = batch.senders.shape[0]
+    return 1 if c is None or e <= c else -(-e // c)
+
+
 def make_step(model: torch.nn.Module, batch: GraphBatch,
               plans: Optional[Dict[str, SegmentPlan]] = None,
               lr: float = LR) -> Callable[[], torch.Tensor]:
@@ -162,7 +217,8 @@ def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
     ``steps`` steps, then ``reps`` timed calls."""
     edges = int(batch.edge_mask.sum())
     nodes = int(batch.node_mask.sum())
-    model = build(name, cfg, seed_everything(0), batch.atoms.device)
+    model = build(name, cfg, seed_everything(0), batch.atoms.device,
+                  avg_deg=mean_degree(batch))
     plans = batch_seg_plans(batch) if name in SORTED else None
     step = make_step(model, batch, plans)
 
@@ -228,8 +284,7 @@ def main(argv=None) -> int:
                         n_nodes, kind == "sorted", args.cutoff,
                         args.avg_degree, triplets=kind == "triplets").to("cuda")
                 row = bench_one(name, config(name, n_nodes), batches[kind],
-                                dimenet_steps(steps) if name == "dimenet"
-                                else steps)
+                                model_steps(name, steps))
             except Exception as exc:      # out of memory, say: no fallback
                 traceback.print_exc()
                 failed = True

@@ -4,17 +4,26 @@
         [--model egnn_sorted] [--atoms 100000] [--steps 3]
 
 Builds ``experiments/bench_scale.py``'s receiver-sorted box (or its plain
-box for a model without ``_sorted``) and model at full width (``gvp`` and
-``gvp_sorted`` with bench_scale's remat rule), runs two warm
+box for a model without ``_sorted``) and model at full width
+(``bench_scale.config``: ``gvp`` and ``gvp_sorted`` with its remat rule, the
+force fields ``mace_ff`` and ``tfn_ff`` with its edge chunks), runs two warm
 steps, times 5 untraced steps on the host clock (each ending in a host read
 of the loss), then traces ``--steps`` more with ``torch.profiler`` and
 prints:
   * the untraced and traced step wall times, the device busy time per step
     and the device's idle share of each;
-  * device time per step and launch counts by group: the sorted segment sum
-    (K3), matrix products, LayerNorm, gathers and index ops, concatenation
-    and copies, elementwise ops and reductions, the Adam update, the rest;
-  * the top kernels by device time, with launch counts.
+  * device time per step and launch counts by group: the segment sums (K3
+    and K4), matrix products, LayerNorm, gathers and index ops,
+    concatenation and copies, elementwise ops and reductions, the Adam
+    update, the rest;
+  * the top kernels by device time, with launch counts;
+  * for a force field, the parts no kernel name tells apart (``ff_parts``):
+    per layer the weight MLP, the 'uvu' product and the chunk's K4 sum on
+    the first edge chunk, the self-connection product and (``mace_ff``) the
+    product basis block (symmetric contraction, linear, self-connection)
+    on all nodes, each run alone forward and forward + backward, and each
+    scaled to a step (every chunk; a checkpointed body's forward once more
+    for the recompute) with its share of the traced device time.
 The last line is one JSON object of these numbers with the card's name and
 power limit.  It needs a card and raises without one.
 """
@@ -30,14 +39,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ..models.mace_ff import edge_geometry
+from ..ops.scatter import segment_sum
 from ..ops.sorted_segsum import batch_seg_plans
 from .bench import card_line
-from .bench_scale import MODELS, SORTED, box_batch, build, config, make_step
+from .bench_scale import (FORCE_FIELDS, MODELS, SORTED, box_batch, build,
+                          config, edge_chunks, make_step, mean_degree)
+from .profile_train import part_device_ms
 from .train import seed_everything
 
 # kernel-name fragments of each group, checked in this order
 GROUPS = (
-    ("K3 sorted_segment_sum", ("segsum_",)),
+    ("K3/K4 segment sums", ("segsum_",)),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
     ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "cublas")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -56,6 +69,87 @@ def _group(name: str) -> str:
     return "other"
 
 
+def _fwd_and_step(fn, *leaves) -> dict:
+    """Device ms of ``fn()`` forward, and forward + backward into
+    ``leaves`` (inputs that require grad) and ``fn``'s parameters."""
+    out = fn()
+    g = torch.randn_like(out)
+    with torch.no_grad():
+        fwd = part_device_ms(fn)
+    return {"fwd_ms": fwd,
+            "fwd_bwd_ms": part_device_ms(
+                lambda: torch.autograd.backward(fn(), g))}
+
+
+def ff_parts(model, batch, cfg: dict) -> dict:
+    """Per layer of a force field, its parts timed alone on the inputs of a
+    forward of ``batch``: the weight MLP, the 'uvu' product and the K4 sum
+    of the first edge chunk, the self-connection product and (``mace_ff``)
+    the product basis block, each forward and forward + backward; and
+    ``step_ms``, each part's time in one train step: the chunk parts once a
+    chunk (the body's forward twice: the checkpoint reruns it), the node
+    parts once (their forward twice where ``node_chunk`` blocks them)."""
+    seen, hooks = {}, []
+    for i, blk in enumerate(model.interactions):
+        hooks.append(blk.linear_up.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(("nf", i), out)))
+        hooks.append(blk.skip_tp.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(("skip", i), inp)))
+    for i, prod in enumerate(getattr(model, "products", [])):
+        hooks.append(prod.register_forward_hook(
+            lambda mod, inp, out, i=i: seen.__setitem__(("prod", i), inp)))
+    with torch.no_grad():
+        model(batch)
+    for h in hooks:
+        h.remove()
+    edge_sh, edge_feats = edge_geometry(batch, model.max_ell, model.r_max,
+                                        model.num_bessel,
+                                        model.num_polynomial_cutoff)
+    n = batch.num_nodes
+    chunks = edge_chunks(cfg, batch)
+    c = min(cfg.get("edge_chunk") or batch.num_edges, batch.num_edges)
+    node_chunk = cfg.get("node_chunk", 16384)
+    node_blocked = node_chunk is not None and n > node_chunk
+    s, r = batch.senders[:c], batch.receivers[:c]
+    ea, ef, m = edge_sh[:c], edge_feats[:c], batch.edge_mask[:c]
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    out = {}
+    for i, blk in enumerate(model.interactions):
+        nf = leaf(seen[("nf", i)])
+        w = leaf(blk.conv_tp_weights(ef))
+        mji = leaf(blk.tp.apply(nf[s], ea, w))
+        parts = {
+            "weight_mlp": _fwd_and_step(lambda: blk.conv_tp_weights(ef)),
+            "uvu_product": _fwd_and_step(lambda: blk.tp.apply(nf[s], ea, w),
+                                         nf, w),
+            "k4_chunk_sum": _fwd_and_step(
+                lambda: segment_sum(mji, r, n, mask=m), mji)}
+        x1, x2 = (leaf(t) for t in seen[("skip", i)])
+        parts["skip_product"] = _fwd_and_step(lambda: blk.skip_tp(x1, x2), x1)
+        if ("prod", i) in seen:
+            mf, sc = (None if t is None else leaf(t)
+                      for t in seen[("prod", i)][:2])
+            prod = model.products[i]
+            parts["product_basis"] = _fwd_and_step(lambda: prod(mf, sc, None),
+                                                   mf)
+        for name, v in parts.items():
+            if name in ("weight_mlp", "uvu_product"):
+                v["step_ms"] = chunks * (v["fwd_bwd_ms"]
+                                         + (v["fwd_ms"] if chunks > 1 else 0))
+            elif name == "k4_chunk_sum":
+                v["step_ms"] = chunks * v["fwd_bwd_ms"]
+            else:
+                v["step_ms"] = v["fwd_bwd_ms"] + (v["fwd_ms"] if node_blocked
+                                                  else 0)
+        out[f"layer_{i}"] = parts
+        del nf, w, mji
+    return {"edge_chunk": c, "chunks": chunks, "node_blocked": node_blocked,
+            "layers": out}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="egnn_sorted", choices=sorted(MODELS))
@@ -67,7 +161,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = box_batch(args.atoms, sort=args.model in SORTED).to("cuda")
     cfg = config(args.model, args.atoms)
-    model = build(args.model, cfg, seed_everything(0))
+    model = build(args.model, cfg, seed_everything(0),
+                  avg_deg=mean_degree(batch))
     plans = batch_seg_plans(batch) if args.model in SORTED else None
     step = make_step(model, batch, plans)
     for _ in range(2):
@@ -107,6 +202,19 @@ def main(argv=None) -> dict:
     print("top kernels:")
     for dev_us, count, key in rows[:25]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:7.1f}x  {key[:100]}")
+    parts = {}
+    if args.model in FORCE_FIELDS:
+        parts = ff_parts(model, batch, cfg)
+        print(f"parts alone ({parts['chunks']} chunks of "
+              f"{parts['edge_chunk']} edges; node blocks "
+              f"{parts['node_blocked']}), device ms: forward, forward + "
+              "backward, in a step (share of the traced device time):")
+        for layer, ps in parts["layers"].items():
+            for name, v in ps.items():
+                v["share"] = v["step_ms"] / device_ms
+                print(f"  {layer} {name:16s} {v['fwd_ms']:9.3f} "
+                      f"{v['fwd_bwd_ms']:9.3f} {v['step_ms']:9.3f} "
+                      f"({v['share']:.3f})")
     res = {
         "card": card_line(), "model": args.model, "cfg": cfg,
         "atoms": args.atoms,
@@ -118,6 +226,7 @@ def main(argv=None) -> dict:
         "groups": {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()},
         "top_kernels": [{"name": k, "count": c, "ms": u / 1e3}
                         for u, c, k in rows[:25]],
+        "ff_parts": parts,
     }
     print(json.dumps(res))
     return res

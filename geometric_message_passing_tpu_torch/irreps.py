@@ -404,6 +404,34 @@ def tp_paths(in1: Irreps, in2: Irreps, out: Irreps) -> List[TPPath]:
     return paths
 
 
+def tp_paths_uvu(in1: Irreps, in2: Irreps, target: Irreps
+                 ) -> Tuple[Irreps, List[TPPath]]:
+    """The 'uvu' paths of MACE's convolution (e3nn's
+    ``tp_out_irreps_with_instructions``): each (i1, i2) pair gives one
+    output irrep of multiplicity ``mul_in1`` for every CG-allowed
+    ``ir_out`` in ``target``; the outputs are sorted by irrep.
+
+    Returns ``(irreps_out, paths)``, the paths naming their sorted output
+    slots.  Each slot is fed by exactly one path summing ``mul_in2``
+    elements, so its weight is ``sqrt(ir_out.dim / mul_in2)`` (component
+    irreps, 'element' paths)."""
+    raw = []
+    for i1, (mul1, ir1) in enumerate(in1):
+        for i2, (mul2, ir2) in enumerate(in2):
+            for ir_out in ir1 * ir2:
+                if ir_out in target:
+                    raw.append((i1, i2, mul1, mul2, ir1, ir2, ir_out))
+    order = sorted(range(len(raw)), key=lambda k: (raw[k][6].l, -raw[k][6].p))
+    irreps_out = Irreps([(raw[k][2], raw[k][6]) for k in order])
+    slot_of = {k: s for s, k in enumerate(order)}
+    paths = []
+    for k, (i1, i2, mul1, mul2, ir1, ir2, ir_out) in enumerate(raw):
+        alpha = math.sqrt(ir_out.dim / mul2)
+        paths.append(TPPath(i1, i2, slot_of[k], mul1, mul2, mul1, ir1, ir2,
+                            ir_out, alpha))
+    return irreps_out, paths
+
+
 # ---------------------------------------------------------------------------
 # Generalized coupling (U tensors) for the MACE symmetric contraction
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """``TensorProductConvLayer``, the equivariant graph convolution of TFN and
 MACE, and MACE's ``EquivariantProductBasisBlock`` (port of ``nn/conv.py``,
-without ``tp_axis`` and ``node_chunk``).
+without ``tp_axis``).
 
 Per edge: the edge tensor product of ``node_feats[receivers]``, the edge's
 spherical harmonics and per-edge weights from an edge MLP; the messages are
@@ -18,7 +18,8 @@ as a free view.  ``weights_bf16``: the heads compute and emit bf16 (flax
 there is exact f32 (TF32 stays off).
 
 ``EquivariantProductBasisBlock``: the symmetric contraction, then an
-``IrrepsLinear``, then the self-connection added.
+``IrrepsLinear``, then the self-connection added; with ``node_chunk``, in
+row blocks under ``torch.utils.checkpoint`` (box scale).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .basic import MLP, linear
 from .equivariant import (Activation, EquivariantBatchNorm, Gate,
                           IrrepsLinear, irreps2gate)
 from .symmetric_contraction import SymmetricContraction
-from .tensor_product import EdgeTensorProduct
+from .tensor_product import EdgeTensorProduct, node_blocks
 
 
 class TensorProductConvLayer(nn.Module):
@@ -107,9 +108,12 @@ class EquivariantProductBasisBlock(nn.Module):
     ``SymmetricContraction_0``) -> ``IrrepsLinear`` (``linear``, flax
     ``IrrepsLinear_0``) -> ``+ sc`` when ``use_sc``; returns flat
     ``[N, target_irreps.dim]``.  ``precision`` is accepted for the JAX
-    surface (exact f32 here).  ``node_chunk`` (box scale) and ``tp_axis``
-    (tensor parallelism) are not ported yet and raise
-    ``NotImplementedError``."""
+    surface (exact f32 here).  ``node_chunk``: the three steps run in
+    blocks of that many nodes, each under ``torch.utils.checkpoint``
+    (``tensor_product.node_blocks``), so one block's ``[n, c, d, d]``
+    intermediates are alive at a time; the rows are independent, so the
+    result is the single pass's.  ``tp_axis`` (tensor parallelism) is not
+    ported yet and raises ``NotImplementedError``."""
 
     def __init__(self, node_feats_irreps: Irreps, target_irreps: Irreps,
                  correlation: int, use_sc: bool = True,
@@ -120,15 +124,11 @@ class EquivariantProductBasisBlock(nn.Module):
                  node_chunk: Optional[int] = None, *,
                  generator: torch.Generator):
         super().__init__()
-        if node_chunk is not None:
-            raise NotImplementedError(
-                "EquivariantProductBasisBlock(node_chunk=...) (box scale) is "
-                "not ported yet")
         if tp_axis is not None or tp_size != 1:
             raise NotImplementedError(
                 "EquivariantProductBasisBlock(tp_axis=...) (tensor "
                 "parallelism) is not ported yet")
-        self.use_sc = use_sc
+        self.use_sc, self.node_chunk = use_sc, node_chunk
         self.symmetric_contraction = SymmetricContraction(
             Irreps(node_feats_irreps), Irreps(target_irreps), correlation,
             element_dependent=element_dependent, num_elements=num_elements,
@@ -139,6 +139,13 @@ class EquivariantProductBasisBlock(nn.Module):
     def forward(self, node_feats: torch.Tensor,
                 sc: Optional[torch.Tensor] = None,
                 node_attrs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        C = self.node_chunk
+        if C is None or node_feats.shape[0] <= C:
+            return self._block(node_feats, sc, node_attrs)
+        return node_blocks(self._block, C, node_feats, sc, node_attrs)
+
+    def _block(self, node_feats: torch.Tensor, sc: Optional[torch.Tensor],
+               node_attrs: Optional[torch.Tensor]) -> torch.Tensor:
         out = self.linear(self.symmetric_contraction(node_feats, node_attrs))
         if self.use_sc and sc is not None:
             out = out + sc

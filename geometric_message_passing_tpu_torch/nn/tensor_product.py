@@ -20,10 +20,20 @@ version on the CPU.  Each group's ``T [E, (p,u), m]`` is built contiguous;
 its weights, the head output ``[E, n_p*u*w]`` (or a slice of the flat
 weights), are passed as the free view ``[E, (p,u), w]`` and never copied.
 
+``EdgeTensorProductUVU`` is the 'uvu' product of MACE's force-field
+convolutions: one weight per path and channel, O(E * paths * mul) weights
+in place of the fully connected O(E * paths * mul^2).  Its four forms
+(combined CG, per-path broadcast, (l1, l2)-pair groups, per path) are twins
+of one function; ``apply`` picks one by the edge count and ``grouping`` as
+the JAX package does.  None of them is a kernel in the JAX package, so all
+four are PyTorch products and elementwise operations here.
+``FullyConnectedTensorProduct`` (shared weights, e3nn's
+``internal_weights=True``) is the interaction blocks' self-connection; with
+``node_chunk`` it runs row blocks under ``torch.utils.checkpoint``.
+
 ``precision`` (the JAX package's ``tp_precision``) is accepted and has no
-effect: on the card both stages are exact f32 (TF32 stays off and K7 uses
-f32 FMAs).  MACE's ``EdgeTensorProductUVU`` and
-``FullyConnectedTensorProduct`` wait for the MACE slice.
+effect: on the card every product is exact f32 (TF32 stays off and K7 uses
+f32 FMAs).
 """
 
 from __future__ import annotations
@@ -33,8 +43,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..irreps import Irreps, tp_paths, wigner_3j
+from ..irreps import Irreps, tp_paths, tp_paths_uvu, wigner_3j
 from ..ops.edge_contract import edge_weighted_contract_grouped
 from .equivariant import merge_blocks, split_blocks
 
@@ -82,6 +94,15 @@ def _stage1(x: torch.Tensor, sh: torch.Tensor, C: torch.Tensor
     Ce = (sh.reshape(-1, S) @ C.permute(1, 0, 2).reshape(S, L * M))
     return torch.bmm(xf, Ce.reshape(-1, L, M)).reshape(
         lead + (x.shape[-2], M))
+
+
+def _merge_outs(outs, irreps_out: Irreps, x: torch.Tensor) -> torch.Tensor:
+    """Per-output-irrep blocks ``[..., mul, 2l+1]`` (None: no path feeds
+    it, zeros) merged into the flat ``[..., irreps_out.dim]`` layout."""
+    for k, (mul, ir) in enumerate(irreps_out):
+        if outs[k] is None:
+            outs[k] = x.new_zeros(x.shape[:-1] + (mul, ir.dim))
+    return merge_blocks(outs)
 
 
 class EdgeTensorProduct:
@@ -155,12 +176,6 @@ class EdgeTensorProduct:
             return self._apply_per_path(x, sh, torch.cat(list(ws), dim=-1))
         return self._apply_combined(x, sh, None, ws=ws)
 
-    def _zeros_for_missing(self, outs, x: torch.Tensor) -> torch.Tensor:
-        for k, (mul, ir) in enumerate(self.irreps_out):
-            if outs[k] is None:
-                outs[k] = x.new_zeros(x.shape[:-1] + (mul, ir.dim))
-        return merge_blocks(outs)
-
     def _apply_combined(self, x, sh, weights, ws=None) -> torch.Tensor:
         """Stage 1 over the combined CG constant, then the contractions of
         all output irreps over their contiguous k = (path, u) axes in one
@@ -182,7 +197,7 @@ class EdgeTensorProduct:
             for g, out in zip(self._groups,
                               edge_weighted_contract_grouped(Ts, Ws)):
                 outs[g[0]] = out                               # [E, w, m]
-        return self._zeros_for_missing(outs, x)
+        return _merge_outs(outs, self.irreps_out, x)
 
     def _apply_per_path(self, x, sh, weights) -> torch.Tensor:
         """Non-uniform input multiplicities: per-path CG contractions, the
@@ -212,10 +227,296 @@ class EdgeTensorProduct:
                 [torch.cat(wss, dim=-2) for _, wss in groups.values()])
             for i_out, out in zip(groups, got):
                 outs[i_out] = out
-        return self._zeros_for_missing(outs, x)
+        return _merge_outs(outs, self.irreps_out, x)
 
 
 @functools.lru_cache(maxsize=None)
 def edge_tensor_product(irreps_in: Irreps, irreps_sh: Irreps,
                         irreps_out: Irreps) -> EdgeTensorProduct:
     return EdgeTensorProduct(irreps_in, irreps_sh, irreps_out)
+
+
+def node_blocks(fn, chunk: int, *xs: Optional[torch.Tensor]) -> torch.Tensor:
+    """``fn(*xs)`` over row blocks of ``chunk`` rows, each block under
+    ``torch.utils.checkpoint`` (its intermediates are recomputed in the
+    backward, so one block's are alive at a time).  The inputs (None passes
+    through) are zero-padded to whole blocks, as the JAX package pads its
+    scan, and the result is cut back to the rows given."""
+    n = xs[0].shape[0]
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+
+    def pad_to(x):
+        if x is None or not pad:
+            return x
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    xs = [pad_to(x) for x in xs]
+    outs = [checkpoint(fn, *(None if x is None else x[k * chunk:(k + 1) * chunk]
+                             for x in xs),
+                       use_reentrant=False, preserve_rng_state=False)
+            for k in range(n_chunks)]
+    return torch.cat(outs)[:n]
+
+
+class _Constants:
+    """Float32 numpy constants as tensors of a given type and device, made
+    once per (name, dtype, device), outside inference mode: one made under
+    ``Predictor``'s ``torch.inference_mode`` could not be saved for a later
+    training step's backward."""
+
+    def __init__(self):
+        self._arrays, self._tensors = {}, {}
+
+    def add(self, name, array: np.ndarray) -> None:
+        self._arrays[name] = np.asarray(array, np.float32)
+
+    def get(self, name, like: torch.Tensor) -> torch.Tensor:
+        key = (name, like.dtype, like.device)
+        if key not in self._tensors:
+            with torch.inference_mode(False):
+                self._tensors[key] = torch.as_tensor(
+                    self._arrays[name], dtype=like.dtype, device=like.device)
+        return self._tensors[key]
+
+
+class EdgeTensorProductUVU:
+    """'uvu' edge tensor product with per-edge weights: the ``conv_tp`` of
+    MACE's interaction blocks (e3nn ``o3.TensorProduct`` with
+    ``tp_out_irreps_with_instructions``).  No parameters.
+
+    Weights ``[E, weight_numel]``: per path ``mul_in1`` weights, in path
+    order.  Output: the unsimplified, sorted ``irreps_out`` of
+    ``irreps.tp_paths_uvu``, one slot per path.
+
+    ``apply`` takes the combined form up to ``COMBINED_MAX_EDGES`` edges (a
+    dense CG constant: few, large products, for small batches), and above
+    it the form ``grouping`` names (``LARGE_GROUPING`` by default):
+    ``"bcast"`` (per path, the CG contraction as an elementwise product and
+    a short sum), ``"pair"`` (one product per (l1, l2) pair, all its l3
+    outputs) or anything else per path; non-uniform input multiplicities
+    always take the per-path form.  ``precision`` is accepted for the JAX
+    surface and has no effect: every product is exact f32."""
+
+    COMBINED_MAX_EDGES = 4096
+    LARGE_GROUPING = "bcast"
+
+    def __init__(self, irreps_in: Irreps, irreps_sh: Irreps, target: Irreps,
+                 precision: Optional[str] = None,
+                 grouping: Optional[str] = None):
+        self.precision = precision
+        self.irreps_in = Irreps(irreps_in)
+        self.irreps_sh = Irreps(irreps_sh)
+        self.irreps_out, paths = tp_paths_uvu(self.irreps_in, self.irreps_sh,
+                                              Irreps(target))
+        if not all(p.mul_in2 == 1 for p in paths):
+            raise ValueError("EdgeTensorProductUVU: SH multiplicity must be 1")
+        # each path owns its output slot: in slot order the combined CG's M
+        # axis is the merged output layout
+        self.paths = sorted(paths, key=lambda p: p.i_out)
+        self.weight_numel = sum(p.mul_in1 for p in self.paths)
+        self.grouping = self.LARGE_GROUPING if grouping is None else grouping
+        self._sh_offsets, ix = [], 0
+        for mul, ir in self.irreps_sh:
+            self._sh_offsets.append((ix, ir.dim))
+            ix += mul * ir.dim
+        self._w_offsets = [int(o) for o in np.cumsum(
+            [0] + [p.mul_in1 for p in self.paths])[:-1]]
+        self._const = _Constants()
+        for k, p in enumerate(self.paths):
+            self._const.add(("w3j", k),
+                            wigner_3j(p.ir_in1.l, p.ir_in2.l, p.ir_out.l))
+        muls = {mul for mul, _ in self.irreps_in}
+        self._uniform_mul = muls.pop() if len(muls) == 1 else None
+        if self._uniform_mul is None:
+            return
+        self._const.add("C", _combined_cg(self.paths, self.irreps_in,
+                                          self.irreps_sh))
+        self._d3 = [p.ir_out.dim for p in self.paths]
+        # (l1, l2) pairs: every l3 output of one operand pair in one product
+        by_pair = {}
+        for k, p in enumerate(self.paths):
+            by_pair.setdefault((p.i_in1, p.i_in2), []).append(k)
+        self._pair_groups = []
+        for g, ((i1, i2), pids) in enumerate(by_pair.items()):
+            d1 = self.irreps_in[i1][1].dim
+            d2 = self.irreps_sh[i2][1].dim
+            d3s = [self.paths[k].ir_out.dim for k in pids]
+            Cg = np.zeros((d1, d2, sum(d3s)), dtype=np.float32)
+            m = 0
+            for k in pids:
+                p = self.paths[k]
+                Cg[:, :, m:m + p.ir_out.dim] = p.path_weight * wigner_3j(
+                    p.ir_in1.l, p.ir_in2.l, p.ir_out.l)
+                m += p.ir_out.dim
+            self._const.add(("pair", g), Cg)
+            self._pair_groups.append((i1, i2, pids, d3s,
+                                      [self._w_offsets[k] for k in pids]))
+
+    def apply(self, x: torch.Tensor, sh: torch.Tensor,
+              weights: torch.Tensor) -> torch.Tensor:
+        """x ``[E, irreps_in.dim]``, sh ``[E, irreps_sh.dim]``, weights
+        ``[E, weight_numel]``; returns ``[E, irreps_out.dim]``."""
+        large = x.shape[0] > self.COMBINED_MAX_EDGES
+        if self._uniform_mul is not None and not large:
+            return self._apply_combined(x, sh, weights)
+        if self._uniform_mul is not None and self.grouping == "bcast":
+            return self._apply_bcast(x, sh, weights)
+        if self._uniform_mul is not None and self.grouping == "pair":
+            return self._apply_pair_grouped(x, sh, weights)
+        return self._apply_per_path(x, sh, weights)
+
+    def _path_inputs(self, k: int, xs, sh: torch.Tensor,
+                     weights: torch.Tensor):
+        """Path ``k``'s input block ``[E, u, d1]``, SH block ``[E, d2]``, CG
+        ``[d1, d2, d3]`` and weights ``[E, u]``."""
+        p = self.paths[k]
+        off, d2 = self._sh_offsets[p.i_in2]
+        w0 = self._w_offsets[k]
+        return (xs[p.i_in1], sh[..., off:off + d2],
+                self._const.get(("w3j", k), sh),
+                weights[..., w0:w0 + p.mul_in1])
+
+    def _apply_bcast(self, x, sh, weights) -> torch.Tensor:
+        """Per path: the per-edge CG matrix ``K = sh . w3j`` ``[E, d1, d3]``,
+        then ``y = sum_a x[e, u, a] K[e, a, m]`` as an elementwise product
+        and a sum over the short ``d1`` axis, times the path weight and the
+        per-edge weights."""
+        xs = split_blocks(x, self.irreps_in)
+        outs = [None] * len(self.irreps_out)
+        for k, p in enumerate(self.paths):
+            xin, sh_blk, C, W = self._path_inputs(k, xs, sh, weights)
+            d1, d2, d3 = C.shape
+            K = (sh_blk @ C.permute(1, 0, 2).reshape(d2, d1 * d3)).reshape(
+                sh_blk.shape[0], d1, d3)
+            y = (xin[..., :, :, None] * K[..., None, :, :]).sum(-2)
+            y = p.path_weight * y * W[..., None]
+            outs[p.i_out] = y if outs[p.i_out] is None else outs[p.i_out] + y
+        return _merge_outs(outs, self.irreps_out, x)
+
+    def _apply_combined(self, x, sh, weights) -> torch.Tensor:
+        """One product over the combined CG constant ``[E, u, M]``, then each
+        slot's ``[E, u, d3]`` times its path's per-edge weights (a broadcast
+        product: its backward is a sum, not a scatter of repeats)."""
+        u = self._uniform_mul
+        e, P = x.shape[0], len(self.paths)
+        xr = _to_channel_layout(x, self.irreps_in)            # [E, u, L]
+        tmp = _stage1(xr, sh, self._const.get("C", x))        # [E, u, M]
+        W = weights.reshape(e, P, u)
+        return merge_blocks([blk * W[:, k, :, None] for k, blk in
+                             enumerate(torch.split(tmp, self._d3, dim=-1))])
+
+    def _apply_pair_grouped(self, x, sh, weights) -> torch.Tensor:
+        """One product per (l1, l2) pair over all its l3 outputs, then each
+        output's block times its path's per-edge weights."""
+        u = self._uniform_mul
+        xs = split_blocks(x, self.irreps_in)
+        outs = [None] * len(self.irreps_out)
+        for g, (i1, i2, pids, d3s, woffs) in enumerate(self._pair_groups):
+            off, d2 = self._sh_offsets[i2]
+            tmp = _stage1(xs[i1], sh[..., off:off + d2],
+                          self._const.get(("pair", g), x))    # [E, u, M_g]
+            for k, o, blk in zip(pids, woffs, torch.split(tmp, d3s, dim=-1)):
+                yk = blk * weights[..., o:o + u, None]
+                slot = self.paths[k].i_out
+                outs[slot] = yk if outs[slot] is None else outs[slot] + yk
+        return _merge_outs(outs, self.irreps_out, x)
+
+    def _apply_per_path(self, x, sh, weights) -> torch.Tensor:
+        xs = split_blocks(x, self.irreps_in)
+        outs = [None] * len(self.irreps_out)
+        for k, p in enumerate(self.paths):
+            xin, sh_blk, C, W = self._path_inputs(k, xs, sh, weights)
+            y = p.path_weight * (_stage1(xin, sh_blk, C) * W[..., None])
+            outs[p.i_out] = y if outs[p.i_out] is None else outs[p.i_out] + y
+        return _merge_outs(outs, self.irreps_out, x)
+
+
+class FullyConnectedTensorProduct(nn.Module):
+    """Fully connected tensor product with shared weights (e3nn
+    ``o3.FullyConnectedTensorProduct``, ``internal_weights=True``): the
+    interaction blocks' ``skip_tp``, with ``x2`` the one-hot species.
+    ``forward(x1 [N, irreps_in1.dim], x2 [N, irreps_in2.dim])`` returns
+    ``[N, irreps_out.dim]``.
+
+    Parameters ``w{k}`` ``[mul_in1, mul_in2, mul_out]`` per path (paths
+    sorted by output irrep), drawn from N(0, 1), the flax names.  When
+    ``x2`` is one block of even scalars and ``x1`` of one multiplicity (the
+    models' only use), the CG collapses to the identity on the ``x2`` side
+    and every output irrep is one batched product
+    (``_scalar_in2_combined``); otherwise a product per path
+    (``_per_path``).  ``node_chunk``: row blocks of that many nodes under
+    ``torch.utils.checkpoint`` (``node_blocks``)."""
+
+    def __init__(self, irreps_in1: Irreps, irreps_in2: Irreps,
+                 irreps_out: Irreps, node_chunk: Optional[int] = None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.irreps_in1 = in1 = Irreps(irreps_in1)
+        self.irreps_in2 = in2 = Irreps(irreps_in2)
+        self.irreps_out = out = Irreps(irreps_out)
+        self.node_chunk = node_chunk
+        self.paths = sorted(tp_paths(in1, in2, out), key=lambda p: p.i_out)
+        for k, p in enumerate(self.paths):
+            w = torch.empty(p.mul_in1, p.mul_in2, p.mul_out)
+            with torch.no_grad():
+                w.normal_(0.0, 1.0, generator=generator)
+            setattr(self, f"w{k}", nn.Parameter(w))
+        self._const = _Constants()
+        scalar_in2 = all(ir.l == 0 and ir.p == 1 for _, ir in in2)
+        self.combined = (scalar_in2 and len({mul for mul, _ in in1}) == 1
+                         and len(in2) == 1)
+        if self.combined:
+            self._const.add("C", _combined_cg(self.paths, in1,
+                                              Irreps("1x0e"))[:, 0, :])
+            self._m_offsets = [int(o) for o in np.cumsum(
+                [0] + [p.ir_out.dim for p in self.paths])[:-1]]
+        else:
+            for k, p in enumerate(self.paths):
+                self._const.add(("w3j", k),
+                                wigner_3j(p.ir_in1.l, p.ir_in2.l, p.ir_out.l))
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        C = self.node_chunk
+        if C is None or x1.shape[0] <= C:
+            return self._full(x1, x2)
+        return node_blocks(self._full, C, x1, x2)
+
+    def _full(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if self.combined:
+            return self._scalar_in2_combined(x1, x2)
+        return self._per_path(x1, x2)
+
+    def _scalar_in2_combined(self, x1, x2) -> torch.Tensor:
+        """``x2`` ``[N, v]`` scalars: the combined CG over ``x1`` alone (the
+        scalar side's CG is 1), then per output irrep one batched product
+        over ``k = (path, u)`` with the weights folded over ``v``."""
+        u, n = self.irreps_in1[0][0], x1.shape[0]
+        v = self.irreps_in2[0][0]
+        xr = _to_channel_layout(x1, self.irreps_in1)          # [N, u, L]
+        tmp = xr @ self._const.get("C", x1)                  # [N, u, M]
+        outs = [None] * len(self.irreps_out)
+        for i_out, (mul_o, ir_o) in enumerate(self.irreps_out):
+            pids = [k for k, p in enumerate(self.paths) if p.i_out == i_out]
+            if not pids:
+                continue
+            d3, n_p = ir_o.dim, len(pids)
+            T = torch.stack([tmp[..., self._m_offsets[k]:self._m_offsets[k] + d3]
+                             for k in pids], dim=-2)          # [N, u, P, d3]
+            T = T.transpose(-3, -2).reshape(n, n_p * u, d3)   # [N, (p,u), d3]
+            W = torch.stack([getattr(self, f"w{k}") for k in pids])  # [P,u,v,w]
+            Wx = (x2 @ W.permute(2, 0, 1, 3).reshape(v, n_p * u * mul_o)
+                  ).reshape(n, n_p * u, mul_o)                # [N, (p,u), w]
+            outs[i_out] = torch.bmm(Wx.transpose(1, 2), T)    # [N, w, d3]
+        return _merge_outs(outs, self.irreps_out, x1)
+
+    def _per_path(self, x1, x2) -> torch.Tensor:
+        xs1 = split_blocks(x1, self.irreps_in1)
+        xs2 = split_blocks(x2, self.irreps_in2)
+        outs = [None] * len(self.irreps_out)
+        for k, p in enumerate(self.paths):
+            y = p.path_weight * torch.einsum(
+                "nua,nvb,abm,uvw->nwm", xs1[p.i_in1], xs2[p.i_in2],
+                self._const.get(("w3j", k), x1), getattr(self, f"w{k}"))
+            outs[p.i_out] = y if outs[p.i_out] is None else outs[p.i_out] + y
+        return _merge_outs(outs, self.irreps_out, x1)

@@ -231,16 +231,81 @@ def mace_from_jax(variables: Mapping[str, Any],
             sd[f"prods.{i}.linear.{key}"] = _t(leaf)
         for key, leaf in prod["SymmetricContraction_0"].items():
             sd[f"prods.{i}.symmetric_contraction.{key}"] = _t(leaf)
-        sc = model.prods[i].symmetric_contraction
-        jax_u = tables.get(f"prod_{i}", {}).get("SymmetricContraction_0", {})
-        for nu in sc.names:
-            mine = getattr(sc, f"u{nu}").detach().cpu().double().numpy()
-            theirs = np.asarray(jax_u.get(f"u{nu}", np.zeros(0)), np.float64)
-            if theirs.shape != mine.shape or np.abs(theirs - mine).max() > 1e-6:
-                raise ValueError(f"prod_{i}: the JAX U table u{nu} "
-                                 f"{theirs.shape} differs from the port's "
-                                 f"{mine.shape}")
+        _check_u_tables(model.prods[i].symmetric_contraction,
+                        tables.get(f"prod_{i}", {}), f"prod_{i}")
     _readout(sd, params)
+    return sd
+
+
+def _check_u_tables(sc: torch.nn.Module, tables: Mapping[str, Any],
+                    where: str) -> None:
+    """The JAX ``u_tables`` of one product block
+    (``SymmetricContraction_0/u{nu}``) against the port's U buffers of
+    ``sc``, to 1e-6; ``ValueError`` otherwise."""
+    jax_u = tables.get("SymmetricContraction_0", {})
+    for nu in sc.names:
+        mine = getattr(sc, f"u{nu}").detach().cpu().double().numpy()
+        theirs = np.asarray(jax_u.get(f"u{nu}", np.zeros(0)), np.float64)
+        if theirs.shape != mine.shape or np.abs(theirs - mine).max() > 1e-6:
+            raise ValueError(f"{where}: the JAX U table u{nu} "
+                             f"{theirs.shape} differs from the port's "
+                             f"{mine.shape}")
+
+
+def _leaves(sd: Dict[str, torch.Tensor], prefix: str,
+            tree: Mapping[str, Any]) -> None:
+    """Every leaf of a flax subtree under the same names at ``prefix``
+    (``a/b/w0`` as ``prefix.a.b.w0``)."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            _leaves(sd, f"{prefix}.{key}", leaf)
+        else:
+            sd[f"{prefix}.{key}"] = _t(leaf)
+
+
+def mace_ff_from_jax(variables: Mapping[str, Any],
+                     model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """State dict for ``model`` (a ``models.mace_ff.MACEForceField``) from the
+    variables of the JAX ``MACEForceField``, edge-chunked or not (both have
+    one tree): ``params/node_embedding/w0_0``,
+    ``params/interaction_i/{linear_up, conv_tp_weights/w*, linear,
+    skip_tp/w*}``, ``params/product_i/{IrrepsLinear_0,
+    SymmetricContraction_0}`` and ``params/readout_i``.  The JAX
+    ``u_tables`` must equal ``model``'s U buffers to 1e-6; ``ValueError``
+    otherwise.  ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    tables = variables.get("u_tables", {})
+    sd: Dict[str, torch.Tensor] = {}
+    _leaves(sd, "node_embedding", params["node_embedding"])
+    n_layers = sum(1 for k in params if k.startswith("interaction_"))
+    for i in range(n_layers):
+        _leaves(sd, f"interactions.{i}", params[f"interaction_{i}"])
+        prod = params[f"product_{i}"]
+        _leaves(sd, f"products.{i}.linear", prod["IrrepsLinear_0"])
+        _leaves(sd, f"products.{i}.symmetric_contraction",
+                prod["SymmetricContraction_0"])
+        _check_u_tables(model.products[i].symmetric_contraction,
+                        tables.get(f"product_{i}", {}), f"product_{i}")
+        _leaves(sd, f"readouts.{i}", params[f"readout_{i}"])
+    return sd
+
+
+def tfn_ff_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.tfn_ff.TFNForceField`` from the variables of
+    the JAX ``TFNForceField``, edge-chunked or not:
+    ``params/emb_in/embedding``, ``params/interaction_i/{linear_up,
+    conv_tp_weights/w*, linear, skip_tp/w*}``, ``params/gates_i`` and
+    ``params/Dense_0``, ``params/Dense_1``.
+    ``load_state_dict(..., strict=True)`` accepts the result."""
+    params = variables["params"]
+    sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
+    for key, tree in params.items():
+        if key.startswith("interaction_"):
+            _leaves(sd, f"interactions.{key[len('interaction_'):]}", tree)
+        elif key.startswith("gates_"):
+            _dense(sd, f"gates.{key[len('gates_'):]}", tree)
+    _dense(sd, "dense_0", params["Dense_0"])
+    _dense(sd, "dense_1", params["Dense_1"])
     return sd
 
 

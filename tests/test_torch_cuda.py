@@ -1357,3 +1357,68 @@ def test_mace_train_step_on_card_matches_cpu(cuda_device):
     for name, ref in results["cpu"][3].items():
         torch.testing.assert_close(results["cuda"][3][name], ref, rtol=1e-5,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MACE's force fields: K4 at the convolutions' chunk widths, a box step
+# ---------------------------------------------------------------------------
+
+# the 10k box's chunk sums: 16384 rows into 10k nodes, D tp.irreps_out.dim
+# of MACE-FF's layers 0 / 1 (1024, 6336) and TFN-FF's (576, 2240); the
+# padded tail chunk keeps 14536 live rows
+FF_K4_CASES = [(16384, 10_000, d, live) for d in (1024, 6336, 576, 2240)
+               for live in (16384, 14536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,d,live", FF_K4_CASES)
+def test_segment_sum_at_force_field_widths(cuda_device, e, n, d, live):
+    """K4 (the scan route, one launch) at the chunk sums' shapes: within
+    SEG_TOL of the plain version, bitwise equal twice."""
+    assert sss.segsum_route(e, n)[0] == "scan"
+    rng = np.random.default_rng(d + live)
+    seg = torch.from_numpy(rng.integers(0, n, e)).to(cuda_device)
+    mask = torch.from_numpy(np.arange(e) < live).to(cuda_device)
+    data = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(
+        cuda_device)
+    before = sss.segment_sum.launches
+    with torch.no_grad():
+        first = sss.segment_sum(data, seg, n, mask)
+        second = sss.segment_sum(data, seg, n, mask)
+        want = sss.sorted_segment_sum_plain(data, seg, n, mask)
+    torch.cuda.synchronize()
+    assert sss.segment_sum.launches == before + 2
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, want, atol=SEG_TOL, rtol=SEG_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mace_ff", "tfn_ff"])
+def test_force_field_box_step_on_card_matches_cpu(cuda_device, name):
+    """A narrow force field (emb 8; edge chunks of 4100 over the 8064 edges
+    of a 700-atom box: the bcast form and a padded tail; MACE-FF in node
+    blocks of 300) one bench_scale step: K4 exactly
+    ``ff_k4_launches_per_step`` times, gradients within 1e-4 of each
+    parameter's max(|ref|, 1) of the CPU's plain step, and twice on the
+    card bitwise equal."""
+    box = bench_scale.box_batch(700, sort=False)
+    cfg = dict(bench_scale.config(name, 700), emb_dim=8, edge_chunk=4100)
+    if name == "mace_ff":
+        cfg["node_chunk"] = 300
+    deg = bench_scale.mean_degree(box)
+    grads = {}
+    for run, dev in (("cuda", cuda_device), ("cuda again", cuda_device),
+                     ("cpu", torch.device("cpu"))):
+        model = bench_scale.build(name, cfg, torch.Generator().manual_seed(0),
+                                  dev, avg_deg=deg)
+        before = sss.segment_sum.launches
+        bench_scale.make_step(model, box.to(dev))()
+        launched = sss.segment_sum.launches - before
+        if dev.type == "cuda":
+            assert launched == bench_scale.ff_k4_launches_per_step(
+                name, cfg["num_layers"], bench_scale.edge_chunks(cfg, box))
+        grads[run] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    for n, ref in grads["cpu"].items():
+        assert torch.equal(grads["cuda"][n], grads["cuda again"][n]), n
+        torch.testing.assert_close(grads["cuda"][n], ref, rtol=0,
+                                   atol=1e-4 * max(ref.abs().max().item(), 1))

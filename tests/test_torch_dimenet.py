@@ -280,4 +280,5 @@ def test_bench_scale_row_steps_on_a_small_box():
                               "cpu")
     loss = bench_scale.make_step(model, box)()
     assert np.isfinite(loss.item())
-    assert bench_scale.dimenet_steps(40) == 4 and bench_scale.dimenet_steps(4) == 2
+    assert (bench_scale.model_steps("dimenet", 40) == 4
+            and bench_scale.model_steps("dimenet", 4) == 2)

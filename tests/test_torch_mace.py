@@ -193,10 +193,16 @@ def test_product_basis_block_matches_jax():
     np.testing.assert_allclose(
         tm(torch.from_numpy(x), torch.from_numpy(skip)).detach().numpy(),
         want, atol=ATOL, rtol=RTOL)
-    for kw, match in ((dict(node_chunk=4), "node_chunk"),
-                      (dict(tp_axis="tp"), "tensor parallelism")):
-        with pytest.raises(NotImplementedError, match=match):
-            conv.EquivariantProductBasisBlock(h, h, 3, generator=_gen(), **kw)
+    # node blocks of 4 over the 6 nodes (box scale) give the same values
+    blocked = conv.EquivariantProductBasisBlock(h, h, 3, node_chunk=4,
+                                                generator=_gen())
+    _load(blocked, sd)
+    np.testing.assert_allclose(
+        blocked(torch.from_numpy(x), torch.from_numpy(skip)).detach().numpy(),
+        want, atol=ATOL, rtol=RTOL)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        conv.EquivariantProductBasisBlock(h, h, 3, generator=_gen(),
+                                          tp_axis="tp")
 
 
 def _graphs(num=4, seed=0, in_dim=2):

@@ -74,7 +74,11 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.examples",
                    "geometric_message_passing_tpu_torch.examples.kchains",
                    "geometric_message_passing_tpu_torch.examples.rotsym",
-                   "geometric_message_passing_tpu_torch.examples.incompleteness"):
+                   "geometric_message_passing_tpu_torch.examples.incompleteness",
+                   "geometric_message_passing_tpu_torch.nn.mace_blocks",
+                   "geometric_message_passing_tpu_torch.models.mace_ff",
+                   "geometric_message_passing_tpu_torch.models.tfn_ff",
+                   "geometric_message_passing_tpu_torch.entry"):
         assert module in res["imported"]
 
 
