@@ -1,5 +1,7 @@
 """Synthetic geometric-graph generators — host-side, numpy (port of
-``datasets.py``): the star graphs, the expressivity benchmarks (k-chains,
+``datasets.py``): the star graphs and their paired variants (the stars
+with labelled spoke pairs, with two centres, and the complete graphs with
+labelled pairs), the expressivity benchmarks (k-chains,
 the rotationally symmetric stars, the incompleteness environment pairs, the
 invariant-rotations probe) and the molecular boxes.
 
@@ -23,6 +25,9 @@ from .ops.radius_graph import radius_graph
 
 __all__ = [
     "create_star_graphs",
+    "create_paired_star_graphs",
+    "create_paired_star_graphs_with_two_centers",
+    "create_paired_complete_graphs",
     "create_kchains",
     "create_rotsym_envs",
     "create_two_body_envs",
@@ -79,11 +84,16 @@ def _random_spokes(rnd: random.Random, n_spoke: int, dim: int) -> List[np.ndarra
     return pos
 
 
-def _shear_and_normalize(rnd: random.Random,
-                         pos: List[np.ndarray]) -> List[np.ndarray]:
-    """Random shear toward the average vector, then unit-normalize spokes."""
+def _shear_and_normalize(rnd: random.Random, pos: List[np.ndarray],
+                         keep_tail: int = 0) -> List[np.ndarray]:
+    """Random shear toward the average vector, then unit-normalize spokes.
+    ``keep_tail`` positions at the end are left as they are (the second
+    centre of the two-centre stars)."""
     avg = sum(pos)
     alpha = rnd.uniform(-1, 2)
+    if keep_tail:
+        body = [p + alpha * avg for p in pos[1:-keep_tail]]
+        return pos[:1] + [v / np.linalg.norm(v) for v in body] + pos[-keep_tail:]
     body = [p + alpha * avg for p in pos[1:]]
     return pos[:1] + [v / np.linalg.norm(v) for v in body]
 
@@ -113,6 +123,104 @@ def create_star_graphs(num=5, fold=(3,), dim=3, target="max", seed=0) -> List[Gr
         pos = _shear_and_normalize(rnd, _random_spokes(rnd, n_spoke, dim))
         angles = [_angle(v1, v2) for v1, v2 in itertools.combinations(pos[1:], 2)]
         y = np.array([max(angles) if target == "max" else sum(angles) / len(angles)],
+                     dtype=np.float32)
+        dataset.append(Graph(atoms, to_undirected(edge_index), np.stack(pos), y))
+    return dataset
+
+
+def _pair_atoms(n_pairs: int, n_rest: int) -> List[int]:
+    """Atom types: the centre 0, pair i's two spokes i + 1, the rest
+    n_pairs + 1."""
+    labels = [0]
+    for i in range(n_pairs):
+        labels += [i + 1] * 2
+    labels += [n_pairs + 1] * n_rest
+    return labels
+
+
+def _check_paired(dim: int, n_pairs: int, smallest: int, need: int) -> None:
+    if dim not in (2, 3):
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
+    if n_pairs * 2 + need > smallest:
+        raise ValueError(f"{n_pairs} pairs need graphs of at least "
+                         f"{n_pairs * 2 + need} spokes or nodes, got {smallest}")
+
+
+def _pair_angles(spokes: List[np.ndarray], n_pairs: int,
+                 origin: np.ndarray = None) -> List[float]:
+    """The angle within each pair of spokes, seen from ``origin`` (the
+    centre at 0 when None)."""
+    if origin is not None:
+        spokes = [s - origin for s in spokes]
+    return [_angle(spokes[2 * j], spokes[2 * j + 1]) for j in range(n_pairs)]
+
+
+def create_paired_star_graphs(num=5, fold=(5,), dim=3, n_pairs=2,
+                              seed=0) -> List[Graph]:
+    """Stars whose first ``2 n_pairs`` spokes form labelled pairs; targets:
+    the angle at the centre within each pair."""
+    _check_paired(dim, n_pairs, min(fold), 0)
+    rnd = random.Random(seed)
+    dataset = []
+    for _ in range(num):
+        n_spoke = rnd.choice(list(fold))
+        atoms = np.array(_pair_atoms(n_pairs, n_spoke - 2 * n_pairs),
+                         dtype=np.int32)
+        edge_index = _star_edges(n_spoke)
+        pos = _shear_and_normalize(rnd, _random_spokes(rnd, n_spoke, dim))
+        y = np.array(_pair_angles(pos[1:2 * n_pairs + 1], n_pairs),
+                     dtype=np.float32)
+        dataset.append(Graph(atoms, to_undirected(edge_index), np.stack(pos), y))
+    return dataset
+
+
+def create_paired_star_graphs_with_two_centers(num=5, fold=(5,), dim=3,
+                                               n_pairs=2,
+                                               seed=0) -> List[Graph]:
+    """Paired stars with a second centre (the last node, unsheared) joined
+    to every spoke; targets: each pair's angle at the first centre, then at
+    the second (``2 n_pairs`` columns)."""
+    _check_paired(dim, n_pairs, min(fold), 0)
+    rnd = random.Random(seed)
+    dataset = []
+    for _ in range(num):
+        n_spoke = rnd.choice(list(fold))
+        atoms = np.array(_pair_atoms(n_pairs, n_spoke - 2 * n_pairs) + [0],
+                         dtype=np.int32)
+        edge_index = np.array([[0] * n_spoke + [n_spoke + 1] * n_spoke,
+                               list(range(1, n_spoke + 1)) * 2], dtype=np.int32)
+        # n_spoke + 1 random points; the last becomes the second centre
+        pos = _shear_and_normalize(
+            rnd, _random_spokes(rnd, n_spoke + 1, dim), keep_tail=1)
+        spokes = pos[1:2 * n_pairs + 1]
+        y = np.array(_pair_angles(spokes, n_pairs)
+                     + _pair_angles(spokes, n_pairs, origin=pos[-1]),
+                     dtype=np.float32)
+        dataset.append(Graph(atoms, to_undirected(edge_index), np.stack(pos), y))
+    return dataset
+
+
+def create_paired_complete_graphs(num=5, n_nodes=(6,), dim=3, n_pairs=2,
+                                  seed=0) -> List[Graph]:
+    """Complete graphs of ``n_nodes`` nodes: the origin and random unit
+    points (no fixed first spoke), the first ``2 n_pairs`` of them in
+    labelled pairs; targets: each pair's angle at the origin."""
+    _check_paired(dim, n_pairs, min(n_nodes), 1)
+    rnd = random.Random(seed)
+    dataset = []
+    for _ in range(num):
+        n_node = rnd.choice(list(n_nodes))
+        atoms = np.array(_pair_atoms(n_pairs, n_node - 2 * n_pairs - 1),
+                         dtype=np.int32)
+        edge_index = np.array(
+            [[i for i in range(n_node) for j in range(i + 1, n_node)],
+             [j for i in range(n_node) for j in range(i + 1, n_node)]],
+            dtype=np.int32)
+        # _random_spokes' draws without its fixed first spoke
+        pos = _random_spokes(rnd, n_node, dim)
+        pos = pos[:1] + pos[2:]
+        pos = _shear_and_normalize(rnd, pos)
+        y = np.array(_pair_angles(pos[1:2 * n_pairs + 1], n_pairs),
                      dtype=np.float32)
         dataset.append(Graph(atoms, to_undirected(edge_index), np.stack(pos), y))
     return dataset

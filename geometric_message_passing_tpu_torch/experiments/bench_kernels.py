@@ -61,8 +61,9 @@ and K4 took their scan route and in-kernel mask.
 * ``segsum``: every K4 (``sorted_segsum.segment_sum``) and fold
   (``sorted_fold``) call of one train step and one predict batch of each
   star model at its main path's configuration (egnn per layer and whole
-  stack, gvp, tfn, mace, dimenet, spherenet) and of the expressivity arms'
-  batches (``EXPRESSIVITY_MODELS``; ``capture_star_shapes``), each
+  stack, gvp, tfn, mace, dimenet, spherenet), of the expressivity arms'
+  batches (``EXPRESSIVITY_MODELS``) and of the regression CLI's paired-star
+  configurations (``CLI_MODELS``; ``capture_star_shapes``), each
   distinct shape once: E, N, D, live rows, the longest segment; the call
   by the profiler (device ms and launches a call, the segment-sum kernels
   apart), by events (whole call) and by the host clock (microseconds a
@@ -795,12 +796,47 @@ EXPRESSIVITY_MODELS = {
                                      correlation=3, mlp_dim=32, pool="sum"),
                         "three_body")}
 
+# The regression CLI's configurations as ``chip_smoke.py`` phases 7a-7d run
+# them (1500 paired stars on fold 7, two pairs, batch 100): EGNN on the
+# two-centre stars and on the one-centre stars (in_dim 4: the atom types'
+# embedding gradient), and MACE with the mean pool over graph ids.
+CLI_PAIRED = ["--n_pairs", "2", "--fold", "7", "--n_data", "1500"]
+CLI_MODELS = {
+    "cli egnn paired_star2": ["--model", "egnn", "--dataset", "paired_star2",
+                              "--n_layers", "4", "--pool", "first"]
+    + CLI_PAIRED,
+    "cli egnn paired_star": ["--model", "egnn", "--dataset", "paired_star",
+                             "--n_layers", "4", "--pool", "first"] + CLI_PAIRED,
+    "cli mace paired_star": ["--model", "mace", "--dataset", "paired_star",
+                             "--pool", "mean", "--n_layers", "2", "--max_ell",
+                             "3"] + CLI_PAIRED}
+
+
+def cli_models(dev) -> dict:
+    """Each ``CLI_MODELS`` entry built as the CLI builds it (``make_dataset``,
+    ``make_loaders``, ``make_model_func``; weights from seed 0), with its
+    first train batch and first test batch on ``dev``."""
+    from geometric_message_passing_tpu_torch.experiments import cli
+
+    out = {}
+    for label, argv in CLI_MODELS.items():
+        args = cli.build_parser().parse_args(argv)
+        data, model_args = cli.make_dataset(args)
+        loaders = cli.make_loaders(args, data)
+        model = cli.make_model_func(args)(
+            **model_args, generator=torch.Generator().manual_seed(0),
+            device=dev)
+        out[label] = (model, (next(iter(loaders[0])).to(dev),
+                              next(iter(loaders[2])).to(dev)))
+    return out
+
 
 def star_models(dev) -> dict:
     """Each star model at its main path's configuration with weights from
     seed 0, and its (train batch, predict batch) on the card; then each
     ``EXPRESSIVITY_MODELS`` entry with its one batch (k = 4 chains, the
-    environment pairs) as both."""
+    environment pairs) as both, and each ``CLI_MODELS`` entry
+    (``cli_models``)."""
     from geometric_message_passing_tpu_torch import datasets
     from geometric_message_passing_tpu_torch.experiments import (
         bench_throughput as bt)
@@ -835,6 +871,7 @@ def star_models(dev) -> dict:
         model = model_registry[name](**kw, in_dim=1, out_dim=2,
                                      generator=gen(), device=dev)
         out[label] = (model, (batch, batch))
+    out.update(cli_models(dev))
     return out
 
 

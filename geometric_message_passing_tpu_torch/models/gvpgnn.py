@@ -47,7 +47,8 @@ class _DropoutRNG:
     """One dropout generator per device, seeded with ``seed``.  A deep copy
     (``fit_regression`` trains one) starts again from the seed;
     ``fit_resident`` calls ``reseed`` with a seed drawn from its own, so the
-    masks follow the fit's seed, as the JAX package's dropout stream does."""
+    masks follow the fit's seed, as the JAX package's dropout stream does.
+    ``state`` and ``set_state`` carry the stream across a checkpoint."""
 
     def __init__(self, seed: int):
         self.seed = seed
@@ -56,6 +57,20 @@ class _DropoutRNG:
     def reseed(self, seed: int) -> None:
         self.seed = seed
         self._gens.clear()
+
+    def state(self) -> dict:
+        """The seed and each device generator's state (CPU byte tensors)."""
+        return {"seed": self.seed,
+                "gens": {str(dev): gen.get_state()
+                         for dev, gen in self._gens.items()}}
+
+    def set_state(self, state: dict) -> None:
+        """Put the generators back where ``state`` found them."""
+        self.reseed(int(state["seed"]))
+        for dev, gen_state in state["gens"].items():
+            gen = torch.Generator(device=dev)
+            gen.set_state(gen_state.cpu())
+            self._gens[torch.device(dev)] = gen
 
     def __call__(self, device: torch.device) -> torch.Generator:
         gen = self._gens.get(device)

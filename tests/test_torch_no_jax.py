@@ -78,7 +78,13 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.nn.mace_blocks",
                    "geometric_message_passing_tpu_torch.models.mace_ff",
                    "geometric_message_passing_tpu_torch.models.tfn_ff",
-                   "geometric_message_passing_tpu_torch.entry"):
+                   "geometric_message_passing_tpu_torch.entry",
+                   "geometric_message_passing_tpu_torch.experiments.cli",
+                   "geometric_message_passing_tpu_torch.experiments.ledger",
+                   "geometric_message_passing_tpu_torch.experiments.seed_spread",
+                   "geometric_message_passing_tpu_torch.utils",
+                   "geometric_message_passing_tpu_torch.utils.checkpoint",
+                   "geometric_message_passing_tpu_torch.utils.debug"):
         assert module in res["imported"]
 
 

@@ -204,13 +204,18 @@ def test_unported_options_raise(monkeypatch):
     loaders = _loaders(tgraph.random_split(tdata, [0.5, 0.25, 0.25]), tgraph,
                        tgraph.pad_sizes(tdata, 4), 4)
     model = EGNNFusedModel(**KW, device="cpu")
-    # the cosine schedule is ported (test_fit_regression_tracks_jax_for_3_epochs)
-    for kw in (dict(loss_mask=True),
-               dict(checkpoint_dir="ckpt", checkpoint_every=1),
-               dict(nan_recovery=True)):
-        with pytest.raises(NotImplementedError):
+    # loss_mask, checkpointing and NaN recovery are ported
+    # (tests/test_torch_train_options.py, tests/test_torch_checkpoint.py);
+    # NaN recovery without checkpoints is refused, as the JAX package does
+    for kw in (dict(nan_recovery=True),
+               dict(nan_recovery=True, checkpoint_every=1),
+               dict(nan_recovery=True, checkpoint_dir="never-written")):
+        with pytest.raises(ValueError, match="requires checkpointing"):
             ttrain.fit_regression(model, None, *loaders, n_epochs=1,
                                   device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ttrain.run_experiment_reg(EGNNFusedModel, KW, *loaders, n_epochs=1,
+                                  n_times=1, device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.fit_regression(model, None, *loaders, n_epochs=1)
