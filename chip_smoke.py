@@ -177,13 +177,14 @@ Phases; any failure raises and the script exits non-zero:
      K6 forward (train steps + validation batches + test batches of the
      fired epochs) times, K6 backward (train steps) times, nothing else;
      test MAE finite and below 0.2; train_time and test MAE beside phase 6's;
-  6g. TFN training, the main path: one 200-epoch ``fit_regression`` of the
+  6g. TFN training, the main path: one 100-epoch ``fit_regression`` of the
      phase-4d model (lr 5e-4, shuffle seed 1), counters set to 0 just before
      and read just after: K7 forward 4 x (train steps + validation batches
      + test batches of the fired epochs), backward 4 x train steps, K4 4 x
      the forward calls + 1 x train steps (the embedding's gradient), nothing
-     else; test MAE finite and below 0.09,
-     printed beside the JAX package's 0.0637 +- 0.0010 and the reference's
+     else; test MAE finite and below 0.09 (the JAX number's 200 epochs cut
+     to 100 for time; three 100-epoch repeats on the H100 0.07556-0.08148,
+     ``seed_spread.py``), printed beside the JAX package's 0.0637 +- 0.0010 and the reference's
      0.0667;
   6d. GVP training, the main path: a 50-epoch ``fit_regression`` of the
      phase-4b model with dropout on, counters set to 0 just before and read
@@ -283,17 +284,54 @@ Phases; any failure raises and the script exits non-zero:
      forward and 1 per train step (the embedding's gradient), nothing else;
      test MAE below 0.11 (three 300-epoch repeats on the H100
      0.09933-0.10319; the JAX package at 600 epochs 0.0831 +- 0.0007);
-  6j. SphereNet star run: folds 5-7, 2 layers, 200 epochs under the
-     protocol of the JAX package's number (1500 graphs, lr 5e-4, cosine
-     schedule): K3 2 per forward, K4 4 per forward and 1 per train step;
-     test MAE below 0.10 (the JAX package 0.0798 +- 0.0049);
+  6j. SphereNet star run: folds 5-7, 2 layers, 100 epochs (the JAX
+     number's 200, cut for time) under the protocol of the JAX package's
+     number (1500 graphs, lr 5e-4, cosine schedule): K3 2 per forward, K4 4
+     per forward and 1 per train step; test MAE below 0.115 (three
+     100-epoch repeats on the H100 0.08836-0.10590; the JAX package at 200
+     epochs 0.0798 +- 0.0049);
   6k. ``bench_scale``'s dimenet step: one step on a 1000-atom box
      (triplet_chunk a third of its triplets, heads drawn) on the card
      against the CPU float64 run, each gradient within 1e-2 of its largest
      entry, with the fold's plan shifted by one row as a planted fault;
-     then the 10k-atom box at ``bench_scale.config('dimenet', 10_000)`` (4
-     layers, triplet_chunk 262144: 7 chunks): a warm step and 4 timed, K3
-     4 x 7 and K4 7 per step, ms per step and peak device memory;
+     then, from the same weights against the same float64 run, the 100k
+     rule's schedule (``remat_blocks``, ``rbf_in_chunk``, edge and triplet
+     chunks of about a third that do not divide the rows,
+     ``dimenet_chunk_checks``; a planted fault: the output blocks' chunk sum
+     without its shorter tail chunk), then with ``remat_full_blocks``, then
+     with ``chunk_output_blocks=False``, each step's K3 and K4 launches
+     exactly ``bench_scale.dimenet_launches_per_step``; then the 10k-atom
+     box at ``bench_scale.config('dimenet', 10_000)`` (4 layers,
+     triplet_chunk 262144: 7 chunks, their rows kept): a warm step and 4
+     timed (``box_run``), K3 4 x 7 and K4 7 per step
+     (``dimenet_launches_per_step``), ms per step and peak device memory;
+  6o. DimeNet++ at ``bench_scale.config('dimenet', 100_000)`` (edge chunks
+     65536, ``remat_blocks``, ``rbf_in_chunk``) on the unsorted 100k-atom
+     box (1,350,872 edges, its triplets built on the host and timed apart):
+     first K3 and K4 at the row's shapes against their plain versions
+     (SEG_TOL, bitwise repeatable; random rows): the first and the last
+     triplet chunk's fold (262144 rows into the [1,350,872, 64]
+     accumulator) and the first and last output chunk's sum (65536 rows
+     into 100k nodes, [.., 128]); then a warm step, then two with the
+     counters set to 0 just before and read just after: K3 and K4 exactly
+     ``dimenet_launches_per_step``, nothing else; every loss finite; ms per
+     step, triplets/s, peak device memory;
+  6p. SphereNet (``bench_scale.config('spherenet')``, 4 layers) one step on
+     a 500-atom box, triplet and quad chunks of about a third, on the card
+     against the CPU float64 run (1e-2 of each largest entry; a planted
+     fault: the triplet fold without its last chunk), K3 and K4 exactly
+     ``spherenet_launches_per_step``; then the 10k-atom box with its quads
+     (built on the host and timed apart): a warm step and two counted, as
+     6o;
+  6q. ``egnn_fused`` (4 x 128) one step on the unsorted 2000-atom box on the
+     card against the CPU float64 run (a planted fault: K1's packed weights
+     cut off from the gradient), K1 4, K2 4, K4 2
+     (``fused_launches_per_step``); then the unsorted 100k-atom box: K1 and
+     K2 at 1,350,872 edges on the inputs layer 0 gets in a step there (its
+     h, positions and packed weights, and the cotangents its backward gets)
+     against their plain versions at phase 3's tolerances (K2 as at N 10k:
+     ``check_bwd_case(large=True)``), then a warm step and 4 counted, as
+     6o;
   4g. MACE serving: ``Predictor(MACEModel)`` at ``bench.MACE_STAR`` (2
      layers, max_ell 3, correlation 3, emb_dim 64, mlp_dim 256, batch norm,
      residual, pool "first") over its 1500 star graphs (fold [7], seed 0),
@@ -382,11 +420,12 @@ Phases; any failure raises and the script exits non-zero:
      200 epochs (the protocol of the JAX package's 0.0275 +- 0.0013):
      test MAE at most 0.040; time and K7 / K4 launches printed;
   8. summary: one JSON line of kernels (each with its launches in the CLI
-     runs), then the device line last.
+     runs; K1-K4 with their launches a step on the box rows of 6k and
+     6o-6q), then the device line last.
 
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f,
 4g, 4h, 5, 5b, 5c, 5d, 5e, 5f, 5g, 5h, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j,
-6k, 6l, 6n, 6m, 7a, 7b, 7c, 7d, 8.
+6k, 6o, 6p, 6q, 6l, 6n, 6m, 7a, 7b, 7c, 7d, 8.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
@@ -426,6 +465,7 @@ from geometric_message_passing_tpu_torch.experiments.train import (
 from geometric_message_passing_tpu_torch.graph import (
     Graph, GraphLoader, assemble_batch, build_slot_data, pad_sizes)
 from geometric_message_passing_tpu_torch import datasets
+from geometric_message_passing_tpu_torch.triplets import attach_triplets
 from geometric_message_passing_tpu_torch.models import (
     DimeNetPPModel, EGNNFusedModel, GVPGNNModel, MACEForceField,
     SphereNetModel, TFNModel, egnn_fused, gvpgnn, model_registry)
@@ -460,6 +500,16 @@ N_GRAPHS, BATCH, LAYERS, WIDTH = 1400, 100, 4, 128
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+T0 = time.perf_counter()
+PHASE_START = {}      # phase -> seconds since the import (the summary's)
+
+
+def mark(phase: str) -> None:
+    """Note and log when ``phase`` starts, in seconds since the import."""
+    PHASE_START[phase] = time.perf_counter() - T0
+    log(f"[time] phase {phase} at {PHASE_START[phase]:.2f} s")
 
 
 def kernels_only_ms(args, iters: int = 50) -> float:
@@ -1251,7 +1301,9 @@ TFN_NARROW = dict(num_layers=2, emb_dim=16)   # a step held to float64
 def tfn_model(device, **kw):
     """TFN at its star configuration (``kw`` overrides), weights from seed 0."""
     return _tfn_model(torch.Generator().manual_seed(0), device, **kw)
-TFN_EPOCHS, TFN_MAE_MAX = 200, 0.09
+# 6g: the JAX number's 200 epochs cut to 100 for time; three 100-epoch
+# repeats on the H100 0.07897 +- 0.00250 (experiments/seed_spread.py)
+TFN_EPOCHS, TFN_MAE_MAX = 100, 0.09
 TFN_JAX_MAE, TFN_JAX_SD, TFN_REF_MAE = 0.0637, 0.0010, 0.0667
 K7_TOL, K7_TOL_BF16 = 2e-5, 3e-2   # the JAX test's, x max(|ref|, 1)
 K7_PLAIN_TOL = 1e-3   # full-width step, K7/K4 vs the plain twins, both f32
@@ -1476,12 +1528,13 @@ def plain_tfn_twins():
 # ---------------------------------------------------------------------------
 
 TRIPLET_STEP_TOL = 2e-4     # the CPU tests': of each parameter's max(|ref|, 1)
-# 6i and 6l are cut to half the JAX numbers' epochs to keep the script
-# inside its time limit on the slower hosts; each bound is set from three
-# repeats at the cut depth on the H100 (experiments/seed_spread.py, PERF.md)
+# 6i, 6j (and 6g, 6l) are cut to half the JAX numbers' epochs to keep the
+# script inside its time limit on the slower hosts; each bound is set from
+# three repeats at the cut depth on the H100 (experiments/seed_spread.py,
+# PERF.md)
 DIMENET_EPOCHS, DIMENET_MAE_MAX = 300, 0.11   # 0.10141 +- 0.00159; JAX, 600:
 DIMENET_JAX_MAE, DIMENET_JAX_SD = 0.0831, 0.0007   # RESULTS.md
-SPHERENET_EPOCHS, SPHERENET_MAE_MAX = 200, 0.10
+SPHERENET_EPOCHS, SPHERENET_MAE_MAX = 100, 0.115  # 0.09788 +- 0.00724
 SPHERENET_JAX_MAE, SPHERENET_JAX_SD = 0.0798, 0.0049  # folds 5-7, 2 layers
 DIMENET_BOX_ATOMS, DIMENET_CHECK_ATOMS = 10_000, 1_000
 TRIPLET_MODELS = {"dimenet": (DimeNetPPModel, DIMENET_STAR),
@@ -1868,6 +1921,335 @@ MACE_NARROW = dict(emb_dim=16)      # a step held to float64 (2 layers)
 MACE_STAR_EPOCHS, MACE_MAE_MAX = 100, 0.09    # 0.08160 +- 0.00040
 MACE_JAX_MAE, MACE_JAX_SD = 0.0766, 0.0013    # RESULTS.md:189
 MACE_SERVE_CALLS = 5
+
+
+# ---------------------------------------------------------------------------
+# The box-scale rows of DimeNet++, SphereNet and the fused EGNN (6k, 6o-6q)
+# ---------------------------------------------------------------------------
+
+SPHERENET_CHECK_ATOMS, SPHERENET_BOX_ATOMS = 500, 10_000
+KERNEL_COUNTERS = {"k1": "egnn_message", "k2": "egnn_message_bwd",
+                   "k3": "sorted_segment_sum", "k4": "segment_sum"}
+_chunk_slices = dimenet_mod.chunk_slices
+
+
+def gate_sum_without_tail(self, x, rbf, receivers, num_nodes, edge_mask):
+    """The planted fault of phase 6k: the output blocks' chunk sum stops
+    before the last, shorter chunk (``E // chunk`` chunks, not
+    ``ceil(E / chunk)``)."""
+    c, acc = self.edge_chunk, None
+    for k in range(x.shape[0] // c):
+        s = slice(k * c, (k + 1) * c)
+        part = scatter.segment_sum(self.gate(x[s], rbf[s]), receivers[s],
+                                   num_nodes, mask=edge_mask[s])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def slices_without_tail(n, chunk):
+    """The planted fault of phase 6p: the triplet fold's chunks stop before
+    the last, shorter one."""
+    return _chunk_slices(n, chunk)[:-1]
+
+
+def kernel_want(per_step: dict, steps: int) -> dict:
+    """Every counter of ``counts()``: ``steps`` times ``per_step``'s K1-K4
+    (keys k1..k4), 0 for the rest."""
+    want = {name: 0 for name in counts()}
+    for key, n in per_step.items():
+        want[KERNEL_COUNTERS[key]] = steps * n
+    return want
+
+
+def box_run(label: str, model, batch, per_step: dict, steps: int,
+            card: str, warm: int = 1) -> dict:
+    """``warm`` bench_scale steps of ``model`` on ``batch`` (on the card),
+    then ``steps`` more with the counters set to 0 just before and read just
+    after: exactly ``per_step`` launches a step and nothing else, every
+    loss finite; ms a step (median), peak device memory over those steps."""
+    step_fn = bench_scale.make_step(model, batch)
+    for _ in range(warm):
+        step_fn().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(step_fn().item())       # host read: synchronous
+        times.append(time.perf_counter() - t)
+    got, want = counts(), kernel_want(per_step, steps)
+    run = {"launches": got, "step_ms": statistics.median(times) * 1e3,
+           "step_times_ms": [x * 1e3 for x in times],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "edges": int(batch.edge_mask.sum())}
+    log(f"[box] {label}: {steps} steps after {warm} warm, median "
+        f"{run['step_ms']:.2f} ms per step, peak {run['peak_mem_gb']:.3f} "
+        f"GB; losses {losses}; launches {got} (want per step {per_step}) "
+        f"[{card}]")
+    if got != want:
+        raise AssertionError(f"{label} launched {got}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: a loss is not finite")
+    return run
+
+
+def check_box_step(label: str, make_model, batch, faults: dict,
+                   exact: dict, per_step: dict) -> dict:
+    """One step's gradients of ``make_model()`` (a CPU model) on ``batch``
+    on the card against ``exact`` (the CPU float64 run of the same
+    function): within GRAD_TOL of each parameter's largest entry, with
+    exactly ``per_step`` launches; each planted fault of ``faults``
+    (``{name: (owner, attribute, replacement)}``) must fail that check."""
+    model = make_model()
+    reset_counts()
+    grads = {"card": triplet_grads(model, batch, "cuda", torch.float32)}
+    launched, want = counts(), kernel_want(per_step, 1)
+    for name, fault in faults.items():
+        with patched(*fault):
+            grads[f"card, planted fault: {name}"] = triplet_grads(
+                model, batch, "cuda", torch.float32)
+    errs = {run: grad_error(g, exact) for run, g in grads.items()}
+    log(f"[box] {label}: launches {launched} (want {per_step}); gradients "
+        f"against the CPU float64 run (tol {GRAD_TOL:g} of each parameter's "
+        "largest entry): " + ", ".join(f"{r} {e:.3e}"
+                                        for r, e in errs.items()))
+    if launched != want:
+        raise AssertionError(f"{label} launched {launched}, expected {want}")
+    if errs["card"] > GRAD_TOL:
+        raise AssertionError(f"{label}: the step on the card does not match "
+                             "the CPU")
+    for run, e in errs.items():
+        if run != "card" and e <= GRAD_TOL:
+            raise AssertionError(f"{label}: the check passed the {run}")
+    return {"launches": launched, **errs}
+
+
+def check_fold_chunk(label: str, y, ids, mask, n: int, acc) -> dict:
+    """One chunk of the triplet fold at a box row's shapes: ``check_segsum``
+    of K3 over the ascending ``ids``' plan, then ``sorted_fold`` with the
+    accumulator ``acc`` (read in the kernel) against ``acc`` plus the
+    plain sum, within SEG_TOL, finite and bitwise repeatable."""
+    plan = sss.ascending_plan(ids, n)
+    reading = check_segsum(label, y, ids, mask, n, plan, timed=False)
+    with torch.no_grad():
+        got = sss.sorted_fold(y, ids, plan, mask, acc=acc)
+        again = sss.sorted_fold(y, ids, plan, mask, acc=acc)
+        want = acc + sss.sorted_segment_sum_plain(y, ids, n, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"  {label}, into the accumulator [{n}, {y.shape[1]}]: "
+        f"max_abs_err={err:.3e}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: the fold into acc is not finite")
+    if not torch.allclose(got, want, atol=SEG_TOL, rtol=SEG_TOL):
+        raise AssertionError(f"{label}: the fold into acc differs from acc + "
+                             f"the plain sum by {err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two folds into acc differ bitwise")
+    return dict(reading, acc_max_abs_err=err)
+
+
+def dimenet_100k_kernels(tri100, cfg: dict) -> list:
+    """Phase 6o's kernel checks: K3 on the first and the last triplet
+    chunk's fold into the ``[E, int_emb]`` accumulator, K4 on the first and
+    the last output chunk's sum into the nodes, at ``cfg``'s chunks on
+    ``tri100`` (on the card), random rows; each against its plain
+    version."""
+    tri, e, n = tri100.triplets, tri100.num_edges, tri100.num_nodes
+    gen = torch.Generator(device=tri100.pos.device).manual_seed(15)
+    dev = tri100.pos.device
+    acc = torch.randn((e, 64), generator=gen, device=dev)
+    readings = []
+    t_slices = _chunk_slices(tri.num_triplets, cfg["triplet_chunk"])
+    for where, s in (("first", t_slices[0]), ("last", t_slices[-1])):
+        ids = tri.idx_ji[s]
+        y = torch.randn((ids.shape[0], 64), generator=gen, device=dev)
+        readings.append(check_fold_chunk(
+            f"K3 100k box, {where} of {len(t_slices)} triplet chunks",
+            y, ids, tri.t_mask[s], e, acc))
+    e_slices = _chunk_slices(e, cfg["edge_chunk"])
+    for where, s in (("first", e_slices[0]), ("last", e_slices[-1])):
+        seg = tri100.receivers[s]
+        route = sss.segsum_route(seg.shape[0], n)[0]
+        data = torch.randn((seg.shape[0], 128), generator=gen, device=dev)
+        readings.append(check_segsum(
+            f"K4 100k box, {where} of {len(e_slices)} output chunks "
+            f"({route} route)", data, seg, tri100.edge_mask[s], n,
+            timed=False))
+    return readings
+
+
+def third(n: int) -> int:
+    """A chunk of about a third of ``n`` rows that does not divide them."""
+    c = n // 3 + 1
+    while n % c == 0:
+        c += 1
+    return c
+
+
+def dimenet_chunk_checks(small, small_model, exact: dict) -> dict:
+    """Phase 6k's schedules on the small box, each from ``small_model``'s
+    weights: the 100k rule with chunks of about a third of the edges and
+    triplets (a planted fault: the output blocks' chunk sum without the
+    shorter tail chunk), then with ``remat_full_blocks``, then with
+    ``chunk_output_blocks=False``."""
+    rule = dict(bench_scale.config("dimenet", BOX_ATOMS),
+                edge_chunk=third(small.num_edges),
+                triplet_chunk=third(small.triplets.num_triplets))
+    schedules = {"100k rule": rule,
+                 "remat_full_blocks": dict(rule, remat_full_blocks=True),
+                 "chunk_output_blocks=False": dict(rule,
+                                                   chunk_output_blocks=False)}
+    out = {}
+    for label, cfg in schedules.items():
+        def make_model(cfg=cfg):
+            m = DimeNetPPModel(**cfg, in_dim=8, out_dim=1, device="cpu")
+            m.load_state_dict(small_model.state_dict())
+            return m
+        faults = ({"the output chunk sum without its tail": (
+            dimenet_mod.OutputPPBlock, "gate_sum", gate_sum_without_tail)}
+            if label == "100k rule" else {})
+        out[label] = dict(check_box_step(
+            f"dimenet {cfg} on the {DIMENET_CHECK_ATOMS}-atom box", make_model,
+            small, faults, exact,
+            bench_scale.dimenet_launches_per_step(cfg, small)), cfg=cfg)
+    return out
+
+
+def dimenet_box_100k(plain100, dev, card: str) -> dict:
+    """Phase 6o: DimeNet++ at ``bench_scale.config('dimenet', 100_000)`` on
+    the unsorted 100k-atom box with its triplets (built on the host, timed
+    apart): K3 and K4 at its chunks' shapes against their plain versions
+    (``dimenet_100k_kernels``), then one warm step and two timed with exact
+    launch counts."""
+    t = time.perf_counter()
+    tri100 = attach_triplets(plain100)
+    tri_s = time.perf_counter() - t
+    tri100 = tri100.to(dev)
+    cfg = bench_scale.config("dimenet", BOX_ATOMS)
+    kernels = dimenet_100k_kernels(tri100, cfg)
+    torch.cuda.empty_cache()
+    per_step = bench_scale.dimenet_launches_per_step(cfg, tri100)
+    model = bench_scale.build("dimenet", cfg, torch.Generator().manual_seed(0),
+                              dev)
+    triplets = int(tri100.triplets.t_mask.sum())
+    run = box_run(f"dimenet {cfg} on the {BOX_ATOMS}-atom box "
+                  f"({triplets} triplets; built on the host in {tri_s:.2f} s)",
+                  model, tri100, per_step, 2, card)
+    run.update(cfg=cfg, per_step=per_step, triplets=triplets,
+               triplet_build_s=tri_s, kernel_checks=kernels,
+               triplets_per_s=triplets / run["step_ms"] * 1e3)
+    log(f"[box] dimenet at {BOX_ATOMS} atoms: {run['triplets_per_s']:.4g} "
+        f"triplets/s [{card}]")
+    return run
+
+
+def spherenet_box_phases(dev, card: str) -> dict:
+    """Phase 6p: one SphereNet step (``bench_scale.config('spherenet')``,
+    triplet and quad chunks of about a third) on a small box on the card
+    against the CPU float64 run, a planted fault (the triplet fold without
+    its last chunk) rejected; then ``bench_scale.config('spherenet',
+    10_000)`` on the 10k-atom box with its quads (built on the host, timed
+    apart), one warm step and two timed with exact launch counts."""
+    small = bench_scale.box_batch(SPHERENET_CHECK_ATOMS, sort=False,
+                                  quads=True)
+    cfg = dict(bench_scale.config("spherenet", SPHERENET_BOX_ATOMS),
+               triplet_chunk=third(small.triplets.num_triplets),
+               quad_chunk=third(small.triplets.q_trip.shape[0]))
+
+    def make_model():
+        return SphereNetModel(**cfg, in_dim=8, out_dim=1,
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+
+    exact = triplet_grads(make_model(), small, "cpu", torch.float64)
+    check = check_box_step(
+        f"spherenet {cfg} on the {SPHERENET_CHECK_ATOMS}-atom box "
+        f"({int(small.triplets.t_mask.sum())} triplets, "
+        f"{int(small.triplets.q_mask.sum())} quads)", make_model, small,
+        {"the triplet fold without its last chunk": (
+            dimenet_mod, "chunk_slices", slices_without_tail)}, exact,
+        bench_scale.spherenet_launches_per_step(cfg, small))
+    plain = bench_scale.box_batch(SPHERENET_BOX_ATOMS, sort=False)
+    t = time.perf_counter()
+    quad_box = attach_triplets(plain, with_quads=True)
+    quad_s = time.perf_counter() - t
+    quad_box = quad_box.to(dev)
+    cfg = bench_scale.config("spherenet", SPHERENET_BOX_ATOMS)
+    per_step = bench_scale.spherenet_launches_per_step(cfg, quad_box)
+    model = bench_scale.build("spherenet", cfg,
+                              torch.Generator().manual_seed(0), dev)
+    quads = int(quad_box.triplets.q_mask.sum())
+    run = box_run(f"spherenet {cfg} on the {SPHERENET_BOX_ATOMS}-atom box "
+                  f"({int(quad_box.triplets.t_mask.sum())} triplets, {quads} "
+                  f"quads; built on the host in {quad_s:.2f} s)", model,
+                  quad_box, per_step, 2, card)
+    run.update(cfg=cfg, per_step=per_step, quads=quads, quad_build_s=quad_s)
+    return {"check": check, "box_10k": run}
+
+
+def fused_box_phases(plain100, dev, card: str) -> dict:
+    """Phase 6q: one ``egnn_fused`` step (4 x 128) on the unsorted
+    2000-atom box on the card against the CPU float64 run, a planted fault
+    (K1's packed weights cut off from the gradient) rejected; then the
+    unsorted 100k-atom box, K1 and K2 at 1.35M edges, one warm step and
+    BOX_STEPS timed with exact launch counts."""
+    cfg = bench_scale.config("egnn_fused", BOX_ATOMS)
+    small = bench_scale.box_batch(BOX_CHECK_ATOMS, sort=False)
+
+    def make_model():
+        return bench_scale.build("egnn_fused", cfg,
+                                 torch.Generator().manual_seed(0), "cpu")
+
+    exact = triplet_grads(make_model(), small, "cpu", torch.float64)
+    check = check_box_step(
+        f"egnn_fused {cfg} on the unsorted {BOX_CHECK_ATOMS}-atom box",
+        make_model, small,
+        {"K1's weights cut off": (egnn_fused, "egnn_message",
+                                  without_weight_grad)}, exact,
+        bench_scale.fused_launches_per_step(cfg["num_layers"]))
+    box100 = plain100.to(dev)
+    model = bench_scale.build("egnn_fused", cfg,
+                              torch.Generator().manual_seed(0), dev)
+    kernels = fused_100k_kernels(model, box100)
+    torch.cuda.empty_cache()
+    per_step = bench_scale.fused_launches_per_step(cfg["num_layers"])
+    run = box_run(f"egnn_fused {cfg} on the unsorted {BOX_ATOMS}-atom box",
+                  model, box100, per_step, BOX_STEPS, card)
+    run.update(cfg=cfg, per_step=per_step, kernel_checks=kernels,
+               edges_per_s=run["edges"] / run["step_ms"] * 1e3)
+    return {"check": check, "box_100k": run}
+
+
+def fused_100k_kernels(model, box100) -> dict:
+    """K1 and K2 on the inputs that layer 0 of ``model`` gets in one
+    bench_scale step on ``box100`` (its h, positions and packed weights;
+    the cotangents of its message and position sums in that step's
+    backward), against their plain versions: K1 by ``check_kernel_case``,
+    K2 by ``check_bwd_case(large=True)`` (phase 3's N 10k rule)."""
+    seen = {}
+
+    def layer0(send, recv, emask, h, pos, packed_w):
+        out = egnn_message(send, recv, emask, h, pos, packed_w)
+        if not seen:
+            seen["args"] = tuple(t.detach().clone()
+                                 for t in (send, recv, emask, h, pos, packed_w))
+            for key, t in (("gmsg", out[0]), ("gpos", out[1])):
+                t.register_hook(lambda g, key=key: seen.__setitem__(
+                    key, g.detach().clone()))
+        return out
+
+    with patched(egnn_fused, "egnn_message", layer0):
+        bench_scale.make_step(model, box100)().item()
+    args = seen["args"]
+    e = args[0].shape[0]
+    label = f"egnn_fused 100k box layer 0 (E {e})"
+    fwd = check_kernel_case(label, args)
+    bwd = check_bwd_case(label, args + (seen["gmsg"], seen["gpos"]),
+                         large=True)
+    return {"E": e, "live": int(args[2].sum()), "k1_max_abs_err": fwd,
+            "k2_max_abs_err": bwd}
 
 
 def mace_model(device, **kw):
@@ -2649,6 +3031,7 @@ def counts() -> dict:
 
 
 def main() -> int:
+    mark("1")
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2661,6 +3044,7 @@ def main() -> int:
     log(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)                       # name, power limit as nvidia-smi gives them
 
+    mark("2")
     # 2. build
     t0 = time.perf_counter()
     _build.build_all()
@@ -2669,6 +3053,7 @@ def main() -> int:
     log(f"[build] {len(_build.SIGNATURES)} kernel sources in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    mark("3")
     # 3. kernels against their plain versions
     graphs, loaders = bench_data()      # 1400 star graphs, fold 5/6/7, seed 0
     cpu_model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
@@ -2802,6 +3187,7 @@ def main() -> int:
     del data, seg, mask, shuffle
     torch.cuda.empty_cache()
 
+    mark("3b")
     # 3b. K5 against its plain version
     log("[kernels] gvp_message (K5) vs gvp_message_plain: forward atol = rtol "
         f"= {ATOL}; backward as chip_smoke.check_gvp_bwd states [{card}]")
@@ -2869,6 +3255,7 @@ def main() -> int:
             + f" ms [{card}]")
     del k5_box, k5_edges
 
+    mark("3c")
     # 3c. K6 against its plain versions
     log("[kernels] egnn_stack (K6) vs egnn_stack_plain: forward atol = rtol = "
         f"{ATOL}; backward as chip_smoke.check_stack_bwd states [{card}]")
@@ -2944,6 +3331,7 @@ def main() -> int:
     del k6_box, gvp_box, slot, k6_tiles
     torch.cuda.empty_cache()
 
+    mark("3d")
     # 3d. K7 against its plain versions: the JAX test's shapes, then every
     # group of TFN's layer 0 and hidden layers at its train bucket
     log(f"[kernels] edge_weighted_contract (K7) vs its plain versions, "
@@ -3040,6 +3428,7 @@ def main() -> int:
     del tfn_slot
     torch.cuda.empty_cache()
 
+    mark("3e")
     # 3e. K3 on the triplet fold: the identity plan of the ascending idx_ji
     log(f"[kernels] sorted_segment_sum (K3) on the triplet fold: "
         f"sorted_fold over ascending_plan vs the plain sum (atol=rtol="
@@ -3067,6 +3456,7 @@ def main() -> int:
     del y
     torch.cuda.empty_cache()
 
+    mark("3f")
     # 3f. K4 and the fold at every shape the star models launch
     log(f"[kernels] segment sums at the star models' shapes (a train step "
         f"and a predict batch of egnn, egnn_stack, gvp, tfn, mace, dimenet "
@@ -3082,10 +3472,12 @@ def main() -> int:
     del star_cap
     torch.cuda.empty_cache()
 
+    mark("3f force fields")
     # 3f, the force fields: K4 at every shape a mace_ff and a tfn_ff step
     # launch on the unsorted 10k box
     ff_box, ff_segsum = check_ff_segsum(dev, card)
 
+    mark("4")
     # 4. serve
     model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                            generator=torch.Generator().manual_seed(0),
@@ -3133,6 +3525,7 @@ def main() -> int:
         f"{host_ms:.2f} ms; {want} calls x {call_ms:.4f} ms = "
         f"{want * call_ms:.2f} ms [{card}]")
 
+    mark("4b")
     # 4b. GVP serving
     gvp_cpu = gvp_model("cpu")
     for key, value in gvp_cuda.state_dict().items():
@@ -3169,6 +3562,7 @@ def main() -> int:
     log(f"[serve] GVP predict: median {gvp_ms:.2f} ms per call of 7 "
         f"({N_GRAPHS / gvp_ms * 1e3:.0f} graphs/s) [{card}]")
 
+    mark("4c")
     # 4c. whole-stack serving, phase 4's weights
     stack_model = EGNNFusedModel(LAYERS, WIDTH, 1, 1, pool="first",
                                  fuse_stack=True, device="cuda",
@@ -3212,6 +3606,7 @@ def main() -> int:
         f"({N_GRAPHS / stack_ms * 1e3:.0f} graphs/s); per layer (phase 4) "
         f"{ms:.2f} ms [{card}]")
 
+    mark("4d")
     # 4d. TFN serving at the star configuration's full width
     tfn_cuda = tfn_model(dev)
     for key, value in tfn_cuda.state_dict().items():
@@ -3254,11 +3649,13 @@ def main() -> int:
     log(f"[serve] TFN predict: median {tfn_ms:.2f} ms per call of 7 "
         f"({N_GRAPHS / tfn_ms * 1e3:.0f} graphs/s) [{card}]")
 
+    mark("4e / 4f")
     # 4e / 4f. DimeNet++ and SphereNet serving over their star data
     triplet_serve = {"dimenet": serve_triplet("dimenet", dn_data, dev, card),
                      "spherenet": serve_triplet("spherenet", sn_data, dev,
                                                 card)}
 
+    mark("4g")
     # 4g. MACE serving at the star configuration's full width
     mace_cuda = mace_model(dev)
     for key, value in mace_cuda.state_dict().items():
@@ -3304,9 +3701,11 @@ def main() -> int:
     del mace_pred
     torch.cuda.empty_cache()
 
+    mark("4h")
     # 4h. MACE-FF serving at full width over MACE's star graphs
     mff_serve = serve_mace_ff(mace_graphs, dev, card)
 
+    mark("5")
     # 5. train, against the CPU: one step's gradients, then one epoch
     steps, val_b, test_b = (len(ld) for ld in loaders)
     order = torch.from_numpy(np.random.default_rng(7).permutation(
@@ -3358,6 +3757,7 @@ def main() -> int:
     if check["card"]["epoch_err"] > tol or one_epoch != want_one:
         raise AssertionError("the epoch on the card does not match the CPU")
 
+    mark("5b")
     # 5b. GVP one step against the CPU, dropout rate 0 on the copies; the
     # card once more on the plain route (use_pallas=False), a witness of the
     # card's rounding outside K5, and once more through K5 (run to run)
@@ -3399,6 +3799,7 @@ def main() -> int:
     if gvp_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
         raise AssertionError("phase 5b's check passed the planted fault")
 
+    mark("5c")
     # 5c. whole-stack one step against the CPU; the card once more on the
     # plain stack, a witness of the card's rounding outside K6
     stack_step, stack_launches = {}, {}
@@ -3435,6 +3836,7 @@ def main() -> int:
     if stack_check["card, planted fault"]["grad_err"] <= GRAD_TOL:
         raise AssertionError("phase 5c's check passed the planted fault")
 
+    mark("5d")
     # 5d. TFN one step: at full width the card through K7/K4 against the
     # card through their plain twins; at a narrow width (a float64 CPU step
     # at full width is ~1 TFLOP) the card against the CPU in float64, with
@@ -3498,12 +3900,14 @@ def main() -> int:
         raise AssertionError("phase 5d's check passed the planted fault")
     del narrow, tfn_step
 
+    mark("5e / 5f")
     # 5e / 5f. one DimeNet++ and one SphereNet step against the CPU
     triplet_check = {
         "dimenet": step_triplet("dimenet", dn_batch, card),
         "spherenet": step_triplet("spherenet", next(iter(sn_loaders[0])),
                                   card)}
 
+    mark("5g")
     # 5g. MACE one step: at full width the card (K7/K4) against the CPU's
     # plain f32 step; at emb_dim 16 the card against the CPU in float64,
     # with a planted fault (the nu = 3 weights of the symmetric contraction
@@ -3565,10 +3969,12 @@ def main() -> int:
         raise AssertionError("phase 5g's check passed the planted fault")
     del narrow, mace_step
 
+    mark("5h")
     # 5h. one bench_scale step of each force field on a 1000-atom box
     # against the CPU in float64, with a planted fault
     ff_check = step_ff_vs_cpu(card)
 
+    mark("6")
     # 6. train, the main path
     reset_counts()
     res = fit_regression(model, None, *loaders, n_epochs=EPOCHS, lr=LR,
@@ -3595,6 +4001,7 @@ def main() -> int:
     if not (np.isfinite(res.test) and res.test < 0.2):
         raise AssertionError(f"test MAE {res.test} is not finite and below 0.2")
 
+    mark("6f")
     # 6f. whole-stack training, the main path
     reset_counts()
     sres = fit_regression(stack_model, None, *loaders, n_epochs=STACK_EPOCHS,
@@ -3621,6 +4028,7 @@ def main() -> int:
         raise AssertionError(f"stack test MAE {sres.test} is not finite and "
                              "below 0.2")
 
+    mark("6g")
     # 6g. TFN training, the star configuration's main path
     tsteps, tval_b, ttest_b = (len(ld) for ld in tfn_loaders)
     reset_counts()
@@ -3650,6 +4058,7 @@ def main() -> int:
     del tfn_cuda, tfn_pred
     torch.cuda.empty_cache()
 
+    mark("6d")
     # 6d. GVP training, the main path (dropout on)
     reset_counts()
     gres = fit_regression(gvp_cuda, None, *loaders, n_epochs=GVP_EPOCHS, lr=LR,
@@ -3684,6 +4093,7 @@ def main() -> int:
     if not epoch_loss[-1] < epoch_loss[0]:
         raise AssertionError("GVP training did not lower the train loss")
 
+    mark("6b")
     # 6b. box training, against the CPU
     check_box = bench_scale.box_batch(BOX_CHECK_ATOMS, sort=True)
     f32, f64 = torch.float32, torch.float64
@@ -3712,6 +4122,7 @@ def main() -> int:
             raise AssertionError(f"{name}: the check of phase 6b passed the "
                                  "planted fault")
 
+    mark("6c")
     # 6c. box training, the main path
     box_runs = {}
     for name in ("schnet_sorted", "egnn_sorted"):
@@ -3750,6 +4161,7 @@ def main() -> int:
         del box_model, step_fn
         torch.cuda.empty_cache()
 
+    mark("6e")
     # 6e. gvp_sorted: one step against the CPU, then the main path at 100k
     cfg = bench_scale.config("gvp_sorted", BOX_CHECK_ATOMS)
     box_model = without_dropout(bench_scale.build(
@@ -3809,6 +4221,7 @@ def main() -> int:
     del box_model, step_fn
     torch.cuda.empty_cache()
 
+    mark("6h")
     # 6h. the plain route's segment sums are K4: two runs of one plain-route
     # egnn step on the unsorted 10k-atom box give bitwise-equal gradients
     det_box = bench_scale.box_batch(GVP_BOX_ATOMS, sort=False).to(dev)
@@ -3839,6 +4252,7 @@ def main() -> int:
     del det_box, det_model, det_grads
     torch.cuda.empty_cache()
 
+    mark("6i / 6j")
     # 6i / 6j. DimeNet++ and SphereNet star runs, the main path
     dres, dn_train = train_triplet("dimenet", dn_loaders, DIMENET_EPOCHS,
                                    DIMENET_MAE_MAX, DIMENET_JAX_MAE,
@@ -3847,6 +4261,7 @@ def main() -> int:
                                    SPHERENET_MAE_MAX, SPHERENET_JAX_MAE,
                                    SPHERENET_JAX_SD, card)
 
+    mark("6k")
     # 6k. bench_scale's dimenet step on the 10k box; one step on a small box
     # against the CPU float64 run, chunked, with a planted fault
     small = bench_scale.box_batch(DIMENET_CHECK_ATOMS, sort=False,
@@ -3879,45 +4294,41 @@ def main() -> int:
                              "match the CPU")
     if dimenet_box_check["card, planted fault"] <= GRAD_TOL:
         raise AssertionError("dimenet: the box check passed the planted fault")
+    dimenet_chunks = dimenet_chunk_checks(small, small_model, exact)
+    del small, small_model, exact
     cfg = bench_scale.config("dimenet", DIMENET_BOX_ATOMS)
     box_model = bench_scale.build("dimenet", cfg,
                                   torch.Generator().manual_seed(0), dev)
-    step_fn = bench_scale.make_step(box_model, tri_box)
-    step_fn().item()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    times, losses = [], []
-    for _ in range(BOX_STEPS):
-        t = time.perf_counter()
-        losses.append(step_fn().item())
-        times.append(time.perf_counter() - t)
-    dn_box_counts = counts()
-    n_chunks = -(-tri_box.triplets.num_triplets // cfg["triplet_chunk"])
-    want = dict({k: 0 for k in dn_box_counts},
-                sorted_segment_sum=BOX_STEPS * cfg["num_layers"] * n_chunks,
-                segment_sum=BOX_STEPS * (cfg["num_layers"] + 3))
-    dn_box = {"launches": dn_box_counts,
-              "step_ms": statistics.median(times) * 1e3,
-              "step_times_ms": [x * 1e3 for x in times],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "losses": losses, "chunks": n_chunks,
-              "triplets": int(tri_box.triplets.t_mask.sum()),
-              "edges": int(tri_box.edge_mask.sum())}
-    log(f"[box] dimenet {cfg} on the {DIMENET_BOX_ATOMS}-atom box "
-        f"({dn_box['edges']} edges, {dn_box['triplets']} triplets, "
-        f"{n_chunks} chunks): {BOX_STEPS} steps after a warm one, median "
-        f"{dn_box['step_ms']:.2f} ms per step, peak "
-        f"{dn_box['peak_mem_gb']:.3f} GB; losses {losses}; launches "
-        f"{dn_box_counts} (want K3 {cfg['num_layers'] * n_chunks} and K4 "
-        f"{cfg['num_layers'] + 3} per step) [{card}]")
-    if dn_box_counts != want:
-        raise AssertionError(f"dimenet box steps launched {dn_box_counts}")
-    if not np.isfinite(losses).all():
-        raise AssertionError("dimenet box: a loss is not finite")
-    del box_model, step_fn, tri_box
+    n_chunks = len(_chunk_slices(tri_box.triplets.num_triplets,
+                                 cfg["triplet_chunk"]))
+    dn_box = box_run(
+        f"dimenet {cfg} on the {DIMENET_BOX_ATOMS}-atom box "
+        f"({int(tri_box.triplets.t_mask.sum())} triplets, {n_chunks} chunks)",
+        box_model, tri_box,
+        bench_scale.dimenet_launches_per_step(cfg, tri_box), BOX_STEPS, card)
+    dn_box.update(chunks=n_chunks,
+                  triplets=int(tri_box.triplets.t_mask.sum()))
+    del box_model, tri_box
     torch.cuda.empty_cache()
 
+    mark("6o")
+    # 6o. DimeNet++ at 100k atoms under the 100k rule
+    plain100 = bench_scale.box_batch(BOX_ATOMS, sort=False)
+    dn_100k = dimenet_box_100k(plain100, dev, card)
+    torch.cuda.empty_cache()
+
+    mark("6p")
+    # 6p. SphereNet: a small box against float64, then the 10k box's quads
+    sn_box = spherenet_box_phases(dev, card)
+    torch.cuda.empty_cache()
+
+    mark("6q")
+    # 6q. egnn_fused at box scale: K1 and K2 at 1.35M edges
+    fused_box = fused_box_phases(plain100, dev, card)
+    del plain100
+    torch.cuda.empty_cache()
+
+    mark("6l")
     # 6l. MACE star run, the main path: the protocol of the JAX package's
     # number (run_experiment_reg's first repeat: weights and shuffle from
     # seed 0; lr 5e-4, cosine; 100 epochs, the JAX number's 200 cut)
@@ -3947,25 +4358,32 @@ def main() -> int:
     del mace_cuda
     torch.cuda.empty_cache()
 
+    mark("6n")
     # 6n. the force-field box, the main path
     ff_runs = train_ff_box(ff_box, dev, card)
     del ff_box
 
+    mark("6m")
     # 6m. the expressivity table on the card
     t = time.perf_counter()
     expressivity = expressivity_table(dev, card)
     expressivity_s = time.perf_counter() - t
 
+    mark("7a-7d")
     # 7a-7d. the regression CLI and its training options
     with tempfile.TemporaryDirectory() as tmp:
         cli_runs = cli_phases(dev, card, tmp)
 
+    mark("8")
     # 8. summary
     kernels = [{
         "name": "egnn_message", "ok": True, "route": "cuda",
         "source": "geometric_message_passing_tpu_torch/csrc/egnn_message.cu",
         "replaces": "geometric_message_passing_tpu/ops/pallas_edge.py:134",
         "launches": train_launches[0], "serve_launches": launches,
+        "box_launches": {"egnn_fused 100k box, per step":
+                         fused_box["box_100k"]["launches"]["egnn_message"]
+                         // BOX_STEPS},
         "max_abs_err": err, "max_err": err,
         "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
@@ -3974,6 +4392,9 @@ def main() -> int:
         "source": "geometric_message_passing_tpu_torch/csrc/egnn_message_bwd.cu",
         "replaces": "geometric_message_passing_tpu/ops/pallas_edge.py:246",
         "launches": train_launches[1], "max_abs_err": bwd_err,
+        "box_launches": {"egnn_fused 100k box, per step":
+                         fused_box["box_100k"]["launches"]["egnn_message_bwd"]
+                         // BOX_STEPS},
         "max_abs_err_n10k": bwd_err_large, "ms": bk_ms, "call_ms": bcall_ms,
         "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
         "library_ms": None, "split_ms": k2_split["train bucket"],
@@ -4039,6 +4460,13 @@ def main() -> int:
             # fold, K4 their edge -> node sums and pools
             "triplet_launches": {"dimenet": dn_train[name],
                                  "spherenet": sn_train[name]},
+            # the box rows (6k, 6o, 6p), per step
+            "triplet_box_launches": {
+                "dimenet 10k": dn_box["launches"][name] // BOX_STEPS,
+                "dimenet 100k": dn_100k["launches"][name] // 2,
+                "spherenet 10k": sn_box["box_10k"]["launches"][name] // 2,
+                **({"egnn_fused 100k": fused_box["box_100k"]["launches"][name]
+                    // BOX_STEPS} if name == "segment_sum" else {})},
             "mace_launches": {"serve": mace_serve[name],
                               "train_step": mace_step_launches[name],
                               "train": mace_train[name]},
@@ -4119,6 +4547,9 @@ def main() -> int:
                     "spherenet_best_val_mae": spres.best_val,
                     "dimenet_box_check": dimenet_box_check,
                     "dimenet_box": dn_box,
+                    "dimenet_chunk_checks": dimenet_chunks,
+                    "dimenet_100k": dn_100k, "spherenet_box": sn_box,
+                    "fused_box": fused_box,
                     "mace_edge_weight_bytes": mace_w_bytes,
                     "mace_predict_ms": mace_ms,
                     "mace_serve_err": mace_serve_err,
@@ -4131,7 +4562,8 @@ def main() -> int:
                     "mace_ff_serve": mff_serve,
                     "ff_train_check": ff_check, "ff_box": ff_runs,
                     "expressivity": expressivity,
-                    "expressivity_s": expressivity_s, "cli": cli_runs}))
+                    "expressivity_s": expressivity_s, "cli": cli_runs,
+                    "phase_start_s": PHASE_START}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -3,10 +3,13 @@
     python -m geometric_message_passing_tpu_torch.experiments.profile_box \\
         [--model egnn_sorted] [--atoms 100000] [--steps 3]
 
-Builds ``experiments/bench_scale.py``'s receiver-sorted box (or its plain
-box for a model without ``_sorted``) and model at full width
-(``bench_scale.config``: ``gvp`` and ``gvp_sorted`` with its remat rule, the
-force fields ``mace_ff`` and ``tfn_ff`` with its edge chunks), runs two warm
+Builds ``experiments/bench_scale.py``'s box for the model
+(``bench_scale.box_kind``: receiver-sorted for a ``_sorted`` model, with
+triplets for ``dimenet``, with triplets and quads for ``spherenet``, else
+plain) and the model at full width (``bench_scale.config``: ``gvp`` and
+``gvp_sorted`` with its remat rule, the force fields ``mace_ff`` and
+``tfn_ff`` with its edge chunks, ``dimenet`` with its chunk and remat rule
+by size), runs two warm
 steps, times 5 untraced steps on the host clock (each ending in a host read
 of the loss), then traces ``--steps`` more with ``torch.profiler`` and
 prints:
@@ -23,7 +26,14 @@ prints:
     product basis block (symmetric contraction, linear, self-connection)
     on all nodes, each run alone forward and forward + backward, and each
     scaled to a step (every chunk; a checkpointed body's forward once more
-    for the recompute) with its share of the traced device time.
+    for the recompute) with its share of the traced device time;
+  * for ``dimenet`` and ``spherenet`` likewise (``triplet_parts``): the
+    triplet rows of the first triplet chunk (basis, projections, gather,
+    product), its K3 fold, the per-edge chains and the output gate on the
+    first edge chunk and its K4 sum (``dimenet``), the geometry with the
+    quads' minimum and ``update_v``'s K4 sum (``spherenet``), each scaled
+    to a step, and ``recompute_ms``: the checkpointed bodies' forwards that
+    the backward reruns.
 The last line is one JSON object of these numbers with the card's name and
 power limit.  It needs a card and raises without one.
 """
@@ -39,18 +49,22 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ..models.dimenet import chunk_slices
 from ..models.mace_ff import edge_geometry
+from ..models.spherenet import spherenet_geometry
 from ..ops.scatter import segment_sum
-from ..ops.sorted_segsum import batch_seg_plans
+from ..ops.sorted_segsum import batch_seg_plans, sorted_fold
 from .bench import card_line
-from .bench_scale import (FORCE_FIELDS, MODELS, SORTED, box_batch, build,
-                          config, edge_chunks, make_step, mean_degree)
+from .bench_scale import (FORCE_FIELDS, MODELS, SORTED, box_kind, build,
+                          config, edge_chunks, kind_box, make_step,
+                          mean_degree)
 from .profile_train import part_device_ms
 from .train import seed_everything
 
 # kernel-name fragments of each group, checked in this order
 GROUPS = (
     ("K3/K4 segment sums", ("segsum_",)),
+    ("K1/K2 EGNN message", ("egnn_",)),
     ("Adam", ("multi_tensor_apply", "adam", "Adam")),
     ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "cublas")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
@@ -73,7 +87,8 @@ def _fwd_and_step(fn, *leaves) -> dict:
     """Device ms of ``fn()`` forward, and forward + backward into
     ``leaves`` (inputs that require grad) and ``fn``'s parameters."""
     out = fn()
-    g = torch.randn_like(out)
+    g = (tuple(torch.randn_like(o) for o in out) if isinstance(out, tuple)
+         else torch.randn_like(out))
     with torch.no_grad():
         fwd = part_device_ms(fn)
     return {"fwd_ms": fwd,
@@ -150,6 +165,93 @@ def ff_parts(model, batch, cfg: dict) -> dict:
             "layers": out}
 
 
+def triplet_parts(name: str, model, batch, cfg: dict) -> dict:
+    """The parts of a ``dimenet`` or ``spherenet`` step that no kernel name
+    tells apart, timed alone (forward, forward + backward) on the inputs of
+    the first interaction block in a forward of ``batch``, and scaled to a
+    step (``step_ms``): per layer and triplet chunk the rows (checkpointed
+    when ``TripletFold.remat``: their forward once more) and the K3
+    fold; ``dimenet``: per layer and edge chunk the chains before and after
+    the triplet pass (checkpointed with ``edge_chunk`` or
+    ``remat_blocks``), per output block and chunk the gate (checkpointed
+    when chunked or ``remat``) and its K4 sum, every part's forward once
+    more under ``remat_full_blocks``; ``spherenet``: the geometry (angles,
+    torsions, the quads' minimum; no gradient) and the K4 sums of
+    ``init_v`` and each ``update_v``.  ``recompute_ms``: the forwards the
+    backward reruns."""
+    blocks = model.interactions if name == "dimenet" else model.update_es
+    seen = {}
+    hook = blocks[0].register_forward_hook(
+        lambda mod, inp, out: seen.__setitem__("inp", inp))
+    with torch.no_grad():
+        model(batch)
+    hook.remove()
+    blk, layers = blocks[0], len(blocks)
+    x, rbf, basis_of, idx_kj, fold = seen["inp"]
+    with torch.no_grad():
+        x_ji, x_kj = blk.pre(x if name == "dimenet" else x[0], rbf)
+    s0, t_chunks = fold.slices[0], len(fold.slices)
+    full = cfg.get("remat_full_blocks", False)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_()
+
+    xk = leaf(x_kj)
+    rows = leaf(blk.rows(s0, x_kj, basis_of, idx_kj))
+    acc = leaf(torch.zeros_like(x_kj))
+    parts = {
+        "triplet_rows": dict(_fwd_and_step(
+            lambda: blk.rows(s0, xk, basis_of, idx_kj), xk),
+            per_step=layers * t_chunks, remat=fold.remat or full),
+        "k3_fold": dict(_fwd_and_step(
+            lambda: sorted_fold(rows, fold.idx_ji[s0], fold.plans[0],
+                                fold.t_mask[s0], acc=acc), rows, acc),
+            per_step=layers * t_chunks, remat=full)}
+    n = batch.num_nodes
+    if name == "dimenet":
+        e_inter = len(chunk_slices(batch.num_edges, cfg.get("edge_chunk")))
+        c = batch.num_edges // e_inter if e_inter > 1 else batch.num_edges
+        xc, rc, jc, kc = (leaf(t[:c]) for t in (x, rbf, x_ji, x_kj))
+        chained = e_inter > 1 or cfg.get("remat_blocks", False)
+        parts["edge_pre"] = dict(_fwd_and_step(lambda: blk.pre(xc, rc), xc),
+                                 per_step=layers * e_inter,
+                                 remat=chained or full)
+        parts["edge_post"] = dict(_fwd_and_step(
+            lambda: blk.post(jc, kc, xc), jc, kc, xc),
+            per_step=layers * e_inter, remat=chained or full)
+        out = model.outputs[0]
+        e_out = len(chunk_slices(batch.num_edges, out.edge_chunk))
+        co = batch.num_edges // e_out if e_out > 1 else batch.num_edges
+        gx, gr = leaf(x[:co]), leaf(rbf[:co])
+        gated = leaf(out.gate(x[:co], rbf[:co]))
+        parts["output_gate"] = dict(_fwd_and_step(lambda: out.gate(gx, gr),
+                                                  gx),
+                                    per_step=(layers + 1) * e_out,
+                                    remat=e_out > 1 or out.remat)
+        parts["k4_chunk_sum"] = dict(_fwd_and_step(
+            lambda: segment_sum(gated, batch.receivers[:co], n,
+                                mask=batch.edge_mask[:co]), gated),
+            per_step=(layers + 1) * e_out, remat=False)
+    else:
+        with torch.no_grad():
+            geometry = part_device_ms(lambda: spherenet_geometry(
+                batch, model.quad_chunk, model.torsion_fold))
+        parts["geometry"] = dict(fwd_ms=geometry, fwd_bwd_ms=geometry,
+                                 per_step=1, remat=False)
+        e2 = leaf(x[1])
+        parts["k4_update_v"] = dict(_fwd_and_step(
+            lambda: segment_sum(e2, batch.receivers, n,
+                                mask=batch.edge_mask), e2),
+            per_step=layers + 1, remat=False)
+    recompute = 0.0
+    for v in parts.values():
+        again = v["fwd_ms"] if v["remat"] else 0.0
+        v["step_ms"] = v["per_step"] * (v["fwd_bwd_ms"] + again)
+        recompute += v["per_step"] * again
+    return {"triplet_chunks": t_chunks, "parts": parts,
+            "recompute_ms": recompute}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="egnn_sorted", choices=sorted(MODELS))
@@ -159,7 +261,9 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_box needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch = box_batch(args.atoms, sort=args.model in SORTED).to("cuda")
+    t = time.perf_counter()
+    batch = kind_box(box_kind(args.model), args.atoms).to("cuda")
+    host_s = time.perf_counter() - t
     cfg = config(args.model, args.atoms)
     model = build(args.model, cfg, seed_everything(0),
                   avg_deg=mean_degree(batch))
@@ -215,8 +319,21 @@ def main(argv=None) -> dict:
                 print(f"  {layer} {name:16s} {v['fwd_ms']:9.3f} "
                       f"{v['fwd_bwd_ms']:9.3f} {v['step_ms']:9.3f} "
                       f"({v['share']:.3f})")
+    if args.model in ("dimenet", "spherenet"):
+        parts = triplet_parts(args.model, model, batch, cfg)
+        print(f"parts alone ({parts['triplet_chunks']} triplet chunks), "
+              "device ms: forward, forward + backward, in a step (share of "
+              "the traced device time):")
+        for name, v in parts["parts"].items():
+            v["share"] = v["step_ms"] / device_ms
+            print(f"  {name:16s} {v['fwd_ms']:9.3f} {v['fwd_bwd_ms']:9.3f} "
+                  f"{v['step_ms']:9.3f} ({v['share']:.3f})")
+        print(f"  recompute (checkpointed forwards rerun) "
+              f"{parts['recompute_ms']:.3f} ms "
+              f"({parts['recompute_ms'] / device_ms:.3f})")
     res = {
         "card": card_line(), "model": args.model, "cfg": cfg,
+        "host_s": host_s,
         "atoms": args.atoms,
         "edges": edges, "step_ms_untraced": step_ms,
         "idle_share_untraced": 1 - device_ms / step_ms,
@@ -226,7 +343,9 @@ def main(argv=None) -> dict:
         "groups": {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()},
         "top_kernels": [{"name": k, "count": c, "ms": u / 1e3}
                         for u, c, k in rows[:25]],
-        "ff_parts": parts,
+        "ff_parts": parts if args.model in FORCE_FIELDS else {},
+        "triplet_parts": (parts if args.model in ("dimenet", "spherenet")
+                          else {}),
     }
     print(json.dumps(res))
     return res

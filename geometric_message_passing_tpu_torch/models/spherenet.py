@@ -28,6 +28,7 @@ them (``init_e.lin_rbf_0``, ``init_e.lin``, the bias of ``lin_up`` in
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -42,8 +43,8 @@ from ..ops.dimenet_basis import (DistEmb, angle_cbf, angle_emb, angle_product,
                                  torsion_product)
 from ..ops.norms import safe_arctan2, safe_norm
 from ..ops.scatter import segment_sum
-from .dimenet import (SQRT3, ResidualLayer, TripletFold, atom_embedding, dense,
-                      swish)
+from .dimenet import (SQRT3, ResidualLayer, TripletFold, atom_embedding,
+                      chunk_slices, dense, remat, swish)
 from .pooling import POOL
 
 TWO_PI = 2 * math.pi
@@ -107,18 +108,26 @@ class SphereNetUpdateE(nn.Module):
                                        for _ in range(num_after_skip))
         self.lin_rbf = dense(nr, hidden, g, bias=False)
 
-    def forward(self, e, rbf0, bases_of, idx_kj, fold: TripletFold):
-        x1, _ = e
+    def pre(self, x1, rbf0):
+        """``(x_ji, x_kj)``: the edge features before the triplet pass."""
         x_ji = swish(self.lin_ji(x1))
         x_kj = swish(self.lin_kj(x1)) * self.lin_rbf2(self.lin_rbf1(rbf0))
-        x_kj = swish(self.lin_down(x_kj))
+        return x_ji, swish(self.lin_down(x_kj))
 
-        def rows_of(s: slice) -> torch.Tensor:
-            sbf, tbf = bases_of(s)
-            y = x_kj[idx_kj[s]] * self.lin_sbf2(self.lin_sbf1(sbf))
-            return y * self.lin_t2(self.lin_t1(tbf))
+    def rows(self, s: slice, x_kj, bases_of, idx_kj) -> torch.Tensor:
+        """The triplet pass's rows of the triplets ``s``: ``x_kj`` gathered
+        at their edge k -> j times both projected bases."""
+        sbf, tbf = bases_of(s)
+        y = x_kj[idx_kj[s]] * self.lin_sbf2(self.lin_sbf1(sbf))
+        return y * self.lin_t2(self.lin_t1(tbf))
 
-        e1 = x_ji + swish(self.lin_up(fold.sum(rows_of)))
+    def forward(self, e, rbf0, bases_of, idx_kj, fold: TripletFold):
+        x1, _ = e
+        x_ji, x_kj = self.pre(x1, rbf0)
+        # bound by value: the backward calls the rows again to recompute
+        folded = fold.sum(functools.partial(self.rows, x_kj=x_kj,
+                                            bases_of=bases_of, idx_kj=idx_kj))
+        e1 = x_ji + swish(self.lin_up(folded))
         for layer in self.res_before:
             e1 = layer(e1)
         e1 = swish(self.lin(e1)) + x1
@@ -190,7 +199,9 @@ def spherenet_geometry(batch: GraphBatch, quad_chunk: Optional[int] = None,
     between (i - j) and (k - j) in (0, pi); the torsion the least dihedral,
     folded to (0, 2 pi], between the planes (ji, jk) and (ji, jk_n) over the
     triplet's quads (0 for a triplet without one).  ``quad_chunk`` folds the
-    quads in slices of that many, combined by ``torch.minimum``."""
+    quads in slices of that many (the last shorter), each slice's minimum
+    under checkpoint (its gathered positions are recomputed in a backward
+    to the positions, not kept), combined by ``torch.minimum``."""
     if torsion_fold not in ("widekey", "atan2"):
         raise ValueError(f"torsion_fold must be 'widekey' or 'atan2', got "
                          f"{torsion_fold!r}")
@@ -235,12 +246,11 @@ def spherenet_geometry(batch: GraphBatch, quad_chunk: Optional[int] = None,
         out = val.new_full((num_t,), torch.inf)
         return out.scatter_reduce(0, q.long(), val, "amin", include_self=True)
 
-    Q = tri.q_trip.shape[0]
-    step = Q if quad_chunk is None or Q <= quad_chunk else quad_chunk
+    slices = chunk_slices(tri.q_trip.shape[0], quad_chunk)
     raw = None
-    for c in range(0, max(Q, 1), max(step, 1)):
-        s = slice(c, min(c + step, Q))
-        part = quad_min(tri.q_trip[s], tri.q_kn[s], tri.q_mask[s])
+    for s in slices:
+        args = (tri.q_trip[s], tri.q_kn[s], tri.q_mask[s])
+        part = remat(quad_min, *args) if len(slices) > 1 else quad_min(*args)
         raw = part if raw is None else torch.minimum(raw, part)
     if widekey:
         torsion = _widekey_angle(raw)
@@ -254,7 +264,9 @@ class SphereNetModel(nn.Module):
     ``forward(batch)`` returns ``[num_graphs, out_dim]`` and needs
     ``batch.triplets`` with quads.  ``in_dim`` is accepted and unused.
     ``triplet_chunk`` evaluates the bases and folds the triplets in slices
-    (the last shorter), ``quad_chunk`` the torsion candidates.
+    (the last shorter; with more than one, each slice's bases, projections
+    and gather under checkpoint, ``TripletFold.sum``), ``quad_chunk`` the
+    torsion candidates (each slice under checkpoint).
 
     Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
     None), then moved to ``device`` (default ``"cuda"``, which raises when

@@ -1,8 +1,8 @@
 """The port's box-scale data path against the JAX package's: the radius
 graph (element for element, with the JAX package's C++ cell list and its
 numpy twin), the molecular boxes, the receiver sort, the segment plans, and
-three bench_scale training steps against the same steps in JAX with
-``optax.adam(1e-4)``."""
+three bench_scale training steps (``egnn_sorted``, ``schnet_sorted``,
+``egnn_fused``) against the same steps in JAX with ``optax.adam(1e-4)``."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +24,7 @@ from geometric_message_passing_tpu_torch.experiments import bench_scale
 from geometric_message_passing_tpu_torch.ops import sorted_segsum as sss
 from geometric_message_passing_tpu_torch.ops.radius_graph import radius_graph
 from geometric_message_passing_tpu_torch.weights import (egnn_from_jax,
+                                                         egnn_fused_from_jax,
                                                          schnet_from_jax)
 
 
@@ -113,8 +114,9 @@ def test_steps_per_call_rule():
 
 
 def _jax_steps(name, cfg, jb, steps):
+    extra = dict(use_pallas=False) if name == "egnn_fused" else {}
     model = jax_models[bench_scale.SORTED.get(name, name)](
-        out_dim=1, in_dim=8, **cfg)
+        out_dim=1, in_dim=8, **cfg, **extra)
     variables = model.init(jax.random.PRNGKey(0), jb)
     tx = optax.adam(1e-4)
     params = variables["params"]
@@ -135,14 +137,18 @@ def _jax_steps(name, cfg, jb, steps):
     return first, {"params": params}, losses
 
 
-@pytest.mark.parametrize("name", ["egnn_sorted", "schnet_sorted"])
+@pytest.mark.parametrize("name", ["egnn_sorted", "schnet_sorted",
+                                  "egnn_fused"])
 def test_bench_scale_steps_match_jax(name):
     """Three of bench_scale's steps (L1-sum loss, Adam 1e-4) through the
-    port's sorted path, against the JAX model's plain path and optax."""
-    cfg = dict(num_layers=2, emb_dim=32) if name == "egnn_sorted" else \
-        dict(num_layers=2, hidden_channels=32, num_filters=32)
-    to_torch = egnn_from_jax if name == "egnn_sorted" else schnet_from_jax
-    tb = bench_scale.box_batch(400, sort=True)
+    port's sorted path (``egnn_fused``: the plain box through the fused
+    model, K1 and K2's plain versions), against the JAX model's plain path
+    (``EGNNFusedModel(use_pallas=False)``) and optax."""
+    cfg = dict(num_layers=2, hidden_channels=32, num_filters=32) \
+        if name == "schnet_sorted" else dict(num_layers=2, emb_dim=32)
+    to_torch = {"egnn_sorted": egnn_from_jax, "schnet_sorted": schnet_from_jax,
+                "egnn_fused": egnn_fused_from_jax}[name]
+    tb = bench_scale.kind_box(bench_scale.box_kind(name), 400)
     jb = jgraph.GraphBatch(triplets=None, **{
         k: jnp.asarray(getattr(tb, k).numpy()) for k in (
             "atoms", "pos", "senders", "receivers", "graph_id", "y",
@@ -152,7 +158,8 @@ def test_bench_scale_steps_match_jax(name):
                               "cpu")
     model.load_state_dict(to_torch(jax.tree.map(np.asarray, first)),
                           strict=True)
-    step = bench_scale.make_step(model, tb, sss.batch_seg_plans(tb))
+    plans = sss.batch_seg_plans(tb) if name in bench_scale.SORTED else None
+    step = bench_scale.make_step(model, tb, plans)
     losses = [step().item() for _ in range(3)]
     np.testing.assert_allclose(losses, jax_losses, rtol=2e-5)
     want = to_torch(jax.tree.map(np.asarray, last))

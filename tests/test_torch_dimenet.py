@@ -188,15 +188,6 @@ def test_predictor_matches_jax():
     assert pred.trace_count == 2 and pred.triplet_pad[0] >= 5 * 72
 
 
-@pytest.mark.parametrize("option", [
-    dict(edge_chunk=1024), dict(remat_blocks=True),
-    dict(remat_full_blocks=True), dict(rbf_in_chunk=True),
-    dict(chunk_output_blocks=False)])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dimenet.DimeNetPPModel(**KW, **option, device="cpu")
-
-
 def test_registry_defaults_and_device(monkeypatch):
     assert model_registry["dimenet"] is dimenet.DimeNetPPModel
     model = dimenet.DimeNetPPModel(device="cpu")
@@ -262,14 +253,16 @@ def test_fit_regression_tracks_jax_for_3_epochs():
 
 def test_bench_scale_row_steps_on_a_small_box():
     """``bench_scale``'s dimenet row: the box with its triplets, the
-    configuration (triplet_chunk 262144; from 50k atoms not ported yet) and
-    one step on the CPU, its triplet count in the row's terms."""
+    configuration (triplet_chunk 262144; from 100k atoms edge chunks of
+    65536, remat_blocks and rbf_in_chunk) and one step on the CPU, its
+    triplet count in the row's terms."""
     from geometric_message_passing_tpu_torch.experiments import bench_scale
 
     assert bench_scale.config("dimenet", 30_000) == dict(
         num_layers=4, triplet_chunk=262144)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bench_scale.config("dimenet", 100_000)
+    assert bench_scale.config("dimenet", 100_000) == dict(
+        num_layers=4, triplet_chunk=262144, remat_blocks=True,
+        edge_chunk=65536, rbf_in_chunk=True)
     box = bench_scale.box_batch(120, sort=False, triplets=True)
     assert box.triplets is not None
     assert bool((box.triplets.idx_ji.diff() >= 0).all())
