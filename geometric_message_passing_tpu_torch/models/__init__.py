@@ -3,6 +3,9 @@
 from .dimenet import DimeNetPPModel  # noqa: F401
 from .egnn import EGNNLayer, EGNNModel, MPNNLayer, MPNNModel  # noqa: F401
 from .egnn_fused import EGNNFusedModel, FusedEGNNLayer  # noqa: F401
+from .gnn101 import (CoordMPNNModel, EquivariantMPNNLayer,  # noqa: F401
+                     FinalMPNNModel, InvariantMPNNLayer,
+                     InvariantMPNNModel, MPNN101Layer)
 from .gvpgnn import GVPConv, GVPConvLayer, GVPGNNModel  # noqa: F401
 from .mace import MACEModel  # noqa: F401
 from .mace_ff import MACEForceField  # noqa: F401

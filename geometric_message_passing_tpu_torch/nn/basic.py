@@ -58,22 +58,66 @@ def linear(in_features: int, out_features: int,
     return layer
 
 
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over every axis but the last (the JAX
+    package's ``nn.basic.BatchNorm``: momentum 0.9, eps 1e-5), not
+    ``torch.nn.BatchNorm1d``, whose statistics differ in two ways:
+
+    * the variance is flax's fast one, ``E[x^2] - E[x]^2`` clipped at 0:
+      biased, and that same value normalises and enters the running
+      average (torch keeps an unbiased running variance);
+    * the running averages move as ``ra = m * ra + (1 - m) * batch``
+      (torch's ``momentum`` is ``1 - m``).
+
+    Every row counts, pad rows included, as in the JAX models.  In train
+    mode (``module.train()``) the batch statistics normalise and the
+    buffers ``running_mean`` / ``running_var`` (flax's ``batch_stats``
+    ``mean`` / ``var``) are updated; in eval mode the buffers normalise.
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``, flax's order;
+    ``weight`` / ``bias`` are flax's ``scale`` / ``bias``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class MLP(nn.Module):
     """Linear -> Norm -> Act, once per width of ``hidden``; the last layer's
     norm and activation only with ``norm_final`` / ``act_final``.  ``norm``
-    is ``'layer'`` (LayerNorm, eps 1e-5) or None; ``'batch'`` is not ported
-    yet.  Linears take torch's default init from ``generator``.
+    is ``'layer'`` (LayerNorm, eps 1e-5), ``'batch'`` (``BatchNorm``,
+    momentum 0.9, eps 1e-5: batch statistics in train mode, running ones in
+    eval mode) or None.  Linears take torch's default init from
+    ``generator``.
 
     ``dense[k]`` and ``norm[k]`` are the JAX MLP's ``Dense_k`` and
-    ``LayerNorm_k``."""
+    ``LayerNorm_k`` / ``BatchNorm_k``."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int],
                  activation: Optional[str] = "relu",
                  norm: Optional[str] = "layer", act_final: bool = True,
                  norm_final: bool = True, *, generator: torch.Generator):
         super().__init__()
-        if norm not in ("layer", None):
-            raise NotImplementedError(f"MLP norm={norm!r} is not ported yet")
+        if norm not in ("layer", "batch", None):
+            raise ValueError(f"MLP norm must be 'layer', 'batch' or None, "
+                             f"got {norm!r}")
         if activation not in ACT:
             raise ValueError(f"activation must be one of {sorted(map(str, ACT))}")
         self.act = ACT[activation]
@@ -82,8 +126,9 @@ class MLP(nn.Module):
         self.dense = nn.ModuleList(linear(a, b, generator)
                                    for a, b in zip(widths, widths[1:]))
         n_norm = 0 if norm is None else len(hidden) - (0 if norm_final else 1)
-        self.norm = nn.ModuleList(nn.LayerNorm(w, eps=1e-5)
-                                  for w in hidden[:n_norm])
+        make_norm = ((lambda w: BatchNorm(w, momentum=0.9, eps=1e-5))
+                     if norm == "batch" else (lambda w: nn.LayerNorm(w, eps=1e-5)))
+        self.norm = nn.ModuleList(make_norm(w) for w in hidden[:n_norm])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         last = len(self.dense) - 1

@@ -25,10 +25,24 @@ def _dense(sd: Dict[str, torch.Tensor], prefix: str,
         sd[f"{prefix}.bias"] = _t(dense["bias"])
 
 
+def _batch_norm(sd: Dict[str, torch.Tensor], prefix: str,
+                tree: Mapping[str, Any], stats) -> None:
+    """A flax ``BatchNorm`` (``scale``, ``bias``; ``batch_stats`` ``mean``,
+    ``var``) as the port's ``nn.basic.BatchNorm`` at ``prefix``."""
+    if stats is None:
+        raise ValueError(f"no batch_stats for {prefix}")
+    sd[f"{prefix}.weight"] = _t(tree["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+
+
 def _mlp(sd: Dict[str, torch.Tensor], prefix: str,
-         mlp: Mapping[str, Any]) -> None:
-    """A JAX ``MLP``'s ``Dense_k`` / ``LayerNorm_k`` as the port's
-    ``MLP.dense[k]`` / ``MLP.norm[k]``."""
+         mlp: Mapping[str, Any], stats=None) -> None:
+    """A JAX ``MLP``'s ``Dense_k`` / ``LayerNorm_k`` / ``BatchNorm_k`` as
+    the port's ``MLP.dense[k]`` / ``MLP.norm[k]``; a ``BatchNorm_k``'s
+    running statistics come from ``stats``, the MLP's ``batch_stats``
+    subtree."""
     for name, value in mlp.items():
         kind, k = name.rsplit("_", 1)
         if kind == "Dense":
@@ -36,6 +50,9 @@ def _mlp(sd: Dict[str, torch.Tensor], prefix: str,
         elif kind == "LayerNorm":
             sd[f"{prefix}.norm.{k}.weight"] = _t(value["scale"])
             sd[f"{prefix}.norm.{k}.bias"] = _t(value["bias"])
+        elif kind == "BatchNorm":
+            _batch_norm(sd, f"{prefix}.norm.{k}", value,
+                        (stats or {}).get(name))
         else:
             raise ValueError(f"unexpected MLP entry {prefix}/{name}")
 
@@ -43,14 +60,16 @@ def _mlp(sd: Dict[str, torch.Tensor], prefix: str,
 def egnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.egnn.EGNNModel`` from the variables of the
     JAX ``EGNNModel``: ``params/emb_in/embedding``,
-    ``params/conv_i/{mlp_msg,mlp_pos,mlp_upd}/{Dense_k,LayerNorm_k}`` and
-    ``params/Dense_0``, ``params/Dense_1`` (or ``params/pred``)."""
-    params = variables["params"]
+    ``params/conv_i/{mlp_msg,mlp_pos,mlp_upd}/{Dense_k,LayerNorm_k}`` (or
+    ``BatchNorm_k`` with its ``batch_stats``) and ``params/Dense_0``,
+    ``params/Dense_1`` (or ``params/pred``)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
     n_layers = sum(1 for k in params if k.startswith("conv_"))
     for i in range(n_layers):
         for mlp in ("mlp_msg", "mlp_pos", "mlp_upd"):
-            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp])
+            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp],
+                 stats.get(f"conv_{i}", {}).get(mlp))
     for flax_name, torch_name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1"),
                                   ("pred", "pred")):
         if flax_name in params:
@@ -61,16 +80,52 @@ def egnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def mpnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.egnn.MPNNModel`` from the variables of the
     JAX ``MPNNModel``: ``params/emb_in/embedding``,
-    ``params/conv_i/{mlp_msg,mlp_upd}/{Dense_k,LayerNorm_k}`` and
-    ``params/Dense_0``, ``params/Dense_1``."""
-    params = variables["params"]
+    ``params/conv_i/{mlp_msg,mlp_upd}/{Dense_k,LayerNorm_k}`` (or
+    ``BatchNorm_k`` with its ``batch_stats``) and ``params/Dense_0``,
+    ``params/Dense_1``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {"emb_in.weight": _t(params["emb_in"]["embedding"])}
     n_layers = sum(1 for k in params if k.startswith("conv_"))
     for i in range(n_layers):
         for mlp in ("mlp_msg", "mlp_upd"):
-            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp])
+            _mlp(sd, f"convs.{i}.{mlp}", params[f"conv_{i}"][mlp],
+                 stats.get(f"conv_{i}", {}).get(mlp))
     for k in range(2):
         _dense(sd, f"dense_{k}", params[f"Dense_{k}"])
+    return sd
+
+
+_GNN101_LAYERS = ("MPNN101Layer", "InvariantMPNNLayer", "EquivariantMPNNLayer")
+
+
+def _gnn101_tree(sd: Dict[str, torch.Tensor], prefix: str,
+                 params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
+    for name, value in params.items():
+        kind, k = name.rsplit("_", 1)
+        if kind == "Dense":
+            _dense(sd, f"{prefix}dense_{k}", value)
+        elif kind == "_BNMLP":
+            _mlp(sd, f"{prefix}bnmlp_{k}", value, stats.get(name))
+        elif kind in _GNN101_LAYERS:
+            _gnn101_tree(sd, f"{prefix}layers.{k}.", value, stats.get(name, {}))
+        else:
+            raise ValueError(f"unexpected gnn101 entry {prefix}{name}")
+
+
+def gnn101_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict for a model or layer of ``models.gnn101`` from the
+    variables of its JAX twin (``params`` and ``batch_stats``): ``Dense_k``
+    -> ``dense_k``, ``_BNMLP_k/{Dense_j, BatchNorm_j}`` -> ``bnmlp_k.dense.j``
+    / ``bnmlp_k.norm.j`` (running statistics from ``batch_stats``), and
+    ``MPNN101Layer_k`` / ``InvariantMPNNLayer_k`` /
+    ``EquivariantMPNNLayer_k`` -> ``layers.k``.  The notebook's first
+    model, the JAX ``MPNNModel`` (``params/emb_in``), goes to
+    ``mpnn_from_jax``."""
+    params = variables["params"]
+    if "emb_in" in params:
+        return mpnn_from_jax(variables)
+    sd: Dict[str, torch.Tensor] = {}
+    _gnn101_tree(sd, "", params, variables.get("batch_stats", {}))
     return sd
 
 

@@ -165,8 +165,13 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_mlp_batch_norm_not_ported():
-    with pytest.raises(NotImplementedError):
-        MLP(4, (8, 8), norm="batch", generator=torch.Generator())
+    # norm='batch' is ported now (tests/test_torch_batchnorm.py holds it to
+    # flax); an unknown norm still raises
+    mlp = MLP(4, (8, 8), norm="batch", generator=torch.Generator())
+    assert [type(m).__name__ for m in mlp.norm] == ["BatchNorm", "BatchNorm"]
+    assert mlp.norm[0].momentum == 0.9 and mlp.norm[0].eps == 1e-5
+    with pytest.raises(ValueError):
+        MLP(4, (8, 8), norm="group", generator=torch.Generator())
 
 
 def test_safe_norm_matches_jax_and_is_zero_safe():

@@ -84,7 +84,15 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments.seed_spread",
                    "geometric_message_passing_tpu_torch.utils",
                    "geometric_message_passing_tpu_torch.utils.checkpoint",
-                   "geometric_message_passing_tpu_torch.utils.debug"):
+                   "geometric_message_passing_tpu_torch.utils.debug",
+                   "geometric_message_passing_tpu_torch.utils.plot",
+                   "geometric_message_passing_tpu_torch.utils.profiler",
+                   "geometric_message_passing_tpu_torch.utils.roofline",
+                   "geometric_message_passing_tpu_torch.models.gnn101",
+                   "geometric_message_passing_tpu_torch.examples.gnn101",
+                   "geometric_message_passing_tpu_torch.examples.qm9_pipeline",
+                   "geometric_message_passing_tpu_torch.examples.make_101_notebook",
+                   "geometric_message_passing_tpu_torch.examples.make_experiment_notebooks"):
         assert module in res["imported"]
 
 
