@@ -13,8 +13,14 @@ later grow it once; ``trace_count`` counts the bucket sizings, the port's
 analogue of the JAX package's recompiles.  The directional models take
 ``needs_triplets=True`` (DimeNet++) or ``with_quads=True`` (SphereNet): each
 batch then carries its triplets (and quads), padded to a triplet bucket that
-grows with the node bucket.  Multi-device serving (``mesh=``) is not ported
-yet and raises ``NotImplementedError``.
+grows with the node bucket.
+
+Pass ``mesh=`` (a ``parallel.Mesh``; every rank builds its ``Predictor``
+and calls ``predict`` alike) to serve over several ranks: the batches go in
+groups of one per rank, rank r scoring batch ``g0 + r`` of each group (a
+ragged last group repeats its final batch, whose copy is sliced away), and
+one all-gather a group gives every rank the whole result.  No other
+communication: each rank's graphs pool on the rank.
 """
 
 from __future__ import annotations
@@ -26,21 +32,30 @@ import torch
 
 from .. import resolve_device
 from ..graph import GraphLoader, pad_sizes
+from ..parallel.mesh import Mesh, collectives
 from ..triplets import triplet_pad_sizes
 
 
 class Predictor:
     """Fixed-bucket inference over a model that maps a ``GraphBatch`` to
     ``[num_graphs, out_dim]``.  The model's parameters must be on
-    ``device`` (default ``"cuda"``, which raises when CUDA is absent)."""
+    ``device`` (default ``"cuda"``, which raises when CUDA is absent; with
+    ``mesh``, the mesh's device)."""
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 100,
                  pad: Optional[tuple] = None, y_dtype=np.float32, device=None,
-                 mesh=None, needs_triplets: bool = False,
+                 mesh: Optional[Mesh] = None, needs_triplets: bool = False,
                  with_quads: bool = False,
-                 triplet_pad: Optional[tuple] = None):
+                 triplet_pad: Optional[tuple] = None, mesh_axis: str = "dp"):
         if mesh is not None:
-            raise NotImplementedError("Predictor(mesh=) is not ported yet")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.needs_triplets = needs_triplets or with_quads
         self.with_quads = with_quads
         self.triplet_pad = triplet_pad
@@ -90,17 +105,40 @@ class Predictor:
                              with_triplets=self.needs_triplets,
                              with_quads=self.with_quads,
                              triplet_pad=self.triplet_pad)
-        outs, remaining = [], len(graphs)
         was_training = self.model.training
         self.model.eval()               # the JAX package's train=False
         try:
             with torch.inference_mode():
-                for batch in loader:
-                    n_real = min(self.batch_size, remaining)
-                    remaining -= n_real
-                    outs.append(self.model(batch.to(self.device))[:n_real])
+                if self.mesh is None:
+                    outs = self._serve(loader, len(graphs))
+                else:
+                    outs = self._serve_sharded(loader, len(graphs))
                 return torch.cat(outs, dim=0).cpu().numpy()
         finally:
             self.model.train(was_training)
+
+    def _serve(self, loader: GraphLoader, count: int) -> list:
+        outs = []
+        for batch in loader:
+            n_real = min(self.batch_size, count)
+            count -= n_real
+            outs.append(self.model(batch.to(self.device))[:n_real])
+        return outs
+
+    def _serve_sharded(self, loader: GraphLoader, count: int) -> list:
+        """Groups of one batch per rank, gathered on every rank."""
+        mesh, axis = self.mesh, self.mesh_axis
+        ndev, me = mesh.shape[axis], mesh.coords[axis]
+        batches = list(loader)
+        reals = [min(self.batch_size, count - i * self.batch_size)
+                 for i in range(len(batches))]
+        outs = []
+        for g0 in range(0, len(batches), ndev):
+            n_live = min(ndev, len(batches) - g0)
+            mine = batches[g0 + min(me, n_live - 1)]
+            out = self.model(mine.to(self.device))
+            group = collectives.all_gather(mesh, out, axis)
+            outs.extend(group[k][:reals[g0 + k]] for k in range(n_live))
+        return outs
 
     __call__ = predict

@@ -3,7 +3,7 @@ on one CUDA card: the spread an accuracy bound of ``chip_smoke.py`` is set
 from when the run's depth is cut.
 
     python -m geometric_message_passing_tpu_torch.experiments.seed_spread \\
-        --model dimenet --epochs 300 --repeats 3
+        --model dimenet --epochs 200 --repeats 3
 
 ``--model dimenet``: ``bench.DIMENET_STAR`` (fold 7, 4 layers, 1000 graphs,
 lr 1e-4, plateau schedule; ``chip_smoke.py`` phase 6i); ``mace``:

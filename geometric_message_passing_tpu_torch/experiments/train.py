@@ -32,8 +32,8 @@ The JAX engine's training options are keyword arguments here: ``loss_mask``
 ``GRAD_CLIP`` and ``LR_WARMUP``), checkpoint/resume and the NaN watchdog
 (``checkpoint_dir``, ``checkpoint_every``, ``nan_recovery``,
 ``max_recoveries``, ``inject_fault``), with ``fit_stepwise``'s semantics:
-the loop is epoch by epoch.  ``run_experiment_reg(mesh=)`` is not ported
-and raises ``NotImplementedError``.
+the loop is epoch by epoch.  ``run_experiment_reg(mesh=)`` runs every
+repeat data-parallel over a ``parallel.Mesh`` (``experiments/dp_fit.py``).
 """
 
 from __future__ import annotations
@@ -598,22 +598,56 @@ def run_experiment_reg(model_func, model_args, train_loader, val_loader,
     go to ``{checkpoint_dir}/run{idx}``, so a second call with the same
     directory resumes every repeat.  ``grad_clip`` and ``lr_warmup`` stand
     for the JAX package's ``GRAD_CLIP`` and ``LR_WARMUP``.  Returns
-    (best_vals, test_maes, times, mean test MAE, std test MAE)."""
+    (best_vals, test_maes, times, mean test MAE, std test MAE).
+
+    ``mesh``: run every train and eval step data-parallel over a
+    ``parallel.Mesh`` (``dp_fit.fit_dp``, called by every rank alike; the
+    model is built on the mesh's device, the batch is the train loader's,
+    split over the ranks).  Cosine, the plateau schedule and checkpoints
+    hold there; ``loss_mask``, ``nan_recovery``, ``grad_clip`` and
+    ``lr_warmup`` raise ``ValueError`` (the single-device engine's
+    options), a ``mesh`` that is not a ``parallel.Mesh`` ``TypeError``."""
     if mesh is not None:
-        raise NotImplementedError("run_experiment_reg(mesh=) is not ported yet")
-    dev = resolve_device(device)
+        from ..parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if loss_mask or nan_recovery:
+            raise ValueError("loss_mask/nan_recovery are not supported "
+                             "under mesh execution (single-device "
+                             "engine features)")
+        if grad_clip or lr_warmup:
+            raise ValueError("grad_clip/lr_warmup are not supported under "
+                             "mesh execution (single-device engine "
+                             "features)")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     best_val, test_mae, times = [], [], []
     for idx in range(n_times):
         model = model_func(**model_args, generator=seed_everything(idx),
                            device=dev)
-        res = fit_regression(
-            model, None, train_loader, val_loader, test_loader,
-            n_epochs=n_epochs, lr=lr, cosine=cosine, loss_mask=loss_mask,
-            seed=idx,
-            checkpoint_dir=(f"{checkpoint_dir}/run{idx}"
-                            if checkpoint_dir else None),
-            checkpoint_every=checkpoint_every, nan_recovery=nan_recovery,
-            device=dev, grad_clip=grad_clip, lr_warmup=lr_warmup)
+        run_dir = f"{checkpoint_dir}/run{idx}" if checkpoint_dir else None
+        if mesh is not None:
+            from .dp_fit import fit_dp
+
+            res = fit_dp(
+                model, None, train_loader.graphs, val_loader.graphs,
+                test_loader.graphs, n_epochs=n_epochs, mesh=mesh,
+                batch_size=train_loader.batch_size, lr=lr, cosine=cosine,
+                plateau=None if cosine else PlateauConfig(
+                    mode="max", factor=0.9, patience=15, min_lr=1e-4),
+                seed=idx, checkpoint_dir=run_dir,
+                checkpoint_every=checkpoint_every)
+        else:
+            res = fit_regression(
+                model, None, train_loader, val_loader, test_loader,
+                n_epochs=n_epochs, lr=lr, cosine=cosine, loss_mask=loss_mask,
+                seed=idx, checkpoint_dir=run_dir,
+                checkpoint_every=checkpoint_every, nan_recovery=nan_recovery,
+                device=dev, grad_clip=grad_clip, lr_warmup=lr_warmup)
         best_val.append(res.best_val)
         test_mae.append(res.test)
         times.append(res.train_time)

@@ -1422,3 +1422,55 @@ def test_force_field_box_step_on_card_matches_cpu(cuda_device, name):
         assert torch.equal(grads["cuda"][n], grads["cuda again"][n]), n
         torch.testing.assert_close(grads["cuda"][n], ref, rtol=0,
                                    atol=1e-4 * max(ref.abs().max().item(), 1))
+
+
+def _dp_card_rank() -> dict:
+    """Two dp steps of a narrow EGNNFusedModel on this rank's half of 16
+    star graphs (K1/K2 on every rank), counters read per rank."""
+    from geometric_message_passing_tpu_torch.parallel import (
+        dp_train_step, make_mesh, shard_batches)
+
+    mesh = make_mesh()
+    graphs = datasets.create_star_graphs(num=16, fold=[4, 5], dim=3, seed=0)
+    pads = graph.pad_sizes(graphs, 8)
+    model = EGNNFusedModel(2, 32, 1, 1, pool="first", device=mesh.device,
+                           generator=torch.Generator().manual_seed(0))
+    step = dp_train_step(model, train.make_tx(model.parameters(), 1e-3), mesh,
+                         train.l1_sum_loss)
+    shard = shard_batches(graphs, 2, *pads)[mesh.coords["dp"]].to(mesh.device)
+    before = (edge.egnn_message.launches, edge.egnn_message.bwd_launches)
+    losses = [float(step(shard)) for _ in range(2)]
+    launched = (edge.egnn_message.launches - before[0],
+                edge.egnn_message.bwd_launches - before[1])
+    return {"device": str(mesh.device), "launched": launched,
+            "losses": losses,
+            "state": {k: v.cpu().numpy() for k, v in model.state_dict().items()}}
+
+
+@pytest.mark.cuda
+def test_dp_two_gloo_ranks_share_the_card(cuda_device):
+    """Two gloo ranks on one card (NCCL refuses that: it raises before any
+    process starts) equal two plain steps on the concatenated batch here:
+    weights within 1e-5, K1 and K2 twice per layer on each rank."""
+    from geometric_message_passing_tpu_torch.parallel import launch
+
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="one GPU per rank"):
+            launch.spawn(_dp_card_rank, 2, backend="nccl")
+    ranks = launch.spawn(_dp_card_rank, 2, backend="gloo", timeout_s=300)
+    graphs = datasets.create_star_graphs(num=16, fold=[4, 5], dim=3, seed=0)
+    pads = graph.pad_sizes(graphs, 8)
+    big = graph.batch_graphs(graphs, *(2 * p for p in pads)).to(cuda_device)
+    model = EGNNFusedModel(2, 32, 1, 1, pool="first", device=cuda_device,
+                           generator=torch.Generator().manual_seed(0))
+    opt = train.make_tx(model.parameters(), 1e-3)
+    for _ in range(2):
+        loss = train.l1_sum_loss(model(big), big)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    for r in ranks:
+        assert r["device"] == "cuda:0" and r["launched"] == (4, 4)
+        for k, v in model.state_dict().items():
+            np.testing.assert_allclose(r["state"][k], v.cpu().numpy(),
+                                       atol=1e-5, rtol=0, err_msg=k)

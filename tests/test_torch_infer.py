@@ -88,13 +88,14 @@ def test_predict_empty(models):
                                     dict(needs_triplets=True),
                                     dict(with_quads=True)])
 def test_not_ported_options_raise(models, kwargs):
-    """``mesh=`` is not ported yet and raises; ``needs_triplets`` and
+    """``mesh=`` is ported (tests/test_torch_parallel_fit.py) and refuses
+    a mesh that is not the port's ``parallel.Mesh``; ``needs_triplets`` and
     ``with_quads`` (not ported before the triplet models) now serve: the
     batches carry triplets (and quads), which this model ignores, so the
     result is the plain Predictor's."""
     _, _, tmodel, graphs = models
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             Predictor(tmodel, batch_size=8, device="cpu", **kwargs)
         return
     pred = Predictor(tmodel, batch_size=8, device="cpu", **kwargs)

@@ -92,7 +92,16 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.examples.gnn101",
                    "geometric_message_passing_tpu_torch.examples.qm9_pipeline",
                    "geometric_message_passing_tpu_torch.examples.make_101_notebook",
-                   "geometric_message_passing_tpu_torch.examples.make_experiment_notebooks"):
+                   "geometric_message_passing_tpu_torch.examples.make_experiment_notebooks",
+                   "geometric_message_passing_tpu_torch.parallel",
+                   "geometric_message_passing_tpu_torch.parallel.mesh",
+                   "geometric_message_passing_tpu_torch.parallel.launch",
+                   "geometric_message_passing_tpu_torch.parallel.data",
+                   "geometric_message_passing_tpu_torch.parallel.zero",
+                   "geometric_message_passing_tpu_torch.experiments.dp_fit",
+                   "geometric_message_passing_tpu_torch.experiments.probe_backends",
+                   "geometric_message_passing_tpu_torch.experiments.dp_check",
+                   "geometric_message_passing_tpu_torch.experiments.dp_drift"):
         assert module in res["imported"]
 
 

@@ -213,7 +213,9 @@ def test_unported_options_raise(monkeypatch):
         with pytest.raises(ValueError, match="requires checkpointing"):
             ttrain.fit_regression(model, None, *loaders, n_epochs=1,
                                   device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported (tests/test_torch_parallel_fit.py); a mesh that is
+    # not the port's parallel.Mesh is refused
+    with pytest.raises(TypeError, match="mesh"):
         ttrain.run_experiment_reg(EGNNFusedModel, KW, *loaders, n_epochs=1,
                                   n_times=1, device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
