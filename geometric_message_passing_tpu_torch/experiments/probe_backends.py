@@ -4,9 +4,15 @@
 
 Two gloo ranks share ``cuda:0`` and try every collective the parallel
 layer could use, on CUDA tensors and on CPU tensors, each result checked;
-then two ranks try an NCCL group on one GPU (NCCL refuses it: the error is
-printed), and one rank runs an NCCL all-reduce.  One JSON line per probe.
-On the H100 with torch 2.11 gloo ran every op on CUDA tensors (PERF.md).
+then the point-to-point sends (``send_recv``, ``batch_isend_irecv``: a
+ring, what a pipeline's ``ppermute`` would use), each in a launch of its
+own, since a failing send can abort its process; then two ranks try an
+NCCL group on one GPU (NCCL refuses it: the error is printed), and one
+rank runs an NCCL all-reduce.  One JSON line per probe.  On the H100 with
+torch 2.11 gloo ran every collective on CUDA tensors, and a send of a
+CUDA tensor aborted the rank (``gloo::IoException ... writev ... Bad
+address``), so ``parallel.mesh.collectives.ppermute`` stays an
+all-gather (PERF.md).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..parallel.launch import spawn
 OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
        "reduce_scatter_tensor", "reduce_scatter", "all_to_all_single",
        "barrier")
+P2P = ("send_recv", "batch_isend_irecv")
 
 
 def _try(op: str, dev: str, rank: int, world: int) -> str:
@@ -55,6 +62,20 @@ def _try(op: str, dev: str, rank: int, world: int) -> str:
         out = x.new_empty(4)
         dist.reduce_scatter(out, list(x.chunk(world)))
         got, want = out, want_sum[4 * rank:4 * rank + 4]
+    elif op in ("send_recv", "batch_isend_irecv"):
+        # a ring: each rank sends to the next and receives from the one
+        # before (parallel/pp.py's ppermute)
+        out = torch.empty_like(x)
+        nxt, prev = (rank + 1) % world, (rank - 1) % world
+        if op == "send_recv":
+            reqs = [dist.isend(x, nxt), dist.irecv(out, prev)]
+        else:
+            reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt),
+                                           dist.P2POp(dist.irecv, out, prev)])
+        for req in reqs:
+            req.wait()
+        got = out
+        want = torch.arange(4 * world, dtype=torch.float32) + prev
     elif op == "all_to_all_single":
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x)
@@ -80,6 +101,10 @@ def gloo_rank() -> dict:
             except (RuntimeError, ValueError) as exc:
                 out[f"{op} {dev}"] = "error: " + str(exc).splitlines()[0][:200]
     return out
+
+
+def p2p_rank(op: str, dev: str) -> str:
+    return _try(op, dev, dist.get_rank(), dist.get_world_size())
 
 
 def nccl_shared_gpu_rank() -> str:
@@ -113,6 +138,18 @@ def main(argv=None) -> int:
                       "ops": gloo[0], "ranks_agree": all(
                           set(g) == set(gloo[0]) for g in gloo),
                       "s": round(time.perf_counter() - t, 2)}), flush=True)
+    for dev in ("cuda", "cpu"):
+        for op in P2P:
+            t = time.perf_counter()
+            try:
+                res = spawn(p2p_rank, args.world, backend="gloo", args=(op, dev),
+                            timeout_s=60)
+            except RuntimeError as exc:   # a rank aborted or hung
+                res = [f"launch failed: {str(exc).splitlines()[0]}"]
+            print(json.dumps({"probe": f"gloo {op} {dev}", "world": args.world,
+                              "result": res,
+                              "s": round(time.perf_counter() - t, 2)}),
+                  flush=True)
     t = time.perf_counter()
     try:
         nccl = spawn(nccl_shared_gpu_rank, 2, backend="gloo", device="cpu",

@@ -12,6 +12,13 @@ SH irrep up to ``max_ell``.  Readout: the pooled features' scalar slice
 ``[:, :emb_dim]`` through Linear-ReLU-Linear, or with ``equivariant_pred``
 one Linear (``pred``) over the whole pooled vector.
 
+Tensor parallelism (``tp_axis``, ``tp_size``, ``mesh``; built by
+``parallel.tp.tp_local_model`` with this rank's ``emb_dim`` and
+``hidden_irreps``, 1/tp_size of the full model's): the layers run on this
+rank's channels and sum their channel-mixing products over the axis
+(``nn/conv.py``); the readout's first Linear is a ``RowParallelDense``
+(``dense_0``, full width out, or ``pred``), ``dense_1`` is replicated.
+
 Module names follow the flax tree (``emb_in``, ``convs[i]`` for ``conv_i``,
 ``prods[i]`` for ``prod_i``, ``dense_0``/``dense_1``, ``pred``), so
 ``weights.mace_from_jax`` carries a JAX model's values over.
@@ -27,8 +34,9 @@ from torch import nn
 from .. import resolve_device
 from ..graph import GraphBatch
 from ..irreps import Irreps
-from ..nn.basic import Embedding, OutputLinear, linear
-from ..nn.conv import EquivariantProductBasisBlock, TensorProductConvLayer
+from ..nn.basic import Embedding, OutputLinear, RowParallelDense, linear
+from ..nn.conv import (EquivariantProductBasisBlock, TensorProductConvLayer,
+                       check_tp)
 from ..nn.equivariant import pad_to_irreps, reshape_irreps
 from ..ops.norms import safe_norm
 from ..ops.radial import radial_embedding
@@ -45,8 +53,8 @@ class MACEModel(nn.Module):
     CUDA is absent).  ``tp_precision`` and ``tp_precision_scope`` are
     accepted for the JAX surface and have no effect: every product on the
     card is exact f32.  ``weights_bf16`` makes the conv layers' weight heads
-    emit bf16, as in TFN.  ``tp_axis`` (tensor parallelism) is not ported
-    yet and raises ``NotImplementedError``."""
+    emit bf16, as in TFN.  ``tp_axis`` needs ``mesh`` (``ValueError``
+    otherwise).  ``config`` holds the constructor's arguments."""
 
     def __init__(self, r_max: float = 10.0, num_bessel: int = 8,
                  num_polynomial_cutoff: int = 5, max_ell: int = 2,
@@ -59,11 +67,14 @@ class MACEModel(nn.Module):
                  weights_bf16: bool = False,
                  tp_precision: Optional[str] = "highest",
                  tp_precision_scope: str = "conv", *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 mesh=None):
+        config = {k: v for k, v in locals().items()
+                  if k not in ("self", "generator", "device", "mesh",
+                               "__class__")}
         super().__init__()
-        if tp_axis is not None or tp_size != 1:
-            raise NotImplementedError(
-                "MACEModel(tp_axis=...) (tensor parallelism) is not ported yet")
+        check_tp(tp_axis, tp_size, mesh, "MACEModel")
+        self.config = config
         dev = resolve_device(device)
         if pool not in POOL:
             raise ValueError(f"pool must be one of {sorted(POOL)}, got {pool!r}")
@@ -89,12 +100,24 @@ class MACEModel(nn.Module):
                 Irreps(f"{emb_dim}x0e") if i == 0 else hidden, hidden,
                 sh_irreps, edge_dim=num_bessel, mlp_dim=mlp_dim, aggr=aggr,
                 batch_norm=batch_norm, gate=False, weights_bf16=weights_bf16,
-                tp_precision=tp_precision, generator=generator))
+                tp_precision=tp_precision, tp_axis=tp_axis, tp_size=tp_size,
+                mesh=mesh, generator=generator))
             self.prods.append(EquivariantProductBasisBlock(
                 hidden, hidden, correlation, use_sc=residual,
                 element_dependent=False, num_elements=in_dim,
+                tp_axis=tp_axis, tp_size=tp_size, mesh=mesh,
                 generator=generator))
-        if equivariant_pred:
+        if tp_axis is not None:
+            if equivariant_pred:
+                self.pred = RowParallelDense(hidden.dim, out_dim, mesh,
+                                             tp_axis, generator=generator)
+            else:
+                self.dense_0 = RowParallelDense(emb_dim, emb_dim * tp_size,
+                                                mesh, tp_axis,
+                                                generator=generator)
+                self.dense_1 = linear(emb_dim * tp_size, out_dim, generator,
+                                      OutputLinear)
+        elif equivariant_pred:
             self.pred = linear(hidden.dim, out_dim, generator, OutputLinear)
         else:
             self.dense_0 = linear(emb_dim, emb_dim, generator)

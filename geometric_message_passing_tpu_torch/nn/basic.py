@@ -1,6 +1,7 @@
 """Scalar building blocks (port of ``nn/basic.py``): activations, the
 ``torch.nn.Linear`` default initialisation drawn from a given generator, and
-the Linear/Norm/Act ``MLP``."""
+the Linear/Norm/Act ``MLP``, and ``RowParallelDense`` (a Linear whose input
+is split over a mesh axis: tensor parallelism)."""
 
 from __future__ import annotations
 
@@ -56,6 +57,32 @@ def linear(in_features: int, out_features: int,
     torch_linear_init_(layer.weight, in_features, generator)
     torch_linear_init_(layer.bias, in_features, generator)
     return layer
+
+
+class RowParallelDense(nn.Module):
+    """A Linear whose INPUT features are split over ``axis`` of ``mesh``
+    (tensor parallelism, the JAX package's ``RowParallelDense``): each rank
+    holds the weight columns of its input slice (``weight [out_features,
+    in_features]``, ``in_features`` the local width), computes its partial
+    product, and one ``differentiable.psum`` completes the contraction;
+    the bias is added after it, once.  A full Linear's weight splits on
+    dim 1 onto the ranks (flax's kernel ``[in, out]`` on axis 0).  Every row
+    is computed alike, as in ``OutputLinear``."""
+
+    def __init__(self, in_features: int, out_features: int, mesh, axis: str,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.mesh, self.axis = mesh, axis
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        torch_linear_init_(self.weight, in_features, generator)
+        torch_linear_init_(self.bias, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import differentiable
+
+        partial = x @ self.weight.t().contiguous()
+        return differentiable.psum(self.mesh, partial, self.axis) + self.bias
 
 
 class BatchNorm(nn.Module):

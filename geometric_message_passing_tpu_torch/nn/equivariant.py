@@ -8,8 +8,8 @@ rescaled to keep the second moment), ``EquivariantBatchNorm`` (e3nn's
 ``nn.BatchNorm``: running statistics as buffers, ``mask`` keeps pad rows out
 of them), MACE's channel layout (``reshape_irreps`` /
 ``inverse_reshape_irreps``) and ``IrrepsLinear`` (e3nn's ``o3.Linear``).
-The tensor-parallel helpers (``scale_mul``, ``shard_mul_slice``) wait for
-the parallel slice.
+The tensor-parallel helpers: ``scale_mul`` (the full irreps of a mul
+shard) and ``shard_mul_slice`` (a shard's channels of full features).
 """
 
 from __future__ import annotations
@@ -41,6 +41,23 @@ def merge_blocks(blocks: List[torch.Tensor]) -> torch.Tensor:
     flat = [b.reshape(b.shape[:-2] + (b.shape[-2] * b.shape[-1],))
             for b in blocks]
     return torch.cat(flat, dim=-1)
+
+
+def scale_mul(irreps: Irreps, k: int) -> Irreps:
+    """Every multiplicity times ``k``: the full irreps of a ``k``-way mul
+    shard."""
+    return Irreps([(mul * k, ir) for mul, ir in irreps])
+
+
+def shard_mul_slice(x: torch.Tensor, irreps_full: Irreps, tp_size: int,
+                    shard_index: int) -> torch.Tensor:
+    """Shard ``shard_index``'s channels of flat full-mul features: block
+    ``shard_index`` of ``tp_size`` of the mul axis of every irrep."""
+    outs = []
+    for blk, (mul, _) in zip(split_blocks(x, irreps_full), irreps_full):
+        loc = mul // tp_size
+        outs.append(blk[..., shard_index * loc:(shard_index + 1) * loc, :])
+    return merge_blocks(outs)
 
 
 def reshape_irreps(x: torch.Tensor, irreps: Irreps) -> torch.Tensor:

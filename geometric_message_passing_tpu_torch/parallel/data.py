@@ -20,6 +20,7 @@ import torch
 
 from ..graph import GraphBatch, batch_graphs
 from ..nn.basic import BatchNorm
+from ..nn.equivariant import EquivariantBatchNorm
 from .mesh import Mesh, collectives, seed_from_key
 
 
@@ -43,9 +44,11 @@ def shard_batches(graphs: Sequence, num_shards: int, n_pad: int, e_pad: int,
 
 def batch_stats(model: torch.nn.Module) -> List[torch.Tensor]:
     """The buffers a train-mode forward updates: each ``BatchNorm``'s
-    running mean and variance."""
-    return [b for m in model.modules() if isinstance(m, BatchNorm)
-            for b in (m.running_mean, m.running_var)]
+    running mean and variance and each ``EquivariantBatchNorm``'s
+    ``mean{k}`` / ``var{k}`` (the JAX ``batch_stats`` collection)."""
+    return [b for m in model.modules()
+            if isinstance(m, (BatchNorm, EquivariantBatchNorm))
+            for b in m.buffers(recurse=False)]
 
 
 def reseed_rank_dropout(model: torch.nn.Module, mesh: Mesh, key,

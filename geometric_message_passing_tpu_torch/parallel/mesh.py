@@ -13,6 +13,10 @@ per axis (the ranks that differ only in that axis's coordinate), so
     mesh = make_mesh((world,), ("dp",))
     g = collectives.all_reduce_sum(mesh, g, "dp")
 
+``collectives`` move values and are not differentiated; ``differentiable``
+holds the collectives used inside a model's forward (tensor and pipeline
+parallelism), each with the JAX transpose as its backward.
+
 Backends.  NCCL needs one GPU per rank: it refuses two ranks on one
 device ("Duplicate GPU detected"), so ``init_distributed`` raises before it
 starts a group that would put two NCCL ranks on one GPU.  Ranks that share
@@ -345,8 +349,10 @@ class collectives:
                  ) -> torch.Tensor:
         """``jax.lax.ppermute``: for each (source, destination) pair of axis
         indices in ``perm``, the destination receives the source's ``x``;
-        a rank that no pair names receives zeros.  One all-gather (the
-        strategies that move halos each step bring point-to-point sends)."""
+        a rank that no pair names receives zeros.  One all-gather: gloo's
+        point-to-point sends abort the process on a CUDA tensor
+        (``experiments/probe_backends.py``), and ranks that share a card
+        run on gloo."""
         sources = {dst: src for src, dst in perm}
         gathered = collectives.all_gather(mesh, x, axis)
         src = sources.get(mesh.coords[axis])
@@ -363,6 +369,95 @@ class collectives:
         across shards (``seed_from_key`` turns it into one integer)."""
         key = tuple(key) if isinstance(key, (tuple, list)) else (int(key),)
         return key + tuple(mesh.coords[a] for a in axes)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return collectives.all_reduce_sum(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_reduce_sum(ctx.mesh, g, ctx.axis), None, None
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return collectives.all_reduce_sum(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_reduce_sum(ctx.mesh, g, ctx.axis), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, perm, axis):
+        ctx.mesh, ctx.perm, ctx.axis = mesh, perm, axis
+        return collectives.ppermute(mesh, x, perm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(dst, src) for src, dst in ctx.perm]
+        return (collectives.ppermute(ctx.mesh, g, inverse, ctx.axis), None,
+                None, None)
+
+
+class differentiable:
+    """Collectives inside a function that autograd differentiates, each a
+    ``torch.autograd.Function`` whose backward is the JAX transpose of the
+    forward, over the axis's process group of ``mesh``.
+
+    Every rank must run every backward collective in the same order, as
+    the forwards: each rank builds the same graph, and the output of each
+    collective must reach the loss on every rank (through ``torch.where``
+    where a rank does not need the value), or autograd skips its backward
+    on that rank while the others wait in theirs."""
+
+    @staticmethod
+    def psum(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``jax.lax.psum``: the sum over the axis; backward the sum of the
+        cotangents over the axis (psum's transpose).  Tensor parallelism
+        relies on it: after a psum each rank keeps its own channels, so its
+        cotangent is nonzero on those only, and only the sum rebuilds the
+        cotangent of the partial product (Megatron's identity would not)."""
+        return _AllReduceSum.apply(x, mesh, axis)
+
+    @staticmethod
+    def psum_replicated(mesh: Mesh, x: torch.Tensor,
+                        axis: str) -> torch.Tensor:
+        """The sum over the axis, whose result every rank then
+        differentiates alike (a loss of a replicated output): backward
+        passes this rank's cotangent through, since summing the ranks'
+        equal cotangents would count the one loss once per rank."""
+        return _SumForward.apply(x, mesh, axis)
+
+    @staticmethod
+    def replicated(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The identity on a tensor every rank holds alike and uses in
+        part (JAX's unmapped ``shard_map`` input); backward the sum of the
+        cotangents over the axis, so every rank gets the whole gradient."""
+        return _SumBackward.apply(x, mesh, axis)
+
+    @staticmethod
+    def ppermute(mesh: Mesh, x: torch.Tensor, perm,
+                 axis: str) -> torch.Tensor:
+        """``collectives.ppermute``; backward the ppermute of the
+        cotangents along the inverse pairs."""
+        return _PPermute.apply(x, mesh, perm, axis)
 
 
 def seed_from_key(key) -> int:

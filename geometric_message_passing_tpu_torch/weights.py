@@ -77,6 +77,29 @@ def egnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def egnn_layer_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The parameters of a JAX ``EGNNLayer`` (``mlp_msg``, ``mlp_pos``,
+    ``mlp_upd``, layer or no norm) under ``models.egnn.EGNNLayer``'s
+    names: one pipeline stage's dict (``parallel.pp``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for mlp in ("mlp_msg", "mlp_pos", "mlp_upd"):
+        _mlp(sd, mlp, params[mlp])
+    return sd
+
+
+def egnn_stages_from_jax(stacked: Mapping[str, Any]
+                         ) -> list:
+    """The JAX ``stack_stage_params`` tree of ``EGNNLayer`` parameters
+    (every leaf with a leading stage axis) as one ``egnn_layer_from_jax``
+    dict a stage."""
+    def stage(tree, s):
+        return {k: stage(v, s) if isinstance(v, Mapping) else np.asarray(v)[s]
+                for k, v in tree.items()}
+
+    n = len(np.asarray(stacked["mlp_msg"]["Dense_0"]["kernel"]))
+    return [egnn_layer_from_jax(stage(stacked, s)) for s in range(n)]
+
+
 def mpnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for ``models.egnn.MPNNModel`` from the variables of the
     JAX ``MPNNModel``: ``params/emb_in/embedding``,

@@ -1474,3 +1474,69 @@ def test_dp_two_gloo_ranks_share_the_card(cuda_device):
         for k, v in model.state_dict().items():
             np.testing.assert_allclose(r["state"][k], v.cpu().numpy(),
                                        atol=1e-5, rtol=0, err_msg=k)
+
+
+def _tp_card_model(device):
+    # no batch norm: its backward amplifies f32 rounding (PERF.md)
+    return MACEModel(num_layers=2, emb_dim=16, max_ell=2, correlation=2,
+                     pool="first", batch_norm=False, in_dim=1, out_dim=1,
+                     device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _tp_card_batch(device):
+    graphs = datasets.create_star_graphs(num=8, fold=[4, 5], dim=3, seed=0)
+    return graph.batch_graphs(graphs, *graph.pad_sizes(graphs, 8)).to(device)
+
+
+def _tp_card_rank() -> dict:
+    """A narrow MACE sharded on its channels over two ranks: the forward
+    and one SGD step's gradients, K7 / K4 counted per rank."""
+    from geometric_message_passing_tpu_torch.parallel import (
+        make_mesh, shard_model_variables, tp_apply, tp_local_model,
+        tp_train_step)
+
+    mesh = make_mesh((2,), ("tp",))
+    full = _tp_card_model(mesh.device)
+    batch = _tp_card_batch(mesh.device)
+    shard = shard_model_variables(full.state_dict(), full, 2)[
+        mesh.coords["tp"]]
+    before = (ec.edge_weighted_contract_grouped.launches,
+              sss.segment_sum.launches)
+    y = tp_apply(full, shard, mesh)(batch)
+    launched = (ec.edge_weighted_contract_grouped.launches - before[0],
+                sss.segment_sum.launches - before[1])
+    local = tp_local_model(full, 2, mesh)
+    local.load_state_dict(shard)
+    tp_train_step(local, torch.optim.SGD(local.parameters(), lr=1.0), mesh,
+                  train.l1_sum_loss)(batch)
+    return {"device": str(mesh.device), "launched": launched,
+            "y": y.cpu().numpy(),
+            "grads": {n: p.grad.cpu().numpy()
+                      for n, p in local.named_parameters()}}
+
+
+@pytest.mark.cuda
+def test_tp_two_gloo_ranks_share_the_card(cuda_device):
+    """MACE at tp 2 on two gloo ranks sharing the card: the forward within
+    1e-5 of one process's, each rank's gradients the sharded single-rank
+    gradients (1e-4 of each tensor's largest entry), K7 and K4 once per
+    layer on each rank's forward."""
+    from geometric_message_passing_tpu_torch.parallel import (
+        launch, shard_model_variables)
+
+    ranks = launch.spawn(_tp_card_rank, 2, backend="gloo", timeout_s=300)
+    model = _tp_card_model(cuda_device)
+    batch = _tp_card_batch(cuda_device)
+    with torch.no_grad():
+        want = model(batch).cpu().numpy()
+    loss = train.l1_sum_loss(model(batch), batch)
+    loss.backward()
+    grads = shard_model_variables(
+        {n: p.grad.cpu() for n, p in model.named_parameters()}, model, 2)
+    for p, r in enumerate(ranks):
+        assert r["device"] == "cuda:0" and r["launched"] == (2, 2)
+        np.testing.assert_allclose(r["y"], want, atol=1e-5, rtol=0)
+        for n, g in grads[p].items():
+            scale = max(max(s[n].abs().max().item() for s in grads), 1e-30)
+            err = np.abs(r["grads"][n] - g.numpy()).max()
+            assert err <= 1e-4 * scale, n

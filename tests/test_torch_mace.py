@@ -200,7 +200,7 @@ def test_product_basis_block_matches_jax():
     np.testing.assert_allclose(
         blocked(torch.from_numpy(x), torch.from_numpy(skip)).detach().numpy(),
         want, atol=ATOL, rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs mesh="):
         conv.EquivariantProductBasisBlock(h, h, 3, generator=_gen(),
                                           tp_axis="tp")
 
@@ -330,7 +330,7 @@ def test_registry_defaults_and_unported_options(monkeypatch):
                             jmodel.num_layers, jmodel.emb_dim, jmodel.pool)
     assert repr(model.hidden_irreps) == "64x0e+64x1o+64x2e"
     assert model.convs[0].gate is None and model.convs[0].bn is not None
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs mesh="):
         mace.MACEModel(tp_axis="tp", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -213,7 +213,7 @@ def test_unported_options_raise():
         MACEForceField(**MACE_KW, interaction="AgnosticNonlinearInteractionBlock",
                        device="cpu")
     h = model.hidden_irreps
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs mesh="):
         conv.EquivariantProductBasisBlock(h, h, 2, tp_axis="tp",
                                           generator=torch.Generator())
 

@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments.dp_fit",
                    "geometric_message_passing_tpu_torch.experiments.probe_backends",
                    "geometric_message_passing_tpu_torch.experiments.dp_check",
-                   "geometric_message_passing_tpu_torch.experiments.dp_drift"):
+                   "geometric_message_passing_tpu_torch.experiments.dp_drift",
+                   "geometric_message_passing_tpu_torch.parallel.tp",
+                   "geometric_message_passing_tpu_torch.parallel.pp",
+                   "geometric_message_passing_tpu_torch.experiments.tp_check"):
         assert module in res["imported"]
 
 

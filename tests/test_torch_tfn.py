@@ -129,7 +129,7 @@ def test_registry_defaults_and_unported_options(monkeypatch):
     assert (model.max_ell, len(model.convs), model.emb_dim, model.pool) == (
         jmodel.max_ell, jmodel.num_layers, jmodel.emb_dim, jmodel.pool)
     assert repr(model.hidden_irreps) == "64x0e+64x1o+64x2e"
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs mesh="):
         tfn.TFNModel(tp_axis="tp", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
