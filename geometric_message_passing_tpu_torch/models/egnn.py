@@ -60,6 +60,9 @@ class EGNNLayer(nn.Module):
         msg = self.mlp_msg(torch.cat([h_i, h_j, dists], dim=-1))
         return msg, self.mlp_pos(msg)
 
+    def update(self, h, msg_aggr):
+        return self.mlp_upd(torch.cat([h, msg_aggr], dim=-1))
+
     def forward(self, h: torch.Tensor, pos: torch.Tensor,
                 senders: torch.Tensor, receivers: torch.Tensor,
                 edge_mask: torch.Tensor,
@@ -91,8 +94,7 @@ class EGNNLayer(nn.Module):
             msg_aggr = _AGGR[self.aggr](msg, receivers, n, mask=edge_mask)
             pos_aggr = segment_mean(pos_diff * scale, receivers, n,
                                     mask=edge_mask)
-        upd = self.mlp_upd(torch.cat([h, msg_aggr], dim=-1))
-        return upd, pos + pos_aggr
+        return self.update(h, msg_aggr), pos + pos_aggr
 
 
 class EGNNModel(nn.Module):

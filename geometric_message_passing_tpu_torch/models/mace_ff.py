@@ -20,6 +20,19 @@ Module names follow the flax tree (``node_embedding``, ``interactions[i]``
 for ``interaction_i``, ``products[i]`` for ``product_i``, ``readouts[i]``
 for ``readout_i``), so ``weights.mace_ff_from_jax`` carries a JAX model's
 values over.
+
+Edge-partitioned execution ("gp", ``parallel.halo``): built with
+``gp_axis`` and ``mesh`` and called with ``halo_plan`` (this rank's slice,
+``HaloPlan.local(rank)``) on this rank's part of the batch
+(``halo.gp_rank_batch``: node rows by block, edges on their receiver's
+owner with ``senders`` catalog indices, ``receivers`` local rows).  The
+positions are exchanged once into a catalog for the edge geometry; each
+layer exchanges the flat irreps row after ``linear_up`` (one all-to-all);
+the per-graph energies are summed over the axis, so every rank returns
+the whole ``[G, 1]``.  That sum is ``differentiable.psum_replicated``:
+every rank differentiates the same loss, so the backward passes the
+cotangent through, and the ranks' parameter gradients are then summed
+over the axis (``parallel.data.all_reduce_grads``).
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from ..nn.mace_blocks import interaction_classes
 from ..ops.norms import safe_norm
 from ..ops.radial import radial_embedding
 from ..ops.spherical import spherical_harmonics
+from ..parallel.halo import halo_catalog
+from ..parallel.mesh import differentiable
 from .pooling import POOL
 
 # the blocks that return (message, self-connection or None)
@@ -47,10 +62,14 @@ FF_INTERACTIONS = ("RealAgnosticResidualInteractionBlock",
 
 
 def edge_geometry(batch: GraphBatch, max_ell: int, r_max: float,
-                  num_bessel: int, num_polynomial_cutoff: int):
+                  num_bessel: int, num_polynomial_cutoff: int,
+                  pos_src: Optional[torch.Tensor] = None):
     """``(edge_sh [E, (max_ell+1)^2], edge_feats [E, num_bessel])`` of the
-    edge vectors ``pos[senders] - pos[receivers]``."""
-    vectors = batch.pos[batch.senders] - batch.pos[batch.receivers]
+    edge vectors ``pos_src[senders] - pos[receivers]`` (``pos_src``: the
+    positions the senders index, ``batch.pos`` unless given, as the gp
+    catalog is)."""
+    pos_src = batch.pos if pos_src is None else pos_src
+    vectors = pos_src[batch.senders] - batch.pos[batch.receivers]
     lengths = safe_norm(vectors, dim=-1, keepdim=True)
     return (spherical_harmonics(vectors, max_ell),
             radial_embedding(lengths, r_max, num_bessel,
@@ -66,8 +85,9 @@ class MACEForceField(nn.Module):
     CUDA is absent).  ``tp_precision`` is accepted for the JAX surface and
     has no effect: every product on the card is exact f32.  ``interaction``
     and ``interaction_first`` name one of ``FF_INTERACTIONS``.  ``gp_axis``
-    and ``forward(..., halo_plan=...)`` (edge-partitioned execution) are not
-    ported yet and raise ``NotImplementedError``."""
+    needs ``mesh`` (the ``parallel.Mesh`` holding that axis) and the sum
+    pool (``ValueError`` otherwise); such a model runs the single-rank
+    forward unless ``forward`` is given a ``halo_plan``."""
 
     def __init__(self, r_max: float = 5.0, num_bessel: int = 8,
                  num_polynomial_cutoff: int = 5, max_ell: int = 3,
@@ -79,13 +99,18 @@ class MACEForceField(nn.Module):
                  edge_chunk: Optional[int] = None,
                  node_chunk: Optional[int] = 16384,
                  tp_precision: Optional[str] = "highest",
-                 gp_axis: Optional[str] = None, *,
+                 gp_axis: Optional[str] = None, *, mesh=None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if gp_axis is not None:
-            raise NotImplementedError(
-                "MACEForceField(gp_axis=...) (edge-partitioned execution) is "
-                "not ported yet")
+            if mesh is None or gp_axis not in mesh.shape:
+                raise ValueError(f"MACEForceField(gp_axis={gp_axis!r}) needs "
+                                 "mesh=, a parallel.Mesh with that axis")
+            if pool not in ("sum", "add"):
+                raise ValueError("edge-partitioned execution completes the "
+                                 "pool with a sum over the axis: pool must "
+                                 f"be 'sum' or 'add', got {pool!r}")
+        self.gp_axis, self.mesh = gp_axis, mesh
         for name in (interaction, interaction_first):
             if name not in FF_INTERACTIONS:
                 raise ValueError(f"interaction must be one of "
@@ -127,23 +152,31 @@ class MACEForceField(nn.Module):
         self.to(dev)
 
     def forward(self, batch: GraphBatch, halo_plan=None) -> torch.Tensor:
+        exchange = None
         if halo_plan is not None:
-            raise NotImplementedError(
-                "MACEForceField(halo_plan=...) (edge-partitioned execution) "
-                "is not ported yet")
+            if self.gp_axis is None:
+                raise ValueError("halo_plan needs a model built with gp_axis= "
+                                 "and mesh=")
+
+            def exchange(x):
+                return halo_catalog(x, halo_plan, self.mesh, self.gp_axis)
         node_attrs = F.one_hot(batch.atoms.long(), self.in_dim).to(
             batch.pos.dtype)
         h = self.node_embedding(node_attrs)
-        edge_sh, edge_feats = edge_geometry(batch, self.max_ell, self.r_max,
-                                            self.num_bessel,
-                                            self.num_polynomial_cutoff)
+        edge_sh, edge_feats = edge_geometry(
+            batch, self.max_ell, self.r_max, self.num_bessel,
+            self.num_polynomial_cutoff,
+            None if exchange is None else exchange(batch.pos))
         energy = None
         for interaction, product, readout in zip(
                 self.interactions, self.products, self.readouts):
             m, sc = interaction(node_attrs, h, edge_sh, edge_feats,
                                 batch.senders, batch.receivers,
-                                batch.edge_mask)
+                                batch.edge_mask, halo_exchange=exchange)
             h = product(m, sc, None)
             e = POOL[self.pool](readout(h), batch)
             energy = e if energy is None else energy + e
+        if exchange is not None:     # a graph's nodes may span ranks
+            energy = differentiable.psum_replicated(self.mesh, energy,
+                                                    self.gp_axis)
         return energy

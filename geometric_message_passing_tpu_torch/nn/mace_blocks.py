@@ -159,9 +159,15 @@ class _InteractionBase(nn.Module):
     one pass.  ``node_chunk``: node blocks of their ``skip_tp``.
     ``FOLD_ACC_ELEMS``: accumulator elements above which a chunked
     convolution applies the post-conv linear to each chunk (a class
-    attribute, so tests can force the fold at toy sizes).  ``forward(...,
-    halo_exchange=...)`` of the ``RealAgnostic*`` blocks (edge-partitioned
-    execution) is not ported yet and raises ``NotImplementedError``."""
+    attribute, so tests can force the fold at toy sizes).
+
+    ``halo_exchange`` of the ``RealAgnostic*`` blocks' ``forward``
+    (edge-partitioned execution, ``parallel.halo``): a callable that maps
+    the local node features after ``linear_up``, ``[n_local, D]``, to the
+    gather catalog ``[n_local + k * B, D]`` (``halo.halo_catalog``);
+    ``senders`` then index the catalog, while ``receivers``, the segment
+    targets and the self-connection stay local.  The catalog is built
+    before ``_conv``, so no chunk runs a collective."""
 
     FOLD_ACC_ELEMS = 2 ** 28
 
@@ -267,12 +273,6 @@ class _InteractionBase(nn.Module):
         return acc if fold else self.linear(acc)
 
 
-def _no_halo(halo_exchange) -> None:
-    if halo_exchange is not None:
-        raise NotImplementedError(
-            "halo_exchange (edge-partitioned execution) is not ported yet")
-
-
 class ResidualElementDependentInteractionBlock(_InteractionBase):
     """Element-dependent 'uvu' weights (``TensorProductWeightsBlock`` of the
     senders' species), one pass; returns ``linear(message) / avg + skip``,
@@ -371,9 +371,10 @@ class RealAgnosticInteractionBlock(_InteractionBase):
     def forward(self, node_attrs, node_feats, edge_attrs, edge_feats,
                 senders, receivers, edge_mask=None, halo_exchange=None
                 ) -> Tuple[torch.Tensor, None]:
-        _no_halo(halo_exchange)
         num_nodes = node_feats.shape[0]
         node_feats = self.linear_up(node_feats)
+        if halo_exchange is not None:
+            node_feats = halo_exchange(node_feats)
         message = self._conv(node_feats, edge_attrs, edge_feats, senders,
                              receivers, edge_mask, num_nodes
                              ) / self.avg_num_neighbors
@@ -401,10 +402,11 @@ class RealAgnosticResidualInteractionBlock(_InteractionBase):
     def forward(self, node_attrs, node_feats, edge_attrs, edge_feats,
                 senders, receivers, edge_mask=None, halo_exchange=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _no_halo(halo_exchange)
         sc = self.skip_tp(node_feats, node_attrs)
         num_nodes = node_feats.shape[0]
         node_feats = self.linear_up(node_feats)
+        if halo_exchange is not None:
+            node_feats = halo_exchange(node_feats)
         message = self._conv(node_feats, edge_attrs, edge_feats, senders,
                              receivers, edge_mask, num_nodes
                              ) / self.avg_num_neighbors

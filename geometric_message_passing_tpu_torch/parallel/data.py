@@ -10,10 +10,17 @@ small, which Adam's ``eps`` and any other optimizer then sees), so the
 port reduces one flat bucket itself.  Batch statistics (``BatchNorm``'s
 running averages) are averaged over the shards, as the JAX step's
 ``pmean`` of ``batch_stats`` does.
+
+``dp_train_step_autoshard`` is the port of the JAX package's other idiom,
+one big block-diagonal batch with every leaf's leading axis sharded and
+XLA's partitioner inserting the collectives.  PyTorch has no SPMD
+partitioner: each rank holds its row blocks (``autoshard_rows``), the step
+all-gathers them and runs the single-program step on the whole batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -129,5 +136,58 @@ def dp_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
         average_batch_stats(mesh, model, axis)
         opt.step()
         return collectives.all_reduce_sum(mesh, loss.detach(), axis)
+
+    return step
+
+
+_BATCH_ROWS = tuple(f.name for f in dataclasses.fields(GraphBatch)
+                    if f.name != "triplets")
+
+
+def autoshard_rows(batch: GraphBatch, n: int, index: int) -> GraphBatch:
+    """Block ``index`` of ``n`` along the leading axis of every field of
+    ``batch`` (``NamedSharding(mesh, P(axis))`` on each leaf): node, edge
+    and graph fields alike, so each must divide by ``n`` (pad the batch to
+    buckets times ``n``)."""
+    parts = {}
+    for name in _BATCH_ROWS:
+        x = getattr(batch, name)
+        if x.shape[0] % n:
+            raise ValueError(f"{name} has {x.shape[0]} rows, not a multiple "
+                             f"of {n}: pad the batch first")
+        per = x.shape[0] // n
+        parts[name] = x[index * per:(index + 1) * per]
+    return dataclasses.replace(batch, triplets=None, **parts)
+
+
+def dp_train_step_autoshard(model: torch.nn.Module,
+                            opt: torch.optim.Optimizer, mesh: Mesh,
+                            loss_fn: Callable, axis: str = "dp") -> Callable:
+    """The single-program train step over one big block-diagonal batch
+    whose every field is cut into row blocks over ``axis``.
+
+    Returns ``step(rows, rng=None) -> loss``: ``rows`` is this rank's
+    block of the batch (``autoshard_rows``, on the rank's device).  The
+    step all-gathers the blocks (tiled) into the whole batch and takes the
+    plain step on it: forward in train mode, backward, one ``opt`` step.
+    This REPLICATES the compute: every rank does the whole batch's work
+    and gets the single-process result, with no gradient exchange (the
+    JAX package's version is split by XLA's partitioner instead).  ``rng``
+    (default 0) seeds dropout alike on every rank."""
+    from ..experiments.train import dropout_rngs, reseed_dropout
+
+    def step(rows: GraphBatch, rng=None) -> torch.Tensor:
+        batch = dataclasses.replace(rows, triplets=None, **{
+            name: collectives.all_gather(mesh, getattr(rows, name), axis,
+                                         tiled=True)
+            for name in _BATCH_ROWS})
+        if dropout_rngs(model):
+            reseed_dropout(model, seed_from_key(0 if rng is None else rng))
+        model.train()
+        loss = loss_fn(model(batch), batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
 
     return step

@@ -14,8 +14,8 @@ per axis (the ranks that differ only in that axis's coordinate), so
     g = collectives.all_reduce_sum(mesh, g, "dp")
 
 ``collectives`` move values and are not differentiated; ``differentiable``
-holds the collectives used inside a model's forward (tensor and pipeline
-parallelism), each with the JAX transpose as its backward.
+holds the collectives used inside a model's forward (tensor, pipeline and
+graph parallelism), each with the JAX transpose as its backward.
 
 Backends.  NCCL needs one GPU per rank: it refuses two ranks on one
 device ("Duplicate GPU detected"), so ``init_distributed`` raises before it
@@ -187,6 +187,18 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     return _mesh_from_ranks(ranks, axis_names, device, timeout_s)
 
 
+def solo_mesh(axis_names: Sequence[str] = ("dp",), device=None) -> Mesh:
+    """A mesh of this rank alone, every axis of size 1 (each collective
+    the identity), inside a larger world: where a rank runs the
+    single-rank twin of a parallel program itself."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_distributed (or run "
+                           "under launch.spawn / torchrun) first")
+    ranks = np.full((1,) * len(axis_names), dist.get_rank())
+    return Mesh(ranks, axis_names, rank_device(device),
+                {name: None for name in axis_names})
+
+
 def hybrid_rank_grid(ici_shape: Tuple[int, ...],
                      dcn_shape: Tuple[int, ...]) -> np.ndarray:
     """The JAX package's hybrid layout on ranks: ``prod(dcn_shape)``
@@ -296,14 +308,18 @@ class collectives:
     def all_gather(mesh: Mesh, x: torch.Tensor, axis: str = "dp",
                    tiled: bool = False) -> torch.Tensor:
         """Every rank's ``x`` in axis order: stacked on a new leading axis,
-        or with ``tiled`` concatenated along axis 0."""
+        or with ``tiled`` concatenated along axis 0 (a bool tensor moves as
+        bytes)."""
         group = mesh.group(axis)
         if group is None:
             return x.clone() if tiled else x[None].clone()
         src = x.contiguous()
+        if src.dtype == torch.bool:     # moved as bytes
+            src = src.view(torch.uint8)
         parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, src, group=group)
-        return torch.cat(parts) if tiled else torch.stack(parts)
+        out = torch.cat(parts) if tiled else torch.stack(parts)
+        return out.view(torch.bool) if x.dtype == torch.bool else out
 
     @staticmethod
     def reduce_scatter_sum(mesh: Mesh, x: torch.Tensor,
@@ -416,6 +432,41 @@ class _PPermute(torch.autograd.Function):
                 None, None)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return collectives.all_to_all(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_to_all(ctx.mesh, g, ctx.axis), None, None
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return collectives.all_gather(mesh, x, axis, tiled=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collectives.reduce_scatter_sum(ctx.mesh, g, ctx.axis), None,
+                None)
+
+
+class _ReduceScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return collectives.reduce_scatter_sum(mesh, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collectives.all_gather(ctx.mesh, g, ctx.axis, tiled=True),
+                None, None)
+
+
 class differentiable:
     """Collectives inside a function that autograd differentiates, each a
     ``torch.autograd.Function`` whose backward is the JAX transpose of the
@@ -458,6 +509,27 @@ class differentiable:
         """``collectives.ppermute``; backward the ppermute of the
         cotangents along the inverse pairs."""
         return _PPermute.apply(x, mesh, perm, axis)
+
+    @staticmethod
+    def all_to_all(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``collectives.all_to_all`` on axis 0 (untiled: ``x.shape[0]``
+        is the axis size); its transpose is itself, so the backward sends
+        each block of cotangents back to the rank it came from."""
+        return _AllToAll.apply(x, mesh, axis)
+
+    @staticmethod
+    def all_gather(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``collectives.all_gather(..., tiled=True)``; backward the
+        reduce-scatter (sum) of the cotangents, each rank keeping its
+        block."""
+        return _AllGatherTiled.apply(x, mesh, axis)
+
+    @staticmethod
+    def reduce_scatter_sum(mesh: Mesh, x: torch.Tensor,
+                           axis: str) -> torch.Tensor:
+        """``collectives.reduce_scatter_sum``; backward the tiled all-gather
+        of the cotangents."""
+        return _ReduceScatterSum.apply(x, mesh, axis)
 
 
 def seed_from_key(key) -> int:

@@ -1540,3 +1540,78 @@ def test_tp_two_gloo_ranks_share_the_card(cuda_device):
             scale = max(max(s[n].abs().max().item() for s in grads), 1e-30)
             err = np.abs(r["grads"][n] - g.numpy()).max()
             assert err <= 1e-4 * scale, n
+
+
+def _gp_card_rank() -> dict:
+    """A narrow MACE-FF edge-partitioned over four ranks on a 600-atom
+    Morton box: the energies and the gradients of sum(E^2) summed over the
+    axis, K4 counted per rank."""
+    from geometric_message_passing_tpu_torch.parallel import (
+        build_halo_plan, gp_rank_batch, make_mesh)
+    from geometric_message_passing_tpu_torch.parallel.data import (
+        all_reduce_grads)
+
+    mesh = make_mesh((4,), ("gp",))
+    box = _gp_card_box()
+    plan = build_halo_plan(box.senders.numpy(), box.receivers.numpy(),
+                           box.num_nodes, 4, edge_mask=box.edge_mask.numpy()
+                           ).to(mesh.device)
+    model = _gp_card_model(mesh.device, gp_axis="gp", mesh=mesh)
+    me = mesh.coords["gp"]
+    before = sss.segment_sum.launches
+    energy = model(gp_rank_batch(box.to(mesh.device), plan, me),
+                   halo_plan=plan.local(me))
+    launched = sss.segment_sum.launches - before
+    (energy ** 2).sum().backward()
+    all_reduce_grads(mesh, list(model.parameters()), "gp")
+    return {"device": str(mesh.device), "launched": launched,
+            "e_loc": int(plan.edge_src_cat.shape[1]),
+            "energy": energy.detach().cpu().numpy(),
+            "grads": {n: p.grad.cpu().numpy()
+                      for n, p in model.named_parameters()}}
+
+
+def _gp_card_box():
+    from geometric_message_passing_tpu_torch.parallel import (
+        morton_partition_graph)
+
+    g = datasets.create_molecular_boxes(num=1, n_nodes=600, cutoff=3.0,
+                                        avg_degree=14.0, n_species=8,
+                                        seed=0)[0]
+    g = morton_partition_graph(g)
+    n_pad, e_pad, g_pad = graph.pad_sizes([g], 1)
+    return graph.batch_graphs([g], -(-n_pad // 4) * 4, e_pad, g_pad)
+
+
+def _gp_card_model(device, **kw):
+    from geometric_message_passing_tpu_torch.models import MACEForceField
+
+    return MACEForceField(num_layers=2, emb_dim=8, max_ell=2, correlation=2,
+                          in_dim=8, node_chunk=None, edge_chunk=1024,
+                          generator=torch.Generator().manual_seed(0),
+                          device=device, **kw)
+
+
+@pytest.mark.cuda
+def test_gp_four_gloo_ranks_share_the_card(cuda_device):
+    """MACE-FF edge-partitioned over four gloo ranks sharing the card: the
+    energies within 5e-4 + 1e-4 |ref| of one process's and the summed
+    gradients within 2e-3 of each tensor's largest entry (the JAX gp
+    tests' tolerances); K4 on every rank's sums (2 layers x (local chunks
+    + the pool))."""
+    from geometric_message_passing_tpu_torch.parallel import launch
+
+    ranks = launch.spawn(_gp_card_rank, 4, backend="gloo", timeout_s=300)
+    model = _gp_card_model(cuda_device)
+    box = _gp_card_box().to(cuda_device)
+    energy = model(box)
+    (energy ** 2).sum().backward()
+    want = energy.detach().cpu().numpy()
+    for r in ranks:
+        assert r["device"] == "cuda:0"
+        assert r["launched"] == 2 * (-(-r["e_loc"] // 1024) + 1)
+        np.testing.assert_allclose(r["energy"], want, atol=5e-4, rtol=1e-4)
+        for n, p in model.named_parameters():
+            g = p.grad.cpu().numpy()
+            scale = max(np.abs(g).max(), 1.0)
+            assert np.abs(r["grads"][n] - g).max() <= 2e-3 * scale, n

@@ -351,13 +351,7 @@ def test_chunked_convolution_matches_one_pass(name, fold, monkeypatch):
                                    msg=n)
 
 
-def test_halo_exchange_raises():
-    g = _graph()
-    for name in ("RealAgnosticResidualInteractionBlock",
-                 "RealAgnosticInteractionBlock"):
-        with pytest.raises(NotImplementedError, match="halo_exchange"):
-            _torch_block(name, g)(*_block_inputs(g, "torch"),
-                                  halo_exchange=lambda x: x)
+def test_block_tables_match_jax():
     assert mb.gate_dict == jmb.gate_dict
     assert sorted(mb.interaction_classes) == sorted(jmb.interaction_classes)
 

@@ -202,13 +202,8 @@ def test_tfn_ff_adam_step_lowers_the_loss():
     assert loss1.item() < loss0.item()
 
 
-def test_unported_options_raise():
-    tb = _box()
-    with pytest.raises(NotImplementedError, match="gp_axis"):
-        MACEForceField(**MACE_KW, gp_axis="gp", device="cpu")
+def test_bad_options_raise():
     model = MACEForceField(**MACE_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="halo_plan"):
-        model(tb, halo_plan={})
     with pytest.raises(ValueError, match="interaction"):
         MACEForceField(**MACE_KW, interaction="AgnosticNonlinearInteractionBlock",
                        device="cpu")

@@ -104,7 +104,12 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments.dp_drift",
                    "geometric_message_passing_tpu_torch.parallel.tp",
                    "geometric_message_passing_tpu_torch.parallel.pp",
-                   "geometric_message_passing_tpu_torch.experiments.tp_check"):
+                   "geometric_message_passing_tpu_torch.experiments.tp_check",
+                   "geometric_message_passing_tpu_torch.parallel.halo",
+                   "geometric_message_passing_tpu_torch.parallel.partition",
+                   "geometric_message_passing_tpu_torch.experiments.gp_check",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "dryrun_multichip"):
         assert module in res["imported"]
 
 
