@@ -68,6 +68,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from .. import precision
 from ..datasets import create_molecular_boxes
 from ..graph import GraphBatch, GraphLoader, sort_edges_by_receiver
 from ..models import model_registry
@@ -396,15 +397,25 @@ def main(argv=None) -> int:
                     help="steps per call (0 = by size)")
     ap.add_argument("--cutoff", type=float, default=3.0)
     ap.add_argument("--avg_degree", type=float, default=14.0)
+    ap.add_argument("--matmul_precision", choices=precision.NAMES,
+                    default=None,
+                    help="the process default of the float32 products "
+                         "(precision.py; without it exact f32); each row "
+                         "then names it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_scale: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
     names = args.models.split(",")
     for name in names:
         if name not in MODELS:
             raise SystemExit(f"bench_scale: unknown model {name!r}; "
                              f"ported: {sorted(MODELS)}")
+    with precision.matmul_precision(args.matmul_precision):
+        return _rows(args, names)
+
+
+def _rows(args, names) -> int:
+    """Print each (size, model) row; 1 if a row holds an error."""
     failed = False
     for n_nodes in [int(s) for s in args.sizes.split(",")]:
         batches, host_s = {}, {}
@@ -425,6 +436,8 @@ def main(argv=None) -> int:
                                 batches[kind],
                                 model_steps(name, steps, n_nodes))
                 row["host_s"] = host_s[kind]
+            if args.matmul_precision:
+                row["matmul_precision"] = args.matmul_precision
             failed |= "error" in row
             free_device_memory()
             print(json.dumps(row), flush=True)

@@ -8,8 +8,9 @@ Usage (on the card):
 
 ``main(argv, device="cpu")`` runs the plain PyTorch versions of the kernels
 on the CPU (the tests do); ``device`` is an argument of ``main``, not a
-flag.  The port computes in float32 throughout, so the precision flags
-that select cheaper passes on the TPU select nothing here (see their help).
+flag.  ``--matmul_precision`` sets the process default of ``precision.py``
+for the run (and restores the previous one on return); ``--tp_precision``
+and ``--tp_precision_scope`` reach the models' scoped products.
 """
 
 from __future__ import annotations
@@ -18,17 +19,14 @@ import argparse
 import time
 from functools import partial
 
-import torch
 
 from .. import datasets as ds
+from .. import precision
 from .. import resolve_device
 from ..graph import GraphLoader, pad_sizes, random_split
 from ..models import model_registry
 from .ledger import append_result
 from .train import run_experiment_reg
-
-# --matmul_precision values the port computes: exact float32 products
-F32_PRECISIONS = ("float32", "highest")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,18 +78,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matmul_precision", type=str, default=None,
                    choices=["default", "tensorfloat32", "float32",
                             "bfloat16_3x", "highest"],
-                   help="the port computes exact float32 products: "
-                        "'float32' and 'highest' are what it does already; "
-                        "'default', 'tensorfloat32' and 'bfloat16_3x' are "
-                        "not ported and raise NotImplementedError")
+                   help="the process default of the float32 products "
+                        "(precision.py) for the run: 'highest' and "
+                        "'float32' exact IEEE f32; 'tensorfloat32' TF32 "
+                        "tensor cores; 'bfloat16_3x' three bf16 products "
+                        "(hi.hi + hi.lo + lo.hi) accumulated in f32; "
+                        "'default' is PyTorch's default on the card, exact "
+                        "f32, as with no flag. The hand-written kernels "
+                        "compute exact f32 whatever it says")
     p.add_argument("--tp_precision", type=str, default="model",
                    choices=["model", "default", "highest"],
-                   help="passed to tfn/mace/mace_ff, which compute in "
-                        "float32 whatever it says")
+                   help="tfn/mace/mace_ff: the precision of the equivariant "
+                        "products ('default': the process default; 'model': "
+                        "each model's own)")
     p.add_argument("--tp_precision_scope", type=str, default="model",
                    choices=["model", "all", "conv", "prod", "heads"],
-                   help="mace: passed to the model, which computes in "
-                        "float32 whatever it says")
+                   help="mace: which stages take --tp_precision (conv: the "
+                        "edge products; prod: the symmetric contraction and "
+                        "its linear; all: both; heads: both and the weight "
+                        "heads); the others follow --matmul_precision")
     return p
 
 
@@ -124,8 +129,7 @@ def make_dataset(args):
 
 def make_model_func(args):
     """The model's constructor with the flags' arguments bound, as the JAX
-    CLI binds them (the precision arguments are passed through; the port's
-    models compute in float32 whatever they say)."""
+    CLI binds them."""
     name = args.model
     base = model_registry[name]
     if name in ("schnet", "dimenet", "spherenet"):
@@ -188,28 +192,27 @@ def resolve_lr_warmup(args) -> None:
 def main(argv=None, device=None):
     """Run the experiment the flags ``argv`` describe on ``device`` (default
     ``"cuda"``; raises without CUDA), print the test MAE, append the record
-    to ``--results_file`` and return the mean test MAE."""
+    to ``--results_file`` and return the mean test MAE.  The run's process
+    precision is ``--matmul_precision``'s (exact f32 without it); the one
+    before the call is restored on return."""
     args = build_parser().parse_args(argv)
     resolve_lr_warmup(args)
-    if args.matmul_precision and args.matmul_precision not in F32_PRECISIONS:
-        raise NotImplementedError(
-            f"--matmul_precision {args.matmul_precision}: the port computes "
-            f"exact float32 products only ({' or '.join(F32_PRECISIONS)})")
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     data, model_args = make_dataset(args)
     loaders = make_loaders(args, data)
     model_func = make_model_func(args)
     loss_mask = args.dataset == "paired_star2" and args.loss_mask
 
     t0 = time.time()
-    best_val, test_mae, train_time, mean, std = run_experiment_reg(
-        model_func, model_args, *loaders, n_epochs=args.n_epochs,
-        n_times=args.n_times, verbose=True, cosine=args.cosine, lr=args.lr,
-        loss_mask=loss_mask, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every,
-        nan_recovery=args.nan_recovery, device=dev,
-        grad_clip=args.grad_clip, lr_warmup=args.lr_warmup)
+    with precision.matmul_precision(args.matmul_precision):
+        best_val, test_mae, train_time, mean, std = run_experiment_reg(
+            model_func, model_args, *loaders, n_epochs=args.n_epochs,
+            n_times=args.n_times, verbose=True, cosine=args.cosine,
+            lr=args.lr, loss_mask=loss_mask,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            nan_recovery=args.nan_recovery, device=dev,
+            grad_clip=args.grad_clip, lr_warmup=args.lr_warmup)
     print(f"Test MAE {mean:.5f} ± {std:.5f}  (total {time.time()-t0:.1f}s)")
 
     record = vars(args).copy()

@@ -49,6 +49,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .. import precision
 from ..models.dimenet import chunk_slices
 from ..models.mace_ff import edge_geometry
 from ..models.spherenet import spherenet_geometry
@@ -257,10 +258,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--model", default="egnn_sorted", choices=sorted(MODELS))
     ap.add_argument("--atoms", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--matmul_precision", choices=precision.NAMES,
+                    default=None,
+                    help="the process default of the float32 products "
+                         "(precision.py; without it exact f32)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_box needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with precision.matmul_precision(args.matmul_precision):
+        return _profile(args)
+
+
+def _profile(args) -> dict:
+    """``main``'s readings of one model's box step."""
     t = time.perf_counter()
     batch = kind_box(box_kind(args.model), args.atoms).to("cuda")
     host_s = time.perf_counter() - t
@@ -333,6 +343,7 @@ def main(argv=None) -> dict:
               f"({parts['recompute_ms'] / device_ms:.3f})")
     res = {
         "card": card_line(), "model": args.model, "cfg": cfg,
+        "matmul_precision": args.matmul_precision,
         "host_s": host_s,
         "atoms": args.atoms,
         "edges": edges, "step_ms_untraced": step_ms,

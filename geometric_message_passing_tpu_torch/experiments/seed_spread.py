@@ -23,6 +23,14 @@ batch 32; ``--epochs 40`` is the notebook's; phase 8b); repeat ``i`` builds
 the model from ``seed_everything(i)`` and shuffles with seed ``i``.  These
 two also run on the CPU (``--device cpu``).
 
+Precision arms (the star and CLI configurations): ``--matmul_precision``
+sets the process default of ``precision.py`` for the runs (without it exact
+f32), ``--tp-precision`` overrides the model's ``tp_precision`` (``default``:
+None, the process default), ``--chain-dtype bfloat16`` sets MACE's
+``SymmetricContraction.chain_dtype``; ``--step`` adds one train step of
+repeat 0's model on the first training batch (``profile_train.
+step_reading``: wall ms and device ms) under the same precision.
+
 Prints one line a repeat and one JSON line with the test MAEs, their mean
 and standard deviation, and the card's ``nvidia-smi`` name and power limit.
 The star and CLI configurations need a card and raise without one.
@@ -39,10 +47,12 @@ from functools import partial
 import numpy as np
 import torch
 
+from .. import precision
 from ..models import DimeNetPPModel, MACEModel, SphereNetModel, TFNModel
+from ..nn.symmetric_contraction import SymmetricContraction
 from .bench import (DIMENET_STAR, LR, MACE_LR, MACE_STAR, SPHERENET_STAR,
                     TFN_STAR, mace_data, tfn_data, triplet_star_data)
-from .train import run_experiment_reg
+from .train import run_experiment_reg, seed_everything
 
 # the CLI flags of the JAX package's MACE paired_star number
 # (scripts/validate_accuracy.py:17-25, RESULTS.md:193), less the depth
@@ -72,6 +82,22 @@ def configuration(name: str):
                 cli.make_loaders(args, data), args.lr, args.cosine)
     return (partial(MACEModel, **MACE_STAR), dict(in_dim=1, out_dim=1),
             mace_data()[1], MACE_LR, True)
+
+
+def with_chain_dtype(model_func, dtype: str):
+    """``model_func`` whose models compute their symmetric contractions in
+    ``dtype`` (``ValueError`` for a model without one)."""
+    def build(**kw):
+        model = model_func(**kw)
+        found = [m for m in model.modules()
+                 if isinstance(m, SymmetricContraction)]
+        if not found:
+            raise ValueError(f"{type(model).__name__} has no symmetric "
+                             "contraction: --chain-dtype is MACE's")
+        for m in found:
+            m.chain_dtype = dtype
+        return model
+    return build
 
 
 def card_line() -> str:
@@ -107,27 +133,53 @@ def main(argv=None) -> dict:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--device", default="cuda",
                     help="cpu: final_mpnn / invariant_mpnn only")
+    ap.add_argument("--matmul_precision", choices=precision.NAMES,
+                    default=None)
+    ap.add_argument("--tp-precision", choices=("model", "default", "highest"),
+                    default="model")
+    ap.add_argument("--chain-dtype", choices=("bfloat16",), default=None)
+    ap.add_argument("--step", action="store_true")
     args = ap.parse_args(argv)
     if args.device != "cuda" and args.model not in NOTEBOOK:
         raise SystemExit(f"seed_spread: --model {args.model} runs on the card")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("seed_spread: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if args.model in NOTEBOOK:
-        test_mae, times = notebook_spread(args.model, args.epochs,
-                                          args.repeats, args.device)
-        best_val = None
-        mean, std = float(np.mean(test_mae)), float(np.std(test_mae))
-    else:
-        model_func, model_args, loaders, lr, cosine = configuration(args.model)
-        best_val, test_mae, times, mean, std = run_experiment_reg(
-            model_func, model_args, *loaders, n_epochs=args.epochs,
-            n_times=args.repeats, verbose=True, cosine=cosine, lr=lr,
-            device="cuda")
+    arms = (args.matmul_precision, args.tp_precision != "model",
+            args.chain_dtype, args.step)
+    if args.model in NOTEBOOK and any(arms):
+        raise SystemExit("seed_spread: the precision arms and --step are "
+                         "the star and CLI configurations'")
+    step = None
+    with precision.matmul_precision(args.matmul_precision):
+        if args.model in NOTEBOOK:
+            test_mae, times = notebook_spread(args.model, args.epochs,
+                                              args.repeats, args.device)
+            best_val = None
+            mean, std = float(np.mean(test_mae)), float(np.std(test_mae))
+        else:
+            model_func, model_args, loaders, lr, cosine = configuration(
+                args.model)
+            if args.tp_precision != "model":
+                model_func = partial(model_func, tp_precision=(
+                    None if args.tp_precision == "default" else "highest"))
+            if args.chain_dtype:
+                model_func = with_chain_dtype(model_func, args.chain_dtype)
+            best_val, test_mae, times, mean, std = run_experiment_reg(
+                model_func, model_args, *loaders, n_epochs=args.epochs,
+                n_times=args.repeats, verbose=True, cosine=cosine, lr=lr,
+                device="cuda")
+            if args.step:
+                from .profile_train import step_reading
+
+                step = step_reading(model_func(
+                    **model_args, generator=seed_everything(0),
+                    device="cuda"), loaders, lr=lr)
     card = card_line() if args.device == "cuda" else "cpu"
     out = {"model": args.model, "epochs": args.epochs, "test_mae": test_mae,
            "best_val": best_val, "train_time_s": times, "mean": mean,
-           "std": std, "device": card}
+           "std": std, "matmul_precision": args.matmul_precision,
+           "tp_precision": args.tp_precision, "chain_dtype": args.chain_dtype,
+           "step": step, "device": card}
     print(json.dumps(out))
     return out
 

@@ -1,6 +1,10 @@
 """Training over a device-resident dataset (port of the JAX package's
 ``experiments/train.py``: ``fit_regression`` and ``fit_classification`` ->
-``fit_resident``, the single-device path, and the two repeat protocols).
+``fit_resident``, the single-device path, and the two repeat protocols),
+and the JAX package's other two engines: ``fit`` over epochs staged up
+front by the C++ batcher (``_stage_epochs``, ``stack_batches``) and
+``fit_stepwise`` (``fit_regression(engine="stepwise")``), which in eager
+PyTorch is the resident engine.
 
 The JAX engine runs a whole experiment as one jit-compiled scan.  The port
 runs the same protocol eagerly, epoch by epoch, with the data on the device
@@ -39,15 +43,16 @@ repeat data-parallel over a ``parallel.Mesh`` (``experiments/dp_fit.py``).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import precision, resolve_device
 from ..graph import (GraphBatch, GraphLoader, SlotData, assemble_batch,
                      build_slot_data, eval_slot_indices)
 from ..utils.checkpoint import CheckpointManager
@@ -215,7 +220,15 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     columns when given), the gradients clipped to the global norm
     ``grad_clip`` when given; returns the loss as a device scalar (no host
     read)."""
-    batch = assemble_batch(slot, idx_row)
+    return batch_step(model, opt, assemble_batch(slot, idx_row), task,
+                      mask_cols, grad_clip)
+
+
+def batch_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+               batch: GraphBatch, task: str = "regression",
+               mask_cols: Optional[int] = None,
+               grad_clip: Optional[float] = None) -> torch.Tensor:
+    """``train_step`` on a batch already assembled."""
     pred = model(batch)
     loss = (LOSSES[task](pred, batch) if mask_cols is None
             else l1_sum_loss(pred, batch, mask_cols))
@@ -237,9 +250,17 @@ def eval_metric(model: torch.nn.Module, slot: SlotData, plan: torch.Tensor,
     summed L1 (over the first ``mask_cols`` target columns when given)
     divided by ``num_examples`` (regression), or the count of right answers
     divided by ``num_examples`` times 100 (classification), in float32."""
-    total = torch.zeros((), dtype=torch.float32, device=plan.device)
-    for idx_row in plan:
-        batch = assemble_batch(slot, idx_row)
+    return eval_batches(model, (assemble_batch(slot, row) for row in plan),
+                        num_examples, task, mask_cols, plan.device)
+
+
+@torch.no_grad()
+def eval_batches(model: torch.nn.Module, batches, num_examples: int,
+                 task: str = "regression", mask_cols: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """``eval_metric`` over batches already assembled (on ``device``)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for batch in batches:
         pred = model(batch)
         if task == "regression":
             total = total + l1_sum_loss(pred, batch, mask_cols)
@@ -378,8 +399,10 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     the JAX package's permutations through it, which torch cannot draw.
 
     Matrix products outside the kernels (the update MLP, the readout) run
-    in full float32: ``torch.backends.cuda.matmul.allow_tf32`` must stay
-    False, its default; this raises otherwise."""
+    at their sites' precision (``precision.py``): exact float32 unless the
+    process default was lowered through ``precision.matmul_precision``.
+    ``torch.backends.cuda.matmul.allow_tf32`` set by hand against that
+    default raises ``ValueError`` (``precision.check_flags``)."""
     if task not in LOSSES:
         raise ValueError(f"task must be one of {sorted(LOSSES)}, got {task!r}")
     if mask_cols is not None and task != "regression":
@@ -388,9 +411,8 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
         raise ValueError("nan_recovery requires checkpointing "
                          "(checkpoint_dir + checkpoint_every)")
     dev = resolve_device(device)
-    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError("fit_resident runs in float32: set "
-                         "torch.backends.cuda.matmul.allow_tf32 = False")
+    if dev.type == "cuda":
+        precision.check_flags()
     plateau = plateau or PlateauConfig()
     slot_train, slot_val, slot_test = (
         build_slot_data(ld.graphs, y_dtype=ld.y_dtype,
@@ -433,12 +455,7 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
         epoch = prog.epoch
         if inject_fault is not None:
             inject_fault(epoch, model)
-        lr_now = (cosine_lr(lr, 1e-6, n_epochs, epoch) if cosine
-                  else prog.sched["lr"])
-        if lr_warmup:
-            lr_now = lr_now * warmup_scale(epoch, lr_warmup)
-        for group in opt.param_groups:
-            group["lr"] = float(lr_now)
+        set_epoch_lr(opt, prog, epoch, lr, n_epochs, cosine, lr_warmup)
         perm = (epoch_order(epoch) if epoch_order is not None
                 else torch.randperm(m, generator=gen, device=dev))
         slots = torch.cat([perm.to(device=dev, dtype=torch.long),
@@ -450,7 +467,6 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
         val = eval_metric(model, slot_val, val_plan, val_loader.num_examples,
                           task, mask_cols)
         read = torch.cat([val[None], torch.stack(step_losses)]).tolist()
-        val_f = np.float32(read[0])     # the epoch's one host read
         if nan_recovery and not np.isfinite(read[1:]).all():
             recoveries += 1
             if mgr.latest_step is None or recoveries > max_recoveries:
@@ -459,22 +475,51 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
                     f"recoveries={recoveries - 1}, no rollback possible")
             prog = rollback()
             continue
-        prog.losses.append(read[1:])
-        best = prog.best_val
-        if (val_f <= best) if regression else (val_f >= best):
-            prog.test_metric = eval_metric(model, slot_test, test_plan,
-                                           test_loader.num_examples, task,
-                                           mask_cols)
-            prog.best_val = val_f
-        if not cosine:
-            prog.sched = plateau_update(prog.sched, val_f, plateau)
-        prog.tests.append(prog.test_metric)
-        prog.vals.append(val_f)
+        close_epoch(prog, read, regression, cosine, plateau, lambda: eval_metric(
+            model, slot_test, test_plan, test_loader.num_examples, task,
+            mask_cols))
         if mgr is not None and checkpoint_every and \
                 prog.epoch % checkpoint_every == 0:
             mgr.save(prog.epoch, _run_state(model, opt, gen, prog, settings))
+    return _fit_result(model, prog, time.time() - t0, n_epochs, steps)
+
+
+def set_epoch_lr(opt: torch.optim.Optimizer, prog: _Progress, epoch: int,
+                 lr: float, n_epochs: int, cosine: bool,
+                 lr_warmup: Optional[int]) -> None:
+    """The epoch's rate: the cosine schedule's or the plateau state's, times
+    the warmup factor."""
+    lr_now = (cosine_lr(lr, 1e-6, n_epochs, epoch) if cosine
+              else prog.sched["lr"])
+    if lr_warmup:
+        lr_now = lr_now * warmup_scale(epoch, lr_warmup)
+    for group in opt.param_groups:
+        group["lr"] = float(lr_now)
+
+
+def close_epoch(prog: _Progress, read: list, regression: bool, cosine: bool,
+                plateau: PlateauConfig,
+                test_metric: Callable[[], torch.Tensor]) -> None:
+    """The protocol after an epoch's steps, from ``read`` (the validation
+    metric, then the step losses, read to the host once): the best-val
+    test rule (``test_metric()`` evaluated where validation is at least as
+    good as the best), the plateau scheduler unless ``cosine``, the
+    per-epoch rows."""
+    val_f = np.float32(read[0])
+    prog.losses.append(read[1:])
+    best = prog.best_val
+    if (val_f <= best) if regression else (val_f >= best):
+        prog.test_metric = test_metric()
+        prog.best_val = val_f
+    if not cosine:
+        prog.sched = plateau_update(prog.sched, val_f, plateau)
+    prog.tests.append(prog.test_metric)
+    prog.vals.append(val_f)
+
+
+def _fit_result(model: torch.nn.Module, prog: _Progress, train_time: float,
+                n_epochs: int, steps: int) -> FitResult:
     test_read = torch.stack(prog.tests).tolist() if prog.tests else []
-    train_time = time.time() - t0
     return FitResult(
         best_val=float(prog.best_val),
         test=float(np.float32(test_read[-1])) if test_read else 0.0,
@@ -487,6 +532,104 @@ def fit_resident(model: torch.nn.Module, train_loader: GraphLoader,
     )
 
 
+def _map_batch(fn, value):
+    """``value`` (a ``GraphBatch``, its ``TripletData`` or a tensor) with
+    ``fn`` applied to every tensor."""
+    if value is None:
+        return None
+    if dataclasses.is_dataclass(value):
+        return type(value)(**{f.name: _map_batch(fn, getattr(value, f.name))
+                              for f in dataclasses.fields(value)})
+    return fn(value)
+
+
+def stack_batches(batches: Sequence[GraphBatch]) -> GraphBatch:
+    """The batches stacked along a new leading dimension, field by field
+    (triplets too)."""
+    first = batches[0]
+    if first is None:
+        return None
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: stack_batches([getattr(b, f.name) for b in batches])
+            for f in dataclasses.fields(first)})
+    return torch.stack(list(batches))
+
+
+def _stage_epochs(loader: GraphLoader, n_epochs: int) -> GraphBatch:
+    """Every shuffled batch of ``n_epochs`` epochs stacked to ``[n_epochs,
+    steps, ...]``: ``loader.stage_epochs`` (the C++ batcher), or with
+    triplets (which it does not build) the loader's own batches stacked."""
+    staged = loader.stage_epochs(n_epochs)
+    if staged is not None:
+        return staged
+    steps = len(loader)
+    return _map_batch(lambda x: x.reshape((n_epochs, steps) + x.shape[1:]),
+                      stack_batches(loader.stacked_epochs(n_epochs)))
+
+
+def fit(model: torch.nn.Module, variables, train_epochs: GraphBatch,
+        val_set: GraphBatch, test_set: GraphBatch, num_val: int,
+        num_test: int, n_epochs: int, lr: float = 1e-4,
+        task: str = "regression", cosine: bool = False,
+        plateau: Optional[PlateauConfig] = None,
+        mask_cols: Optional[int] = None, seed: int = 0,
+        metric_norm: str = "examples", device=None,
+        grad_clip: Optional[float] = None,
+        lr_warmup: Optional[int] = None) -> FitResult:
+    """The whole run over batches staged up front (the JAX package's
+    ``fit``): ``train_epochs`` ``[n_epochs, steps, ...]`` (``_stage_epochs``),
+    ``val_set`` / ``test_set`` ``[batches, ...]`` (``stack_batches``), each
+    copied to ``device`` once (default ``"cuda"``; raises without CUDA).
+    JAX runs the protocol as one compiled program; here it is a host loop
+    over the staged batches on the card, with ``fit_resident``'s protocol:
+    the plateau scheduler (``plateau``) or the cosine schedule, the warmup
+    (``lr_warmup``, the JAX package's ``LR_WARMUP``), global-norm clipping
+    (``grad_clip``, ``GRAD_CLIP``), the best-val test rule, metrics summed
+    over the batches and divided by ``num_val`` / ``num_test`` (the JAX
+    signature's ``metric_norm``: only ``"examples"``).  Trains a copy of
+    ``model`` loaded with ``variables`` (None: its own), as
+    ``fit_regression`` does; the dropout generators are seeded from
+    ``seed``."""
+    if task not in LOSSES:
+        raise ValueError(f"task must be one of {sorted(LOSSES)}, got {task!r}")
+    if metric_norm != "examples":
+        raise ValueError(f"metric_norm must be 'examples', got {metric_norm!r}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        precision.check_flags()
+    work = _working_copy(model, variables, dev)
+    reseed_dropout(work, seed)
+    plateau = plateau or PlateauConfig()
+    to_dev = lambda b: _map_batch(lambda x: x.to(dev), b)    # noqa: E731
+    train, val, test = to_dev(train_epochs), to_dev(val_set), to_dev(test_set)
+    steps = train.atoms.shape[1]
+
+    def batches(staged: GraphBatch, *lead: int):
+        return (_map_batch(lambda x: x[(*lead, i)], staged)
+                for i in range(staged.atoms.shape[len(lead)]))
+
+    opt = make_tx(work.parameters(), lr)
+    regression = task == "regression"
+    prog = _Progress(sched=plateau_init(lr),
+                     best_val=np.float32(np.inf if regression else -np.inf),
+                     test_metric=torch.zeros((), dtype=torch.float32,
+                                             device=dev))
+    t0 = time.time()
+    for epoch in range(n_epochs):
+        set_epoch_lr(opt, prog, epoch, lr, n_epochs, cosine, lr_warmup)
+        work.train()
+        step_losses = [batch_step(work, opt, b, task, mask_cols, grad_clip)
+                       for b in batches(train, epoch)]
+        work.eval()
+        v = eval_batches(work, batches(val), num_val, task, mask_cols, dev)
+        close_epoch(prog, torch.cat([v[None], torch.stack(step_losses)]
+                                    ).tolist(), regression, cosine, plateau,
+                    lambda: eval_batches(work, batches(test), num_test, task,
+                                         mask_cols, dev))
+    return _fit_result(work, prog, time.time() - t0, n_epochs, steps)
+
+
 def _working_copy(model: torch.nn.Module, variables,
                   dev: torch.device) -> torch.nn.Module:
     """A copy of ``model`` on ``dev`` loaded with ``variables`` (a state
@@ -497,13 +640,56 @@ def _working_copy(model: torch.nn.Module, variables,
     return work
 
 
+# The JAX package's engine tables.  STEPWISE_MODELS: the models
+# fit_regression sends to fit_stepwise (none).  RESIDENT_CHUNK: epochs per
+# device call of the JAX resident engine by model; the port's resident
+# engine is a host loop that reads once an epoch, so it takes no chunks.
+STEPWISE_MODELS = ()
+RESIDENT_CHUNK = {"MACEModel": 100, "TFNModel": 50,
+                  "DimeNetPPModel": 200, "SphereNetModel": 100,
+                  "GVPGNNModel": 100}
+
+
+def fit_stepwise(model: torch.nn.Module, variables, train_loader,
+                 val_loader, test_loader, n_epochs: int, lr: float = 1e-4,
+                 task: str = "regression", cosine: bool = False,
+                 plateau: Optional[PlateauConfig] = None,
+                 mask_cols: Optional[int] = None, seed: int = 0,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, nan_recovery: bool = False,
+                 max_recoveries: int = 3, inject_fault=None, device=None,
+                 epoch_order=None, grad_clip: Optional[float] = None,
+                 lr_warmup: Optional[int] = None) -> FitResult:
+    """The JAX package's host-looped engine, with its signature.  In JAX it
+    is two small compiled programs (an epoch, an evaluation) under a host
+    epoch loop, beside the resident engine's whole-run program.  In eager
+    PyTorch both engines are the same host loop over the device-resident
+    dataset, so this is ``fit_resident`` on a copy of ``model`` loaded with
+    ``variables``, with the same options.  As in JAX, ``plateau`` None
+    without ``cosine`` keeps the rate at ``lr``."""
+    dev = resolve_device(device)
+    if plateau is None and not cosine:
+        plateau = PlateauConfig(patience=n_epochs)      # never decays
+    return fit_resident(_working_copy(model, variables, dev), train_loader,
+                        val_loader, test_loader, n_epochs=n_epochs, lr=lr,
+                        task=task, cosine=cosine, plateau=plateau, seed=seed,
+                        mask_cols=mask_cols, grad_clip=grad_clip,
+                        lr_warmup=lr_warmup, checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every,
+                        nan_recovery=nan_recovery,
+                        max_recoveries=max_recoveries,
+                        inject_fault=inject_fault, device=dev,
+                        epoch_order=epoch_order)
+
+
 def fit_regression(model: torch.nn.Module, variables, train_loader,
                    val_loader, test_loader, n_epochs: int = 100,
                    lr: float = 1e-4, cosine: bool = False,
                    loss_mask: bool = False, seed: int = 0,
                    checkpoint_dir=None, checkpoint_every: int = 0,
-                   nan_recovery: bool = False, device=None,
-                   epoch_order=None, grad_clip: Optional[float] = None,
+                   nan_recovery: bool = False, engine: Optional[str] = None,
+                   device=None, epoch_order=None,
+                   grad_clip: Optional[float] = None,
                    lr_warmup: Optional[int] = None, max_recoveries: int = 3,
                    inject_fault=None) -> FitResult:
     """Regression protocol: Adam at ``lr``, plateau scheduler in mode 'max'
@@ -512,27 +698,33 @@ def fit_regression(model: torch.nn.Module, variables, train_loader,
     ``loss_mask`` scores only the first half of the target columns (their
     count read from the validation loader's targets), as the JAX package
     does for the two-centre stars; the other options are ``fit_resident``'s.
+    ``engine``: None or ``"resident"`` (``fit_resident``), ``"stepwise"``
+    (``fit_stepwise``, also for a model named in ``STEPWISE_MODELS``): in
+    the port the two are one loop, so the result is the same.
 
     Trains a copy of ``model`` loaded with ``variables`` (a state dict; None
     takes the model's own) and leaves ``model`` untouched, so repeated calls
     from the same inputs start from the same weights, as the JAX package's
     pure functions do.  ``device=None`` means ``"cuda"``."""
+    if engine not in (None, "resident", "stepwise"):
+        raise ValueError(f"engine must be 'resident' or 'stepwise', got "
+                         f"{engine!r}")
     mask_cols = None
     if loss_mask:
         mask_cols = next(iter(val_loader)).y.shape[-1] // 2
     dev = resolve_device(device)
-    work = _working_copy(model, variables, dev)
     plateau = PlateauConfig(mode="max", factor=0.9, patience=15, min_lr=1e-4)
-    return fit_resident(work, train_loader, val_loader, test_loader,
-                        n_epochs=n_epochs, lr=lr, cosine=cosine,
-                        plateau=plateau, seed=seed, mask_cols=mask_cols,
-                        grad_clip=grad_clip, lr_warmup=lr_warmup,
-                        checkpoint_dir=checkpoint_dir,
-                        checkpoint_every=checkpoint_every,
-                        nan_recovery=nan_recovery,
-                        max_recoveries=max_recoveries,
-                        inject_fault=inject_fault, device=dev,
-                        epoch_order=epoch_order)
+    kw = dict(n_epochs=n_epochs, lr=lr, cosine=cosine, plateau=plateau,
+              seed=seed, mask_cols=mask_cols, grad_clip=grad_clip,
+              lr_warmup=lr_warmup, checkpoint_dir=checkpoint_dir,
+              checkpoint_every=checkpoint_every, nan_recovery=nan_recovery,
+              max_recoveries=max_recoveries, inject_fault=inject_fault,
+              device=dev, epoch_order=epoch_order)
+    if engine == "stepwise" or type(model).__name__ in STEPWISE_MODELS:
+        return fit_stepwise(model, variables, train_loader, val_loader,
+                            test_loader, **kw)
+    return fit_resident(_working_copy(model, variables, dev), train_loader,
+                        val_loader, test_loader, **kw)
 
 
 def fit_classification(model: torch.nn.Module, variables, train_loader,

@@ -26,7 +26,7 @@ on the card sums over a plan that assumes it
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -446,6 +446,44 @@ class GraphLoader:
                                                 *self.triplet_pad,
                                                 self.with_quads)
             yield batch
+
+    def stacked_epochs(self, n_epochs: int) -> List[GraphBatch]:
+        """The batches of ``n_epochs`` passes, epoch after epoch (each
+        shuffled from the loader's generator when ``shuffle``)."""
+        out = []
+        for _ in range(n_epochs):
+            out.extend(self)
+        return out
+
+    def stage_epochs(self, n_epochs: int) -> Optional[GraphBatch]:
+        """Every batch of ``n_epochs`` passes in one call of the C++ batcher
+        (``native.fast_build_batches``), shuffled from the loader's numpy
+        generator as ``__iter__`` shuffles: a ``GraphBatch`` of CPU tensors
+        with leading dimensions ``[n_epochs, steps]``, float32 targets, the
+        masks bool.  None with triplets, as in the JAX package (the batcher
+        builds no triplets); a failed build of the batcher raises."""
+        if self.with_triplets:
+            return None
+        from .native import FlatDataset, fast_build_batches
+
+        if not hasattr(self, "_flat"):
+            self._flat = FlatDataset(self.graphs)
+        steps = len(self)
+        chunks = []
+        for _ in range(n_epochs):
+            order = np.arange(len(self.graphs))
+            if self.shuffle:
+                self.rng.shuffle(order)
+            chunks.append(fast_build_batches(self._flat, order,
+                                             self.batch_size, *self.pad))
+        fields = {}
+        for key in chunks[0]:
+            a = np.stack([c[key] for c in chunks]).reshape(
+                (n_epochs, steps) + chunks[0][key].shape[1:])
+            if key.endswith("_mask"):
+                a = a.astype(bool)
+            fields[key] = torch.from_numpy(a)
+        return GraphBatch(**fields)
 
 
 def random_split(dataset: Sequence, fractions: Sequence[float], seed: int = 0):

@@ -43,6 +43,9 @@ from ..ops.radial import radial_embedding
 from ..ops.spherical import spherical_harmonics
 from .pooling import POOL
 
+# the stages tp_precision may cover (the JAX package's tp_precision_scope)
+SCOPES = ("all", "conv", "prod", "heads")
+
 
 class MACEModel(nn.Module):
     """MACE with the JAX package's constructor surface (and defaults);
@@ -50,11 +53,15 @@ class MACEModel(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
     None), then moved to ``device`` (default ``"cuda"``, which raises when
-    CUDA is absent).  ``tp_precision`` and ``tp_precision_scope`` are
-    accepted for the JAX surface and have no effect: every product on the
-    card is exact f32.  ``weights_bf16`` makes the conv layers' weight heads
-    emit bf16, as in TFN.  ``tp_axis`` needs ``mesh`` (``ValueError``
-    otherwise).  ``config`` holds the constructor's arguments."""
+    CUDA is absent).  ``tp_precision`` is the precision (``precision.py``)
+    of the stages ``tp_precision_scope`` names, as in the JAX package
+    (``_scoped_precision``): ``conv`` the edge products' stage 1, ``prod``
+    the symmetric contraction and the product block's linear, ``all`` both,
+    ``heads`` both and the conv layers' weight heads; every other product
+    follows the process default.  ``weights_bf16`` makes the conv layers'
+    weight heads emit bf16, as in TFN.  ``tp_axis`` needs ``mesh``
+    (``ValueError`` otherwise).  ``config`` holds the constructor's
+    arguments."""
 
     def __init__(self, r_max: float = 10.0, num_bessel: int = 8,
                  num_polynomial_cutoff: int = 5, max_ell: int = 2,
@@ -78,8 +85,13 @@ class MACEModel(nn.Module):
         dev = resolve_device(device)
         if pool not in POOL:
             raise ValueError(f"pool must be one of {sorted(POOL)}, got {pool!r}")
+        if tp_precision_scope not in SCOPES:
+            raise ValueError(f"tp_precision_scope must be one of {SCOPES}, "
+                             f"got {tp_precision_scope!r}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.tp_precision = tp_precision
+        self.tp_precision_scope = tp_precision_scope
         self.r_max, self.num_bessel = r_max, num_bessel
         self.num_polynomial_cutoff, self.max_ell = num_polynomial_cutoff, max_ell
         self.correlation, self.num_layers = correlation, num_layers
@@ -100,12 +112,15 @@ class MACEModel(nn.Module):
                 Irreps(f"{emb_dim}x0e") if i == 0 else hidden, hidden,
                 sh_irreps, edge_dim=num_bessel, mlp_dim=mlp_dim, aggr=aggr,
                 batch_norm=batch_norm, gate=False, weights_bf16=weights_bf16,
-                tp_precision=tp_precision, tp_axis=tp_axis, tp_size=tp_size,
-                mesh=mesh, generator=generator))
+                tp_precision=self._scoped_precision("conv"),
+                head_precision=self._scoped_precision("heads"),
+                tp_axis=tp_axis, tp_size=tp_size, mesh=mesh,
+                generator=generator))
             self.prods.append(EquivariantProductBasisBlock(
                 hidden, hidden, correlation, use_sc=residual,
                 element_dependent=False, num_elements=in_dim,
-                tp_axis=tp_axis, tp_size=tp_size, mesh=mesh,
+                tp_axis=tp_axis, tp_size=tp_size,
+                precision=self._scoped_precision("prod"), mesh=mesh,
                 generator=generator))
         if tp_axis is not None:
             if equivariant_pred:
@@ -123,6 +138,16 @@ class MACEModel(nn.Module):
             self.dense_0 = linear(emb_dim, emb_dim, generator)
             self.dense_1 = linear(emb_dim, out_dim, generator, OutputLinear)
         self.to(dev)
+
+    def _scoped_precision(self, stage: str) -> Optional[str]:
+        """``tp_precision`` where ``tp_precision_scope`` covers ``stage``
+        (``conv``, ``prod`` or ``heads``), else None (the process
+        default)."""
+        if self.tp_precision is None:
+            return None
+        scopes = ("all", "heads") if stage != "heads" else ("heads",)
+        return (self.tp_precision
+                if self.tp_precision_scope in scopes + (stage,) else None)
 
     def edge_inputs(self, batch: GraphBatch):
         """``(edge_sh [E, (max_ell+1)^2], edge_feats [E, num_bessel])`` of

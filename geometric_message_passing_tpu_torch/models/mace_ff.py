@@ -82,8 +82,9 @@ class MACEForceField(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
     None), then moved to ``device`` (default ``"cuda"``, which raises when
-    CUDA is absent).  ``tp_precision`` is accepted for the JAX surface and
-    has no effect: every product on the card is exact f32.  ``interaction``
+    CUDA is absent).  ``tp_precision`` is the precision of the interaction
+    blocks' 'uvu' products and post-convolution linears and of the product
+    blocks (``precision.py``; None: the process default).  ``interaction``
     and ``interaction_first`` name one of ``FF_INTERACTIONS``.  ``gp_axis``
     needs ``mesh`` (the ``parallel.Mesh`` holding that axis) and the sum
     pool (``ValueError`` otherwise); such a model runs the single-rank

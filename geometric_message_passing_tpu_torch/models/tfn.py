@@ -43,8 +43,9 @@ class TFNModel(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
     None), then moved to ``device`` (default ``"cuda"``, which raises when
-    CUDA is absent).  ``tp_precision`` is accepted for the JAX surface; on
-    the card the tensor product is exact f32 whatever its value.
+    CUDA is absent).  ``tp_precision`` is the precision of the conv layers'
+    edge products (stage 1; ``precision.py``; None: the process default);
+    K7, their stage 2, computes exact f32 whatever it says.
     ``tp_axis`` needs ``mesh`` (``ValueError`` otherwise).  ``config``
     holds the constructor's arguments."""
 

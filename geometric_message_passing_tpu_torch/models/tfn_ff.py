@@ -43,9 +43,10 @@ class TFNForceField(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` (seeded with 0 when
     None), then moved to ``device`` (default ``"cuda"``, which raises when
-    CUDA is absent).  ``tp_precision`` is accepted for the JAX surface and
-    has no effect: every product on the card is exact f32 (the JAX default,
-    None, means single bf16 passes on a TPU)."""
+    CUDA is absent).  ``tp_precision`` is the precision of the interaction
+    blocks' 'uvu' products and post-convolution linears (``precision.py``;
+    the JAX default, None, follows the process default: exact f32 unless
+    ``--matmul_precision`` lowers it)."""
 
     def __init__(self, r_max: float = 10.0, num_bessel: int = 8,
                  num_polynomial_cutoff: int = 5, max_ell: int = 2,

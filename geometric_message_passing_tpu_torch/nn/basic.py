@@ -1,7 +1,8 @@
 """Scalar building blocks (port of ``nn/basic.py``): activations, the
-``torch.nn.Linear`` default initialisation drawn from a given generator, and
-the Linear/Norm/Act ``MLP``, and ``RowParallelDense`` (a Linear whose input
-is split over a mesh axis: tensor parallelism)."""
+``torch.nn.Linear`` default initialisation drawn from a given generator, the
+``Linear`` whose product follows a precision (``precision.py``), the
+Linear/Norm/Act ``MLP``, and ``RowParallelDense`` (a Linear whose input is
+split over a mesh axis: tensor parallelism)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import precision as prec
 from ..ops.scatter import segment_sum
 
 ACT = {
@@ -34,7 +36,20 @@ def torch_linear_init_(t: torch.Tensor, fan_in: int,
         return t.uniform_(-bound, bound, generator=generator)
 
 
-class OutputLinear(nn.Linear):
+class Linear(nn.Linear):
+    """``torch.nn.Linear`` whose product runs at ``precision`` (the JAX
+    ``Dense(precision=)``; None: the process default, see
+    ``precision.py``).  Same parameters and names."""
+
+    precision: Optional[str] = None
+    site: str = "dense"          # the product's name for precision.record
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return prec.linear(x, self.weight, self.bias, self.precision,
+                           self.site)
+
+
+class OutputLinear(Linear):
     """A model's output layer: ``torch.nn.Linear`` computed as ``b + x @
     W^T`` in one ``addmm`` with ``W^T`` made contiguous, so every row of the
     result is computed alike and equal input rows give bitwise-equal outputs
@@ -46,14 +61,18 @@ class OutputLinear(nn.Linear):
     parameters and names; ``x`` is ``[rows, in_features]``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.addmm(self.bias, x, self.weight.t().contiguous())
+        return prec.addmm(self.bias, x, self.weight.t().contiguous(),
+                          self.precision, self.site)
 
 
 def linear(in_features: int, out_features: int,
-           generator: torch.Generator, cls=torch.nn.Linear) -> torch.nn.Linear:
-    """A ``cls`` (``torch.nn.Linear`` or ``OutputLinear``) with the default
-    init of a torch Linear drawn from ``generator``."""
+           generator: torch.Generator, cls=Linear,
+           precision: Optional[str] = None, site: str = "dense") -> Linear:
+    """A ``cls`` (``Linear`` or ``OutputLinear``) at ``precision`` with the
+    default init of a torch Linear drawn from ``generator``; ``site`` names
+    its product for ``precision.record``."""
     layer = cls(in_features, out_features)
+    layer.precision, layer.site = precision, site
     torch_linear_init_(layer.weight, in_features, generator)
     torch_linear_init_(layer.bias, in_features, generator)
     return layer
@@ -81,7 +100,7 @@ class RowParallelDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..parallel.mesh import differentiable
 
-        partial = x @ self.weight.t().contiguous()
+        partial = prec.matmul(x, self.weight.t().contiguous(), site="dense")
         return differentiable.psum(self.mesh, partial, self.axis) + self.bias
 
 

@@ -13,8 +13,9 @@ one head per output-irrep group (``fc_out[g]``, flax ``fc_out{g}``), so each
 group's weights come out as their own ``[E, n_p*u*w]`` tensor and reach K7
 as a free view.  ``weights_bf16``: the heads compute and emit bf16 (flax
 ``Dense(dtype=bfloat16)``) and K7 converts them to f32 inside the kernel.
-``tp_precision`` is accepted and has no effect on the card: every product
-there is exact f32 (TF32 stays off).
+``tp_precision`` is the precision of the edge product's stage 1 (K7, its
+stage 2, computes exact f32 whatever it says), ``head_precision`` that of
+the weight heads (``precision.py``; None: the process default).
 
 ``EquivariantProductBasisBlock``: the symmetric contraction, then an
 ``IrrepsLinear``, then the self-connection added; with ``node_chunk``, in
@@ -41,8 +42,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
+from .. import precision as prec
 from ..irreps import Irrep, Irreps
 from ..ops.scatter import segment_mean, segment_sum
 from .basic import MLP, linear
@@ -84,7 +85,8 @@ class TensorProductConvLayer(nn.Module):
                  gate: bool = False, weights_bf16: bool = False,
                  tp_precision: Optional[str] = None,
                  tp_axis: Optional[str] = None, tp_size: int = 1,
-                 mesh=None, *, generator: torch.Generator):
+                 mesh=None, head_precision: Optional[str] = None, *,
+                 generator: torch.Generator):
         super().__init__()
         if aggr not in ("sum", "add", "mean"):
             raise ValueError(f"aggr must be 'sum', 'add' or 'mean', got {aggr!r}")
@@ -113,8 +115,9 @@ class TensorProductConvLayer(nn.Module):
                                     precision=tp_precision)
         self.fc = MLP(edge_dim, (mlp_dim,), activation="relu", norm=None,
                       act_final=True, generator=generator)
-        self.fc_out = nn.ModuleList(linear(mlp_dim, n, generator)
-                                    for n in self.tp.group_weight_numels)
+        self.fc_out = nn.ModuleList(
+            linear(mlp_dim, n, generator, precision=head_precision,
+                   site="heads") for n in self.tp.group_weight_numels)
         self.bn = EquivariantBatchNorm(out_irreps) if batch_norm else None
 
     def heads(self, edge_feats: torch.Tensor):
@@ -124,8 +127,9 @@ class TensorProductConvLayer(nn.Module):
         if not self.weights_bf16:
             return [head(a) for head in self.fc_out]
         a16 = a.to(torch.bfloat16)
-        return [F.linear(a16, head.weight.to(torch.bfloat16),
-                         head.bias.to(torch.bfloat16)) for head in self.fc_out]
+        return [prec.linear(a16, head.weight.to(torch.bfloat16),
+                            head.bias.to(torch.bfloat16), head.precision,
+                            head.site) for head in self.fc_out]
 
     def forward(self, node_feats, senders, receivers, edge_sh, edge_feats,
                 edge_mask=None, node_mask=None) -> torch.Tensor:
@@ -159,8 +163,9 @@ class EquivariantProductBasisBlock(nn.Module):
     ``SymmetricContraction`` (``symmetric_contraction``, flax
     ``SymmetricContraction_0``) -> ``IrrepsLinear`` (``linear``, flax
     ``IrrepsLinear_0``) -> ``+ sc`` when ``use_sc``; returns flat
-    ``[N, target_irreps.dim]``.  ``precision`` is accepted for the JAX
-    surface (exact f32 here).  ``node_chunk``: the three steps run in
+    ``[N, target_irreps.dim]``.  ``precision``: the precision of the
+    contraction's chain and of the ``IrrepsLinear`` (``precision.py``).
+    ``node_chunk``: the three steps run in
     blocks of that many nodes, each under ``torch.utils.checkpoint``
     (``tensor_product.node_blocks``), so one block's ``[n, c, d, d]``
     intermediates are alive at a time; the rows are independent, so the
@@ -190,7 +195,8 @@ class EquivariantProductBasisBlock(nn.Module):
             element_dependent=element_dependent, num_elements=num_elements,
             chain_precision=precision, generator=generator)
         self.linear = IrrepsLinear(target, self.target_full, fan_mult=tp_size,
-                                   precision=precision, generator=generator)
+                                   precision=precision, generator=generator,
+                                   site="prod_linear")
 
     def forward(self, node_feats: torch.Tensor,
                 sc: Optional[torch.Tensor] = None,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import precision as prec
 from ..irreps import Irrep, Irreps
 from .basic import ACT
 
@@ -96,14 +97,15 @@ class IrrepsLinear(nn.Module):
     Parameters ``w{i}_{k}`` of shape ``[mul_in, mul_out]``, the flax names;
     when both sides list the same irreps with one multiplicity each (MACE's
     square map) only the diagonal ``w{k}_{k}`` exist, with fan ``mul_in``,
-    as in the JAX package's fast path.  ``precision`` is accepted for the
-    JAX surface: the products here are exact f32 (TF32 off) whatever its
-    value."""
+    as in the JAX package's fast path.  ``precision``: the precision of its
+    products (``precision.py``; None: the process default); ``site`` names
+    them for ``precision.record``."""
 
     def __init__(self, irreps_in: Irreps, irreps_out: Irreps,
                  fan_mult: int = 1, precision: Optional[str] = None, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, site: str = "irreps_linear"):
         super().__init__()
+        self.precision, self.site = precision, site
         self.irreps_in, self.irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         ins, outs = self.irreps_in, self.irreps_out
         square = ([ir for _, ir in ins] == [ir for _, ir in outs]
@@ -138,7 +140,8 @@ class IrrepsLinear(nn.Module):
             if not names:
                 outs.append(x.new_zeros(x.shape[:-1] + (mul_out, ir_out.dim)))
                 continue
-            y = sum(torch.einsum("...ud,uw->...wd", xs[ki], getattr(self, name))
+            y = sum(prec.einsum("...ud,uw->...wd", xs[ki], getattr(self, name),
+                                precision=self.precision, site=self.site)
                     for ki, name in names)
             outs.append(y / math.sqrt(max(fan, 1)))
         return merge_blocks(outs)

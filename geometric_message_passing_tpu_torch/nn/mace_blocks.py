@@ -15,8 +15,9 @@ so one chunk's per-edge tensors are alive at a time, forward and backward.
 Modules carry the flax names (``linear_up``, ``conv_tp_weights``,
 ``linear``, ``skip_tp``; parameters ``w{i}``, ``w{a}_{b}``, ``weights``), so
 ``weights.mace_ff_from_jax`` carries a JAX model's values over.
-``precision`` is accepted for the JAX surface and has no effect: every
-product is exact f32.
+``precision`` (the JAX package's): the precision of the 'uvu' product and
+of the post-convolution ``linear`` (``precision.py``); every other product
+follows the process default.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from .. import precision as prec
 
 from ..irreps import Irreps
 from ..ops.scatter import segment_sum
@@ -61,7 +64,7 @@ class E3FullyConnectedNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
             w = getattr(self, f"w{i}")
-            x = x @ (w / math.sqrt(w.shape[0]))
+            x = prec.matmul(x, w / math.sqrt(w.shape[0]), site="radial")
             if i < self.n - 1:
                 x = ACT[self.act](x) * _act_second_moment(self.act)
         return x
@@ -117,7 +120,8 @@ class AtomicEnergiesBlock(nn.Module):
             np.asarray(atomic_energies, np.float32)), persistent=False)
 
     def forward(self, one_hot: torch.Tensor) -> torch.Tensor:
-        return one_hot @ self.atomic_energies.to(one_hot.dtype)
+        return prec.matmul(one_hot, self.atomic_energies.to(one_hot.dtype),
+                           site="energies")
 
 
 class ScaleShiftBlock(nn.Module):
@@ -148,8 +152,8 @@ class TensorProductWeightsBlock(nn.Module):
 
     def forward(self, node_attrs_one_hot: torch.Tensor,
                 edge_feats: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("be,ba,aek->bk", edge_feats, node_attrs_one_hot,
-                            self.weights)
+        return prec.einsum("be,ba,aek->bk", edge_feats, node_attrs_one_hot,
+                           self.weights, site="radial")
 
 
 class _InteractionBase(nn.Module):
@@ -363,7 +367,7 @@ class RealAgnosticInteractionBlock(_InteractionBase):
         self.conv_tp_weights = self._weight_net(generator)
         self.linear = IrrepsLinear(self.tp.irreps_out, self.target_irreps,
                                    precision=self.precision,
-                                   generator=generator)
+                                   generator=generator, site="conv_linear")
         self.skip_tp = FullyConnectedTensorProduct(
             self.target_irreps, self.node_attrs_irreps, self.target_irreps,
             node_chunk=self.node_chunk, generator=generator)
@@ -397,7 +401,7 @@ class RealAgnosticResidualInteractionBlock(_InteractionBase):
         self.conv_tp_weights = self._weight_net(generator)
         self.linear = IrrepsLinear(self.tp.irreps_out, self.target_irreps,
                                    precision=self.precision,
-                                   generator=generator)
+                                   generator=generator, site="conv_linear")
 
     def forward(self, node_attrs, node_feats, edge_attrs, edge_feats,
                 senders, receivers, edge_mask=None, halo_exchange=None

@@ -6,8 +6,9 @@ The generalised CG (U) tensors come from the port's own
 ``irreps.u_matrix_real``.  They are constants: non-persistent buffers (not
 in the state dict, not trained), built once per process on the host and
 copied to the module's device with it.  The products are PyTorch's
-(``torch.einsum``, batched matrix products) in exact f32: this operation
-has no Pallas kernel in the JAX package, so none here either.
+(einsums, batched matrix products) at ``chain_precision``
+(``precision.py``; None: the process default): this operation has no
+Pallas kernel in the JAX package, so none here either.
 
 Two evaluations of the same polynomial, as in the JAX package:
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import precision as prec
 from ..irreps import Irrep, Irreps, u_matrix_real
 
 
@@ -39,21 +41,26 @@ def _normal_param(shape, std: float, generator: torch.Generator) -> nn.Parameter
 
 
 def _chain(U: dict, W: dict, x: torch.Tensor, correlation: int,
-           y: Optional[torch.Tensor] = None) -> torch.Tensor:
+           y: Optional[torch.Tensor] = None,
+           precision: Optional[str] = None) -> torch.Tensor:
     """The descending-nu chain: ``U[nu]`` is ``[..., d, K_nu]``, ``W[nu]``
     ``[K_nu, c]`` (``[elements, K_nu, c]`` with the one-hot ``y``), ``x``
-    ``[b, c, d]``; returns ``[b, c, ...]``."""
+    ``[b, c, d]``; returns ``[b, c, ...]``.  Every einsum at
+    ``precision``."""
+    def ein(eq, *ops):
+        return prec.einsum(eq, *ops, precision=precision, site="chain")
+
     nu = correlation
     if y is not None:
-        out = torch.einsum("...ik,ekc,bci,be->bc...", U[nu], W[nu], x, y)
+        out = ein("...ik,ekc,bci,be->bc...", U[nu], W[nu], x, y)
         for nu in range(correlation - 1, 0, -1):
-            c = torch.einsum("...k,ekc,be->bc...", U[nu], W[nu], y) + out
-            out = torch.einsum("bc...i,bci->bc...", c, x)
+            c = ein("...k,ekc,be->bc...", U[nu], W[nu], y) + out
+            out = ein("bc...i,bci->bc...", c, x)
         return out
-    out = torch.einsum("...ik,kc,bci->bc...", U[nu], W[nu], x)
+    out = ein("...ik,kc,bci->bc...", U[nu], W[nu], x)
     for nu in range(correlation - 1, 0, -1):
-        c = torch.einsum("...k,kc->c...", U[nu], W[nu]) + out
-        out = torch.einsum("bc...i,bci->bc...", c, x)
+        c = ein("...k,kc->c...", U[nu], W[nu]) + out
+        out = ein("bc...i,bci->bc...", c, x)
     return out
 
 
@@ -124,10 +131,12 @@ class SymmetricContraction(nn.Module):
     ``contraction_{ir}_w{nu}`` (``[K_i, c]``, or ``[num_elements, K_i, c]``)
     drawn from N(0, 1/K_i) and concatenated along K in the forward.
 
-    ``chain_precision`` is accepted for the JAX surface and has no effect:
-    the products are exact f32 (TF32 off).  ``chain_dtype`` (the JAX
-    package's bf16 speed knob, set by no model) raises
-    ``NotImplementedError``."""
+    ``chain_precision``: the precision of the chain's products, in both
+    forms (``precision.py``; None: the process default).  ``chain_dtype``
+    (the JAX package's speed knob, e.g. ``"bfloat16"``; set by no model,
+    an attribute that may be set after construction): x, U, W (and y) cast
+    to it, the chain computed in it (its intermediates stay in it), the
+    output cast back to x's type."""
 
     def __init__(self, irreps_in: Irreps, irreps_out: Irreps,
                  correlation: int, element_dependent: bool = False,
@@ -136,10 +145,7 @@ class SymmetricContraction(nn.Module):
                  chain_precision: Optional[str] = None,
                  fused_lowrank: bool = True, *, generator: torch.Generator):
         super().__init__()
-        if chain_dtype is not None:
-            raise NotImplementedError(
-                "SymmetricContraction(chain_dtype=...) is not ported: the "
-                "chain runs in float32")
+        self.chain_dtype, self.chain_precision = chain_dtype, chain_precision
         irreps_in, irreps_out = Irreps(irreps_in), Irreps(irreps_out)
         muls = {mul for mul, _ in irreps_in}
         if len(muls) != 1:
@@ -172,13 +178,21 @@ class SymmetricContraction(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        in_dtype = x.dtype
         U = {nu: getattr(self, f"u{nu}").to(x.dtype) for nu in self.names}
         W = self.weights()
+        y = y if self.element_dependent else None
+        if self.chain_dtype is not None:
+            cd = getattr(torch, self.chain_dtype)
+            x = x.to(cd)
+            U = {k: v.to(cd) for k, v in U.items()}
+            W = {k: v.to(cd) for k, v in W.items()}
+            y = None if y is None else y.to(cd)
         if self.fused:
             out = self._fused_chain(x, U, W)
         else:
-            out = _chain(U, W, x, self.correlation,
-                         y if self.element_dependent else None)
+            out = _chain(U, W, x, self.correlation, y, self.chain_precision)
+        out = out.to(in_dtype)
         outs, o = [], 0          # [n, c, D] in output-irrep order -> flat
         for ir in self.irs_out:
             blk = out[..., o:o + ir.dim]
@@ -195,21 +209,26 @@ class SymmetricContraction(nn.Module):
         b, c, d = x.shape
         nu = self.correlation
         D = U[1].shape[0]
-        A1 = torch.einsum("...k,kc->c...", U[1], W[1])             # [c, D, j1]
+
+        def ein(eq, *ops):
+            return prec.einsum(eq, *ops, precision=self.chain_precision,
+                               site="chain")
+
+        A1 = ein("...k,kc->c...", U[1], W[1])                      # [c, D, j1]
         if nu == 1:
-            return torch.einsum("bci,cDi->bcD", x, A1)
+            return ein("bci,cDi->bcD", x, A1)
         # A2: [c, D, j1, i] -> [c, i, (D, j1)]
-        A2 = torch.einsum("...k,kc->c...", U[2], W[2])
+        A2 = ein("...k,kc->c...", U[2], W[2])
         A2 = A2.permute(0, 3, 1, 2).reshape(c, d, D * d)
         if nu == 3:
             # A3: [c, D, j1, j2, i] -> [c, (i, j2), (D, j1)]
-            A3 = torch.einsum("...k,kc->c...", U[3], W[3])
+            A3 = ein("...k,kc->c...", U[3], W[3])
             A3 = A3.permute(0, 4, 3, 1, 2).reshape(c, d * d, D * d)
             M = torch.cat([A3, A2], dim=1)                          # [c, d²+d, Dd]
-            xx = torch.einsum("bci,bcj->bcij", x, x).reshape(b, c, d * d)
+            xx = ein("bci,bcj->bcij", x, x).reshape(b, c, d * d)
             z = torch.cat([xx, x], dim=-1)                          # [b, c, d²+d]
-            out2 = torch.einsum("bcz,czq->bcq", z, M)
+            out2 = ein("bcz,czq->bcq", z, M)
         else:
-            out2 = torch.einsum("bci,ciq->bcq", x, A2)
+            out2 = ein("bci,ciq->bcq", x, A2)
         out2 = out2.reshape(b, c, D, d) + A1[None]
-        return torch.einsum("bcqj,bcj->bcq", out2, x)
+        return ein("bcqj,bcj->bcq", out2, x)

@@ -31,9 +31,10 @@ four are PyTorch products and elementwise operations here.
 ``internal_weights=True``) is the interaction blocks' self-connection; with
 ``node_chunk`` it runs row blocks under ``torch.utils.checkpoint``.
 
-``precision`` (the JAX package's ``tp_precision``) is accepted and has no
-effect: on the card every product is exact f32 (TF32 stays off and K7 uses
-f32 FMAs).
+``precision`` (the JAX package's ``tp_precision``) is the precision of
+stage 1's products and of every product of the 'uvu' forms
+(``precision.py``; None: the process default).  Stage 2 is K7 on the card,
+which computes with f32 FMAs whatever the precision.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import precision as prec
 from ..irreps import Irreps, tp_paths, tp_paths_uvu, wigner_3j
 from ..ops.edge_contract import edge_weighted_contract_grouped
 from .equivariant import merge_blocks, split_blocks
@@ -84,15 +86,17 @@ def _to_channel_layout(x: torch.Tensor, irreps: Irreps) -> torch.Tensor:
     return torch.cat(split_blocks(x, irreps), dim=-1)
 
 
-def _stage1(x: torch.Tensor, sh: torch.Tensor, C: torch.Tensor
-            ) -> torch.Tensor:
+def _stage1(x: torch.Tensor, sh: torch.Tensor, C: torch.Tensor,
+            precision: Optional[str] = None) -> torch.Tensor:
     """``tmp[e,u,m] = sum_ab x[e,u,a] sh[e,b] C[a,b,m]``: the per-edge CG
-    matrix ``sh @ C`` ``[E, a, m]``, then one batched product."""
+    matrix ``sh @ C`` ``[E, a, m]``, then one batched product, both at
+    ``precision``."""
     L, S, M = C.shape
     lead = x.shape[:-2]
     xf = x.reshape((-1,) + x.shape[-2:])
-    Ce = (sh.reshape(-1, S) @ C.permute(1, 0, 2).reshape(S, L * M))
-    return torch.bmm(xf, Ce.reshape(-1, L, M)).reshape(
+    Ce = prec.matmul(sh.reshape(-1, S), C.permute(1, 0, 2).reshape(S, L * M),
+                     precision, "tp")
+    return prec.bmm(xf, Ce.reshape(-1, L, M), precision, "tp").reshape(
         lead + (x.shape[-2], M))
 
 
@@ -183,7 +187,7 @@ class EdgeTensorProduct:
         u = self._uniform_mul
         xr = _to_channel_layout(x, self.irreps_in)            # [E, u, L]
         C = torch.as_tensor(self._C, dtype=x.dtype, device=x.device)
-        tmp = _stage1(xr, sh, C)                             # [E, u, M]
+        tmp = _stage1(xr, sh, C, self.precision)             # [E, u, M]
         e = x.shape[0]
         Ts, Ws = [], []
         for g, (i_out, n_p, m0, w0, d3, _, mul_o) in enumerate(self._groups):
@@ -216,7 +220,7 @@ class EdgeTensorProduct:
             W = weights[..., w_off:w_off + nW].reshape(e, p.mul_in1, p.mul_out)
             w_off += nW
             tmp = (p.path_weight * self.path_weight_scale) * _stage1(
-                xs[p.i_in1], sh[..., off:off + d2], C)
+                xs[p.i_in1], sh[..., off:off + d2], C, self.precision)
             g = groups.setdefault(p.i_out, ([], []))
             g[0].append(tmp)
             g[1].append(W)
@@ -295,8 +299,9 @@ class EdgeTensorProductUVU:
     ``"bcast"`` (per path, the CG contraction as an elementwise product and
     a short sum), ``"pair"`` (one product per (l1, l2) pair, all its l3
     outputs) or anything else per path; non-uniform input multiplicities
-    always take the per-path form.  ``precision`` is accepted for the JAX
-    surface and has no effect: every product is exact f32."""
+    always take the per-path form.  ``precision``: every product of the
+    four forms runs at it (``precision.py``; the elementwise products of
+    the broadcast form are exact f32 in any case)."""
 
     COMBINED_MAX_EDGES = 4096
     LARGE_GROUPING = "bcast"
@@ -387,7 +392,8 @@ class EdgeTensorProductUVU:
         for k, p in enumerate(self.paths):
             xin, sh_blk, C, W = self._path_inputs(k, xs, sh, weights)
             d1, d2, d3 = C.shape
-            K = (sh_blk @ C.permute(1, 0, 2).reshape(d2, d1 * d3)).reshape(
+            K = prec.matmul(sh_blk, C.permute(1, 0, 2).reshape(d2, d1 * d3),
+                            self.precision, "tp").reshape(
                 sh_blk.shape[0], d1, d3)
             y = (xin[..., :, :, None] * K[..., None, :, :]).sum(-2)
             y = p.path_weight * y * W[..., None]
@@ -401,7 +407,8 @@ class EdgeTensorProductUVU:
         u = self._uniform_mul
         e, P = x.shape[0], len(self.paths)
         xr = _to_channel_layout(x, self.irreps_in)            # [E, u, L]
-        tmp = _stage1(xr, sh, self._const.get("C", x))        # [E, u, M]
+        tmp = _stage1(xr, sh, self._const.get("C", x),
+                      self.precision)                         # [E, u, M]
         W = weights.reshape(e, P, u)
         return merge_blocks([blk * W[:, k, :, None] for k, blk in
                              enumerate(torch.split(tmp, self._d3, dim=-1))])
@@ -415,7 +422,8 @@ class EdgeTensorProductUVU:
         for g, (i1, i2, pids, d3s, woffs) in enumerate(self._pair_groups):
             off, d2 = self._sh_offsets[i2]
             tmp = _stage1(xs[i1], sh[..., off:off + d2],
-                          self._const.get(("pair", g), x))    # [E, u, M_g]
+                          self._const.get(("pair", g), x),
+                          self.precision)                     # [E, u, M_g]
             for k, o, blk in zip(pids, woffs, torch.split(tmp, d3s, dim=-1)):
                 yk = blk * weights[..., o:o + u, None]
                 slot = self.paths[k].i_out
@@ -427,7 +435,8 @@ class EdgeTensorProductUVU:
         outs = [None] * len(self.irreps_out)
         for k, p in enumerate(self.paths):
             xin, sh_blk, C, W = self._path_inputs(k, xs, sh, weights)
-            y = p.path_weight * (_stage1(xin, sh_blk, C) * W[..., None])
+            y = p.path_weight * (_stage1(xin, sh_blk, C, self.precision)
+                                 * W[..., None])
             outs[p.i_out] = y if outs[p.i_out] is None else outs[p.i_out] + y
         return _merge_outs(outs, self.irreps_out, x)
 
@@ -494,7 +503,8 @@ class FullyConnectedTensorProduct(nn.Module):
         u, n = self.irreps_in1[0][0], x1.shape[0]
         v = self.irreps_in2[0][0]
         xr = _to_channel_layout(x1, self.irreps_in1)          # [N, u, L]
-        tmp = xr @ self._const.get("C", x1)                  # [N, u, M]
+        tmp = prec.matmul(xr, self._const.get("C", x1),
+                          site="skip_tp")                     # [N, u, M]
         outs = [None] * len(self.irreps_out)
         for i_out, (mul_o, ir_o) in enumerate(self.irreps_out):
             pids = [k for k, p in enumerate(self.paths) if p.i_out == i_out]
@@ -505,9 +515,11 @@ class FullyConnectedTensorProduct(nn.Module):
                              for k in pids], dim=-2)          # [N, u, P, d3]
             T = T.transpose(-3, -2).reshape(n, n_p * u, d3)   # [N, (p,u), d3]
             W = torch.stack([getattr(self, f"w{k}") for k in pids])  # [P,u,v,w]
-            Wx = (x2 @ W.permute(2, 0, 1, 3).reshape(v, n_p * u * mul_o)
-                  ).reshape(n, n_p * u, mul_o)                # [N, (p,u), w]
-            outs[i_out] = torch.bmm(Wx.transpose(1, 2), T)    # [N, w, d3]
+            Wx = prec.matmul(x2, W.permute(2, 0, 1, 3).reshape(
+                v, n_p * u * mul_o), site="skip_tp").reshape(
+                    n, n_p * u, mul_o)                        # [N, (p,u), w]
+            outs[i_out] = prec.bmm(Wx.transpose(1, 2), T,
+                                   site="skip_tp")            # [N, w, d3]
         return _merge_outs(outs, self.irreps_out, x1)
 
     def _per_path(self, x1, x2) -> torch.Tensor:
@@ -515,8 +527,9 @@ class FullyConnectedTensorProduct(nn.Module):
         xs2 = split_blocks(x2, self.irreps_in2)
         outs = [None] * len(self.irreps_out)
         for k, p in enumerate(self.paths):
-            y = p.path_weight * torch.einsum(
+            y = p.path_weight * prec.einsum(
                 "nua,nvb,abm,uvw->nwm", xs1[p.i_in1], xs2[p.i_in2],
-                self._const.get(("w3j", k), x1), getattr(self, f"w{k}"))
+                self._const.get(("w3j", k), x1), getattr(self, f"w{k}"),
+                site="skip_tp")
             outs[p.i_out] = y if outs[p.i_out] is None else outs[p.i_out] + y
         return _merge_outs(outs, self.irreps_out, x1)

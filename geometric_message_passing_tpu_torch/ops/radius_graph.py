@@ -1,9 +1,12 @@
 """Radius-graph construction on the host (port of ``ops/radius_graph.py``).
 
-A vectorised numpy cell list: points hash into cells of side ``r``; the
-neighbours of a point lie in the 3^d cells around its own.  The edges and
-their order are those of the JAX package's ``radius_graph`` (its C++ cell
-list and its numpy twin agree element for element): receivers (centres) in
+``radius_graph`` runs the C++ cell list of ``csrc/host/radius.cpp`` (the JAX
+package's ``native/radius.cpp``, built by ``ops/_host_build.py``; a failed
+build raises, there is no fallback).  ``radius_graph_plain`` is its numpy
+twin, kept for the tests and the card's checks: a vectorised cell list.
+Points hash into cells of side ``r``; the neighbours of a point lie in the
+3^d cells around its own.  Both give the edges of the JAX package's
+``radius_graph`` in its order, element for element: receivers (centres) in
 row 0,
 ascending; for each centre, the neighbour cells in meshgrid order (last axis
 fastest), and inside a cell the points by ascending id; with
@@ -16,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+from . import _host_build
 
 # centres per chunk of the candidate enumeration: bounds the host memory to
 # some 100 candidates per centre at a time
@@ -55,7 +60,38 @@ def radius_graph(pos: np.ndarray, r: float, batch: Optional[np.ndarray] = None,
     batch[j]``: row 0 holds i (the centre), row 1 its neighbour j.
 
     ``pos`` ``[n, d]`` (or ``[n]``), ``batch`` ``[n]`` graph ids (no edge
-    across graphs), ``max_num_neighbors`` keeps each centre's k nearest."""
+    across graphs), ``max_num_neighbors`` keeps each centre's k nearest.
+    The C++ cell list (``csrc/host/radius.cpp``); ``radius_graph_plain``
+    gives the same array."""
+    lib = _host_build.load()
+    pos = np.ascontiguousarray(np.asarray(pos, np.float64))
+    if pos.ndim == 1:
+        pos = np.ascontiguousarray(pos[:, None])
+    n, d = pos.shape
+    if n == 0:
+        return np.zeros((2, 0), np.int32)
+    if n >= 2 ** 31:
+        raise ValueError("radius_graph: n must be below 2**31")
+    b = None if batch is None else np.ascontiguousarray(batch, np.int64)
+    if b is not None and b.shape != (n,):
+        raise ValueError(f"radius_graph: batch must be [{n}], got {b.shape}")
+    k = -1 if max_num_neighbors is None else int(max_num_neighbors)
+    cap = max(16, 4 * n)
+    while True:
+        out = np.empty((2, cap), np.int32)
+        count = lib.gmp_radius_graph(
+            pos.ctypes.data, n, d, float(r),
+            None if b is None else b.ctypes.data, int(loop), k,
+            out[0].ctypes.data, out[1].ctypes.data, cap)
+        if count <= cap:
+            return np.ascontiguousarray(out[:, :count])
+        cap = int(count)
+
+
+def radius_graph_plain(pos: np.ndarray, r: float,
+                       batch: Optional[np.ndarray] = None, loop: bool = False,
+                       max_num_neighbors: Optional[int] = None) -> np.ndarray:
+    """``radius_graph`` in numpy (the same edges in the same order)."""
     pos = np.asarray(pos, np.float64)
     if pos.ndim == 1:
         pos = pos[:, None]

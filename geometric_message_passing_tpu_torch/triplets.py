@@ -1,5 +1,8 @@
 """Host-side triplet and quad indices for directional message passing
-(port of ``triplets.py``), as vectorised numpy.
+(port of ``triplets.py``): ``build_triplets`` runs the C++ enumerator of
+``csrc/host/triplets.cpp`` (``native.fast_build_triplets``; a failed build
+raises), ``build_triplets_plain`` is its vectorised numpy twin, kept for the
+tests and the card's checks.
 
 For each directed edge e = (j -> i) (senders = j, receivers = i) and each
 incoming edge e' = (k -> j) with k != i, there is a triplet
@@ -45,7 +48,16 @@ def _expand(owner_node: np.ndarray, rowptr: np.ndarray, order: np.ndarray):
 def build_triplets(edge_index: np.ndarray, num_nodes: int,
                    with_quads: bool = False):
     """``(idx_i, idx_j, idx_k, idx_kj, idx_ji[, q_trip, q_kn])`` int32
-    numpy arrays, in the JAX package's order (see the module docstring)."""
+    numpy arrays, in the JAX package's order (see the module docstring), by
+    the C++ enumerator; ``build_triplets_plain`` gives the same arrays."""
+    from .native import fast_build_triplets
+
+    return fast_build_triplets(np.asarray(edge_index), num_nodes, with_quads)
+
+
+def build_triplets_plain(edge_index: np.ndarray, num_nodes: int,
+                         with_quads: bool = False):
+    """``build_triplets`` in numpy."""
     src = np.asarray(edge_index[0], np.int64)
     dst = np.asarray(edge_index[1], np.int64)
     order = np.lexsort((src, dst))            # by dst, then src

@@ -8,6 +8,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from geometric_message_passing_tpu.experiments import cli as jcli
 from geometric_message_passing_tpu.experiments import train as jtrain
@@ -120,15 +121,30 @@ def test_lr_warmup_and_record_match_jax(captured, model, dataset, warmup,
 
 @pytest.mark.parametrize("precision", ["default", "tensorfloat32",
                                        "bfloat16_3x"])
-def test_unported_matmul_precisions_raise(captured, precision):
+def test_unported_matmul_precisions_raise(captured, monkeypatch, precision):
+    """Ported: every choice runs, as the process default of
+    ``precision.py`` for the run only ('default' is exact f32 on the card),
+    with the TF32 flag to match; both are restored on return."""
+    from geometric_message_passing_tpu_torch import precision as tprec
+
+    stub, during = tcli.run_experiment_reg, []
+
+    def run(*args, **kw):
+        during.append((tprec.process_default(),
+                       torch.backends.cuda.matmul.allow_tf32))
+        return stub(*args, **kw)
+
+    monkeypatch.setattr(tcli, "run_experiment_reg", run)
+    want = {"default": "highest", "float32": "highest", "highest": "highest",
+            "tensorfloat32": "tensorfloat32", "bfloat16_3x": "bfloat16_3x"}
     argv = ["--model", "egnn", "--dataset", "star", "--matmul_precision",
             precision] + BASE
-    with pytest.raises(NotImplementedError, match="float32"):
-        tcli.main(argv, device="cpu")
-    assert "run" not in captured["port"]
-    for ok in ("float32", "highest"):
-        tcli.main(argv[:-len(BASE) - 1] + [ok] + BASE, device="cpu")
-        assert captured["port"]["record"]["matmul_precision"] == ok
+    for name in (precision, "float32", "highest"):
+        tcli.main(argv[:-len(BASE) - 1] + [name] + BASE, device="cpu")
+        assert captured["port"]["record"]["matmul_precision"] == name
+        assert during[-1] == (want[name], name == "tensorfloat32")
+        assert tprec.process_default() == "highest"
+        assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def test_main_runs_and_appends_a_record(tmp_path, capsys):

@@ -124,9 +124,14 @@ def test_symmetric_contraction_state_holds_no_u_tables():
     assert not any(k.startswith("u") for k in module.state_dict())
     assert [n for n, _ in module.named_parameters()] == [
         f"contraction_{ir}_w{nu}" for nu in (1, 2, 3) for ir in ("0e", "1o")]
-    with pytest.raises(NotImplementedError, match="chain_dtype"):
-        sc.SymmetricContraction(h, h, 2, chain_dtype="bfloat16",
-                                generator=_gen())
+    # chain_dtype (ported): the same state, the chain in bf16, f32 out
+    low = sc.SymmetricContraction(h, h, 3, chain_dtype="bfloat16",
+                                  generator=_gen())
+    assert list(low.state_dict()) == list(module.state_dict())
+    x = torch.from_numpy(_x((4, 2, 4), 3))
+    out = low(x)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, module(x), atol=5e-2, rtol=5e-2)
 
 
 @pytest.mark.parametrize("element_dependent", [False, True])

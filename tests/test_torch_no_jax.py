@@ -109,7 +109,15 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.parallel.partition",
                    "geometric_message_passing_tpu_torch.experiments.gp_check",
                    "geometric_message_passing_tpu_torch.experiments."
-                   "dryrun_multichip"):
+                   "dryrun_multichip",
+                   "geometric_message_passing_tpu_torch.precision",
+                   "geometric_message_passing_tpu_torch.native",
+                   "geometric_message_passing_tpu_torch.native.batch",
+                   "geometric_message_passing_tpu_torch.ops._host_build",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "precision_check",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "staged_check"):
         assert module in res["imported"]
 
 
