@@ -526,7 +526,17 @@ Phases; any failure raises and the script exits non-zero:
   11d. the C++ graph code against its numpy twins, equal element for
      element, both times printed: the 100k box's radius graph, the 10k
      box's triplets and quads;
-  12. summary: one JSON line of kernels (each with its launches in the CLI
+  12. the report scripts at cut depth (12a in its child process and 12e
+     in its rank process while 12b-12d run here): 12a ``experiments.validate_accuracy``'s first
+     egnn/star row with ``--n_epochs 3 --n_times 1`` through its child
+     (exit 0, a finite test MAE); 12b ``roofline_report`` for egnn and
+     MACE (5 timed steps each on the card, the FLOPs and bytes counted on
+     a CPU twin: positive, ``counted_on`` "cpu"; K4 and K7 launched by the
+     card's steps); 12c ``roofline_scale`` for SchNet on the 10k box (K4
+     launched); 12d ``halo_box_stats`` at 10k atoms, k 4 (``packed_win``
+     above 1); 12e ``bench_scaling`` at world 1 on NCCL (edges per second
+     positive, the loss finite);
+  13. summary: one JSON line of kernels (each with its launches in the CLI
      runs; K1-K4 with their launches a step on the box rows of 6k and
      6o-6q; K4 with its launches on the teaching path; K1, K2 and K4 with
      their launches per rank on the data-parallel path; K7 and K4 with
@@ -535,13 +545,14 @@ Phases; any failure raises and the script exits non-zero:
      rank on the graph-partitioned path and the dryrun's parts,
      ``gp_launches``, K4 with its reading at the gp shape, ``gp_shape``;
      K4 and K7 with their launches in 11b's steps, ``precision_launches``,
-     K1, K2 and K4 with theirs in 11c's staged run, ``staged_launches``),
+     K1, K2 and K4 with theirs in 11c's staged run, ``staged_launches``;
+     each with its launches in 12b-12c's timed steps, ``report_launches``),
      then the device line last.
 
 Phases run in the order 1, 2, 3, 3b, 3c, 3d, 3e, 3f, 4, 4b, 4c, 4d, 4e, 4f,
 4g, 4h, 5, 5b, 5c, 5d, 5e, 5f, 5g, 5h, 6, 6f, 6g, 6d, 6b, 6c, 6e, 6h, 6i, 6j,
 6k, 6o, 6p, 6q, 6l, 6n, 6m, 7a, 7b, 7c, 7d, 8a, 8b, 8c, 9a-9e, 9f, 9g, 11,
-12.
+12, 13.
 It imports nothing of JAX.  Peak rates for the bounds are the H100 SXM data
 sheet's: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s HBM.  The bound
 of K3 and K4 counts the rows their segments hold (each read once), the
@@ -562,6 +573,7 @@ import statistics
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -570,15 +582,10 @@ from geometric_message_passing_tpu_torch.experiments import (bench_kernels,
                                                              bench_scale)
 from geometric_message_passing_tpu_torch.experiments.bench_kernels import (
     cuda_time_ms, segsum_bound_ms as seg_bound_ms)
-from geometric_message_passing_tpu_torch.experiments import (cli,
-                                                             dp_check,
-                                                             dryrun_multichip,
-                                                             gp_check,
-                                                             precision_check,
-                                                             seed_spread,
-                                                             staged_check,
-                                                             tp_check,
-                                                             train)
+from geometric_message_passing_tpu_torch.experiments import (
+    bench_scaling, cli, dp_check, dryrun_multichip, gp_check, halo_box_stats,
+    precision_check, roofline_report, roofline_scale, seed_spread,
+    staged_check, tp_check, train, validate_accuracy)
 from geometric_message_passing_tpu_torch.examples import gnn101, qm9_pipeline
 from geometric_message_passing_tpu_torch import utils
 from geometric_message_passing_tpu_torch.utils import roofline
@@ -3596,6 +3603,89 @@ def slice_phases(card: str) -> dict:
             "readings": {"precision_check": read, "staged_check": sread}}
 
 
+# phase 12a: the sweep's first egnn/star row, cut to 3 epochs and one repeat
+REPORT_ROW = next(c for c in validate_accuracy.CONFIGS
+                  if c[:2] == ("egnn", "star"))
+REPORT_EXTRA = ["--n_epochs", "3", "--n_times", "1"]
+REPORT_STAR = ("egnn", "mace")      # 12b; 12c: schnet at 10k atoms
+REPORT_STEPS = 5                    # 12b-12c: steps a timed call
+
+
+def report_phases(card: str) -> dict:
+    """12a-12e, the report scripts (``experiments.validate_accuracy``,
+    ``roofline_report``, ``roofline_scale``, ``halo_box_stats``,
+    ``bench_scaling``) at cut depth: 12a runs in its child process and 12e
+    in its rank process while 12b-12d run here, so 12b-12c's times share
+    the card with them and are not the reports'.  Raises on any failed
+    check; returns each kernel's launches in 12b-12c's timed steps on the
+    card (the CPU counts launch nothing) and the rows."""
+    t_all = time.perf_counter()
+    part_s = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(max_workers=2) as pool:
+        sweep = pool.submit(validate_accuracy.run_row, *REPORT_ROW,
+                            extra=REPORT_EXTRA,
+                            ledger=f"{tmp}/validation_history_torch.json")
+        ranks = pool.submit(bench_scaling.main, ["--worlds", "1"])
+        t = time.perf_counter()
+        reset_counts()
+        star = [roofline_report.report_row(name, steps=REPORT_STEPS, reps=1,
+                                           warm=1) for name in REPORT_STAR]
+        star_launches = counts()
+        part_s["12b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        reset_counts()
+        box = roofline_scale.scale_row("schnet", n_nodes=10_000,
+                                       steps=REPORT_STEPS, reps=1)
+        box_launches = counts()
+        part_s["12c"] = time.perf_counter() - t
+        for row in star + [box]:
+            log(f"[reports] 12b-12c roofline {row['model']} "
+                f"({row.get('nodes', 'star')}): {row['flops']:.6g} FLOPs, "
+                f"{row['bytes_accessed']:.6g} bytes a step counted on the "
+                f"{row['counted_on']} in {row['count_s']:.2f} s; step "
+                f"{row['step_ms']} ms on the card, frac_of_roof "
+                f"{row['frac_of_roof']} [{card}]")
+        t = time.perf_counter()
+        halo = list(halo_box_stats.rows([10_000], [4]))
+        part_s["12d"] = time.perf_counter() - t
+        log(f"[reports] 12d halo_box_stats {json.dumps(halo[0])}")
+        (scaling,) = ranks.result()
+        part_s["12e"] = time.perf_counter() - t_all
+        log(f"[reports] 12e bench_scaling {json.dumps(scaling)}")
+        row = sweep.result()
+        part_s["12a"] = time.perf_counter() - t_all
+    log(f"[reports] 12a validate_accuracy {REPORT_ROW[0]}/{REPORT_ROW[1]} "
+        f"{REPORT_EXTRA}: test MAE {row['mean']} ({row['status']}, "
+        f"{row['wall_s']} s) [{card}]")
+    seconds = time.perf_counter() - t_all
+    log(f"[time] phase 12: {seconds:.1f} s (parts, s: "
+        f"{json.dumps({k: round(v, 2) for k, v in part_s.items()})})")
+    fails = []
+    if row["status"] != "ok" or not np.isfinite(row["mean"]):
+        fails.append(f"12a: {row['status']}, MAE {row['mean']}: "
+                     f"{row.get('tail', '')}")
+    for r in star + [box]:
+        if not (r["flops"] > 0 and r["bytes_accessed"] > 0
+                and r["step_ms"] > 0 and r["counted_on"] == "cpu"):
+            fails.append(f"12b-12c: {r['model']} row {r}")
+    if star_launches["segment_sum"] == 0 or star_launches["edge_contract"] == 0:
+        fails.append(f"12b: the card's steps launched {star_launches}")
+    if box_launches["segment_sum"] == 0:
+        fails.append(f"12c: the card's steps launched {box_launches}")
+    if not halo[0]["packed_win"] > 1:
+        fails.append(f"12d: packed_win {halo[0]['packed_win']}")
+    if not (scaling["edges_per_sec"] > 0 and np.isfinite(scaling["loss"])):
+        fails.append(f"12e: {scaling}")
+    if fails:
+        raise AssertionError("phase 12: " + "; ".join(fails))
+    return {"launches": {"12b " + "+".join(REPORT_STAR): star_launches,
+                         "12c schnet 10k": box_launches},
+            "readings": {"12a": row, "12b": star, "12c": box, "12d": halo,
+                         "12e": scaling, "seconds": seconds,
+                         "part_s": part_s}}
+
+
 def reset_counts() -> None:
     egnn_message.launches = egnn_message.bwd_launches = 0
     sss.sorted_segment_sum.launches = sss.segment_sum.launches = 0
@@ -4986,7 +5076,11 @@ def main() -> int:
     new_paths = slice_phases(card)
 
     mark("12")
-    # 12. summary
+    # 12. the report scripts
+    reports = report_phases(card)
+
+    mark("13")
+    # 13. summary
     kernels = [{
         "name": "egnn_message", "ok": True, "route": "cuda",
         "source": "geometric_message_passing_tpu_torch/csrc/egnn_message.cu",
@@ -5149,6 +5243,9 @@ def main() -> int:
         key = STAGED_KERNELS.get(k["name"])
         if key is not None:
             k["staged_launches"] = new_paths["staged_launches"][key]
+    for k in kernels:      # phase 12: the reports' timed steps on the card
+        k["report_launches"] = {part: c[k["name"]]
+                                for part, c in reports["launches"].items()}
     for k in kernels:      # the CLI's runs, counters read per run
         k["cli_launches"] = {
             **{f"7a {label}": r["launches"].get(k["name"], 0)
@@ -5210,6 +5307,7 @@ def main() -> int:
                     "tensor_pipeline_parallel": tp["readings"],
                     "graph_partitioning": gp["readings"],
                     "precision_staged_host": new_paths["readings"],
+                    "reports": reports["readings"],
                     "phase_start_s": PHASE_START}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

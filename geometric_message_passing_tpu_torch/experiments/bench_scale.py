@@ -307,13 +307,15 @@ def make_step(model: torch.nn.Module, batch: GraphBatch,
 
 
 def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
-              reps: int = 3) -> dict:
-    """Time ``name`` on ``batch`` (already on the card): two warm calls of
-    ``steps`` steps, then ``reps`` timed calls."""
+              reps: int = 3, model: Optional[torch.nn.Module] = None) -> dict:
+    """Time ``name`` on ``batch`` (already on the card; a CPU batch times
+    the CPU): two warm calls of ``steps`` steps, then ``reps`` timed calls;
+    of ``model`` when given, else of ``build(name, cfg)`` from seed 0."""
     edges = int(batch.edge_mask.sum())
     nodes = int(batch.node_mask.sum())
-    model = build(name, cfg, seed_everything(0), batch.atoms.device,
-                  avg_deg=mean_degree(batch))
+    if model is None:
+        model = build(name, cfg, seed_everything(0), batch.atoms.device,
+                      avg_deg=mean_degree(batch))
     plans = batch_seg_plans(batch) if name in SORTED else None
     step = make_step(model, batch, plans)
 
@@ -322,7 +324,9 @@ def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
             loss = step()
         return float(loss)          # host read: waits for the device
 
-    torch.cuda.reset_peak_memory_stats()
+    on_card = batch.pos.is_cuda
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     call()
     call()
     t0 = time.perf_counter()
@@ -344,8 +348,9 @@ def bench_one(name: str, cfg: dict, batch: GraphBatch, steps: int,
         "steps_per_sec": sps,
         "edges_per_sec_per_chip": edges * sps,
         "cfg": dict(cfg),
-        "device": card_line(),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device": card_line() if on_card else "cpu",
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                        else None),
         "steps_per_call": steps, "loss": loss, **extra,
     }
 

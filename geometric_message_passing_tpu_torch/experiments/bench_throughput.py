@@ -43,7 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -78,10 +78,12 @@ def check_names(names) -> None:
                              f"{sorted(MODELS)}")
 
 
-def build(name: str, generator: torch.Generator, device="cuda"):
-    """The model behind ``name`` at the table's depth and ``out_dim`` 1."""
+def build(name: str, generator: torch.Generator, device="cuda", **kw):
+    """The model behind ``name`` at the table's depth and ``out_dim`` 1
+    (``kw`` overrides the table's and the defaults' arguments)."""
     check_names([name])
-    cfg = dict(MODELS[name], out_dim=1, generator=generator, device=device)
+    cfg = {**MODELS[name], **kw, "out_dim": 1, "generator": generator,
+           "device": device}
     if name == "egnn_fused":
         return EGNNFusedModel(**cfg)
     if name == "egnn_stack":
@@ -122,9 +124,13 @@ def make_step(model: torch.nn.Module, batch: GraphBatch,
 
 
 def bench_one(name: str, batch: GraphBatch, steps: int = STEPS,
-              reps: int = REPS, warm: int = WARM) -> dict:
-    """Time ``name``'s train step on ``batch`` (on the card)."""
-    model = build(name, seed_everything(0), batch.pos.device)
+              reps: int = REPS, warm: int = WARM,
+              model: Optional[torch.nn.Module] = None) -> dict:
+    """Time ``name``'s train step on ``batch`` (on the card; a CPU batch
+    times the CPU), of ``model`` when given, else of ``build(name)`` from
+    seed 0."""
+    if model is None:
+        model = build(name, seed_everything(0), batch.pos.device)
     step = make_step(model, batch)
 
     def call() -> float:
@@ -143,7 +149,7 @@ def bench_one(name: str, batch: GraphBatch, steps: int = STEPS,
     return {"model": name, "num_layers": layers, "edges_per_batch": edges,
             "steps_per_sec": sps, "edges_per_sec_per_chip": edges * sps,
             "edges_per_sec_per_chip_per_layer": edges * sps / layers,
-            "device": card_line()}
+            "device": card_line() if batch.pos.is_cuda else "cpu"}
 
 
 def output_layer_cost(rows: int = 100, width: int = 128, out: int = 1,

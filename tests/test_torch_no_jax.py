@@ -117,7 +117,17 @@ def test_port_imports_no_jax():
                    "geometric_message_passing_tpu_torch.experiments."
                    "precision_check",
                    "geometric_message_passing_tpu_torch.experiments."
-                   "staged_check"):
+                   "staged_check",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "validate_accuracy",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "roofline_report",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "roofline_scale",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "halo_box_stats",
+                   "geometric_message_passing_tpu_torch.experiments."
+                   "bench_scaling"):
         assert module in res["imported"]
 
 
